@@ -1,0 +1,183 @@
+"""ResNeSt-50 split-attention backbone and U-Net decoder blocks, in PyTorch.
+
+The port of `octave_tpu/models/resnest.py`. Parameters are NCHW and named as
+in the reference torch state dict (`conv`, `bn0`, `fc1`, ..., `downsample.1`),
+so a reference state dict loads with `load_state_dict`; activations run
+channels_last. Counterparts:
+  * SplAtConv2d     octave_tpu/models/resnest.py:361-451
+  * Bottleneck      :478-566
+  * ResNeSt         :589-741, resnest50 :744-758
+  * ResNestDecoder  :761-855
+  * Upsampling      :858-884
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from octave_tpu_torch.ops.common import avg_pool2d, conv_transpose_2x2, max_pool2d
+from octave_tpu_torch.ops.kernels.decoder_epilogue import fused_decoder_epilogue
+from octave_tpu_torch.ops.norm import BatchNorm2d
+
+
+def nhwc(t: torch.Tensor) -> torch.Tensor:
+    """NCHW tensor -> contiguous NHWC view (free for a channels_last tensor)."""
+    return t.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+
+
+def nchw(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous NHWC tensor -> channels_last NCHW view."""
+    return t.permute(0, 3, 1, 2)
+
+
+class SplAtConv2d(nn.Module):
+    """Split-attention 3x3 conv, radix 2: grouped conv to 2C channels, BN,
+    ReLU; the two radix splits are summed, pooled, and passed through fc1,
+    BN, ReLU, fc2 to per-channel logits; a softmax over the radix weights
+    the splits. `groups` is the cardinality."""
+
+    def __init__(self, in_channels: int, channels: int, groups: int = 1, bias: bool = True):
+        super().__init__()
+        inter_channels = max(in_channels * 2 // 4, 32)  # reduction factor 4
+        self.channels = channels
+        self.conv = nn.Conv2d(in_channels, channels * 2, 3, 1, 1, groups=groups * 2, bias=bias)
+        self.bn0 = BatchNorm2d(channels * 2)
+        self.fc1 = nn.Conv2d(channels, inter_channels, 1, groups=groups)
+        self.bn1 = BatchNorm2d(inter_channels)
+        self.fc2 = nn.Conv2d(inter_channels, channels * 2, 1, groups=groups)
+
+    def forward(self, x: torch.Tensor, return_parts: bool = False):
+        """With return_parts=True, stop before the radix apply and return
+        (z, attn_logits): z (B, 2C, H, W) after BN0 + ReLU and the fc2 logits
+        (B, 2C) laid out [radix-0 channels, radix-1 channels], which the
+        fused decoder epilogue consumes."""
+        c = self.channels
+        x = F.relu(self.bn0(self.conv(x)))
+        b = x.shape[0]
+        x0, x1 = x[:, :c], x[:, c:]
+        gap = (x0 + x1).mean(dim=(2, 3), keepdim=True)
+        atten = self.fc2(F.relu(self.bn1(self.fc1(gap)))).view(b, 2 * c)
+        if return_parts:
+            return x, atten
+        attn = torch.softmax(atten.view(b, 2, c), dim=1)
+        return attn[:, 0].view(b, c, 1, 1) * x0 + attn[:, 1].view(b, c, 1, 1) * x1
+
+
+class Bottleneck(nn.Module):
+    """ResNeSt-50 bottleneck: 1x1, split-attention 3x3 followed, when
+    strided, by the avd AvgPool2d(3, stride, 1), then 1x1 to 4x planes; the
+    shortcut of a stage's first block is avg_down: AvgPool2d(stride, stride,
+    ceil_mode, not counting padding), 1x1 conv, BN."""
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 has_downsample: bool = False):
+        super().__init__()
+        self.stride = stride
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = SplAtConv2d(planes, planes, groups=1, bias=False)
+        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.bn3 = BatchNorm2d(planes * 4)
+        self.downsample: Optional[nn.Sequential] = None
+        if has_downsample:
+            self.downsample = nn.Sequential(
+                nn.AvgPool2d(stride, stride, ceil_mode=True, count_include_pad=False),
+                nn.Conv2d(inplanes, planes * 4, 1, bias=False),
+                BatchNorm2d(planes * 4))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv2(F.relu(self.bn1(self.conv1(x))))
+        if self.stride > 1:
+            out = avg_pool2d(out, 3, self.stride, 1)
+        out = self.bn3(self.conv3(out))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + residual)
+
+
+class ResNeSt(nn.Module):
+    """ResNeSt backbone with the deep stem (three 3x3 convs of width 32, 32,
+    64, then BN and ReLU as `bn1`/`relu`), the stem's MaxPool2d(3, 2, 1),
+    and four stages `layer1..4` of Bottlenecks. The segmentor taps the
+    stages; `forward` returns the last one."""
+
+    def __init__(self, layers=(3, 4, 6, 3), stem_width: int = 32):
+        super().__init__()
+        self.conv1 = nn.Sequential(
+            nn.Conv2d(3, stem_width, 3, 2, 1, bias=False), BatchNorm2d(stem_width),
+            nn.ReLU(inplace=True),
+            nn.Conv2d(stem_width, stem_width, 3, 1, 1, bias=False), BatchNorm2d(stem_width),
+            nn.ReLU(inplace=True),
+            nn.Conv2d(stem_width, stem_width * 2, 3, 1, 1, bias=False),
+        )
+        self.bn1 = BatchNorm2d(stem_width * 2)
+        self.relu = nn.ReLU(inplace=True)
+        inplanes = stem_width * 2
+        for li, (planes, blocks) in enumerate(zip((64, 128, 256, 512), layers)):
+            stride = 1 if li == 0 else 2
+            stage = [Bottleneck(inplanes, planes, stride, has_downsample=True)]
+            stage += [Bottleneck(planes * 4, planes) for _ in range(blocks - 1)]
+            setattr(self, f"layer{li + 1}", nn.Sequential(*stage))
+            inplanes = planes * 4
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """NCHW image -> layer4 features (B, 2048, H/32, W/32)."""
+        x = max_pool2d(self.relu(self.bn1(self.conv1(x))), 3, 2, 1)
+        return self.layer4(self.layer3(self.layer2(self.layer1(x))))
+
+
+def resnest50() -> ResNeSt:
+    """The resnest50 configuration: layers (3, 4, 6, 3), radix 2,
+    cardinality 1, bottleneck width 64, deep stem of width 32, avd and
+    avg_down."""
+    return ResNeSt((3, 4, 6, 3), stem_width=32)
+
+
+class ResNestDecoder(nn.Module):
+    """U-Net decoder residual block: [3x3 conv, BN, ReLU, SplAtConv2d(groups=2,
+    radix=2), ReLU] plus a 1x1 conv + BN shortcut, joined by ReLU(sum)."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.conv = nn.Sequential(
+            nn.Conv2d(in_channels, out_channels, 3, 1, 1, bias=False),
+            BatchNorm2d(out_channels),
+            nn.ReLU(inplace=True),
+            SplAtConv2d(out_channels, out_channels, groups=2, bias=True),
+            nn.ReLU(inplace=True),
+        )
+        self.downsample = nn.Sequential(
+            nn.Conv2d(in_channels, out_channels, 1, bias=False), BatchNorm2d(out_channels))
+
+    def forward(self, x: torch.Tensor, gate: Optional[nn.Conv2d] = None):
+        """x: (B, in, H, W), the concat of skip and upsampled maps.
+
+        With `gate` (the following attention gate's 1x1 conv) in eval mode,
+        the block's tail — radix apply, inner ReLU, shortcut BN, residual,
+        outer ReLU and the gate itself — runs as one fused epilogue and the
+        call returns (gated (B,C,H,W), y_hat (B,H,W,K)) instead of the block
+        output."""
+        if gate is None or self.training:
+            return F.relu(self.conv(x) + self.downsample(x))
+        conv, bn, _, splat, _ = self.conv
+        z, attn = splat(F.relu(bn(conv(x))), return_parts=True)
+        res_conv, res_bn = self.downsample
+        rs, rb = res_bn.eval_affine()
+        k = gate.out_channels
+        out, yhat = fused_decoder_epilogue(
+            nhwc(z), attn, nhwc(res_conv(x)), rs, rb,
+            gate.weight.view(k, -1).t(), gate.bias)
+        return nchw(out), yhat
+
+
+class Upsampling(nn.Module):
+    """ConvTranspose2d(kernel_size=2, stride=2), named `up` as in the reference."""
+
+    def __init__(self, in_channels: int, out_channels: int):
+        super().__init__()
+        self.up = nn.ConvTranspose2d(in_channels, out_channels, 2, 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_transpose_2x2(x, self.up.weight, self.up.bias)

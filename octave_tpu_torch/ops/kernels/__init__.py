@@ -1,0 +1,69 @@
+"""Hand-written Hopper kernels (Triton) for the Pallas kernels of octave_tpu.
+
+Triton is imported only inside the functions that launch a kernel: a host
+without it (or without a GPU) imports every module here and runs the plain
+PyTorch versions on CPU tensors.
+"""
+from __future__ import annotations
+
+import os
+from pathlib import Path
+
+import torch
+
+# Triton writes its compiled kernels here (listed in .gitignore), so a fresh
+# checkout builds every kernel from this package's sources.
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "triton"
+
+
+def triton_build_dir() -> Path:
+    """Point Triton's cache at BUILD_DIR; call before the first `import triton`."""
+    if os.environ.get("TRITON_CACHE_DIR") != str(BUILD_DIR) or not BUILD_DIR.is_dir():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        os.environ["TRITON_CACHE_DIR"] = str(BUILD_DIR)
+    return BUILD_DIR
+
+
+def check_nhwc(name: str, t: torch.Tensor, ndim: int, device: torch.device) -> None:
+    """Raise unless `t` is a contiguous float tensor of rank `ndim` on `device`."""
+    if t.ndim != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: unsupported dtype {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous (NHWC, i.e. channels_last NCHW "
+                         f"permuted to NHWC); strides {t.stride()}")
+
+
+# Kernel against its plain version: (out, y_hat) tolerances as (atol, rtol).
+# float32: those of tests/test_pallas_kernels.py, whose cases have C <= 64.
+# Each logit is a float32 sum of C terms whose rounding noise grows as
+# sqrt(C), so above C = 64 the float32 atol is scaled by sqrt(C / 64) (x4 at
+# C = 1024; an H100 run found the AAG's y_hat 1.01e-6 off at C = 256).
+# bfloat16: both sides compute in float32 and round once, so they may differ
+# by one bf16 ulp (rtol 2^-7) where a value sits on a rounding boundary.
+_TOL = {
+    ("aag", torch.float32): ((1e-5, 0.0), (1e-6, 0.0)),
+    ("decoder_epilogue", torch.float32): ((2e-5, 0.0), (1e-5, 0.0)),
+    ("aag", torch.bfloat16): ((1e-3, 2**-7), (1e-3, 2**-7)),
+    ("decoder_epilogue", torch.bfloat16): ((1e-3, 2**-7), (1e-3, 2**-7)),
+}
+
+
+def kernel_tolerance(kernel: str, dtype: torch.dtype, c: int):
+    """((atol, rtol) of out, (atol, rtol) of y_hat) for `kernel` at width C."""
+    scale = max(1.0, (c / 64) ** 0.5) if dtype == torch.float32 else 1.0
+    return tuple((atol * scale, rtol) for atol, rtol in _TOL[(kernel, dtype)])
+
+
+def next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def pow2_tile(c: int, elems: int) -> tuple[int, int]:
+    """(rows, BLOCK_C) for a [rows, BLOCK_C] register tile of about `elems`
+    values: BLOCK_C is the next power of two >= c."""
+    block_c = next_pow2(c)
+    return max(1, elems // block_c), block_c

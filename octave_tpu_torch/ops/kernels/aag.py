@@ -1,0 +1,108 @@
+"""Fused Adversarial Attention Gate: a Triton kernel and its plain version.
+
+Replaces the Pallas kernel `octave_tpu/ops/pallas/aag.py::fused_aag`
+(`_kernel` :45-60, `pallas_call` :97). For x (B,H,W,C), W (C,K), b (K):
+    logits = x·W + b;  y_hat = softmax(logits) over K;  mask = Σ_{k≥1} y_hat
+    returns (x * mask, y_hat).
+
+Bound on the H100: memory. Per pixel the gate reads C activation values and
+writes C + K; with K = 2 that is about 5C flops for 4C bytes in bf16, far
+under the card's ridge of ~295 flops per byte, so the least time
+is bytes / 3.35 TB/s (about 8.5 µs of the five 304² decoder depths per image
+in bf16, 28.6 MB). What the design does about it: each program keeps a whole
+[rows, C] tile in registers, so x is read from device memory exactly once
+and written once; the K = 2 logits are two row reductions held in registers
+(no padding of K to 128 lanes as the TPU kernel did, which would have
+written 64x the y_hat bytes); rows are contiguous NHWC, so every tile load
+and store is one coalesced run of memory. K is far below any tensor-core
+tile, so no `tl.dot`.
+
+The backward (`_AAGFunction.backward`) is plain PyTorch reproducing the JAX
+package's XLA backward (`aag.py:_bwd` :126-142).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from octave_tpu_torch.ops.kernels import check_nhwc, next_pow2, pow2_tile, triton_build_dir
+
+# register tile of one program: rows x next_pow2(C) values
+_TILE_ELEMS = 4096
+
+
+def fused_aag_plain(x: torch.Tensor, w: torch.Tensor,
+                    b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The eager formula, in float32, cast back to x's dtype."""
+    xf = x.float()
+    yhat = torch.softmax(xf @ w.float() + b.float(), dim=-1)
+    mask = yhat[..., 1:].sum(dim=-1, keepdim=True)
+    return (xf * mask).to(x.dtype), yhat.to(x.dtype)
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor,
+            b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    triton_build_dir()
+    from octave_tpu_torch.ops.kernels.triton_aag import aag_fwd_kernel
+
+    c, k = w.shape
+    n = x.numel() // c
+    out = torch.empty_like(x)
+    yhat = torch.empty(x.shape[:-1] + (k,), dtype=x.dtype, device=x.device)
+    block_n, block_c = pow2_tile(c, _TILE_ELEMS)
+    grid = (-(-n // block_n),)
+    aag_fwd_kernel[grid](
+        x, w.float().contiguous(), b.float().contiguous(), out, yhat, n,
+        C=c, K=k, BLOCK_N=block_n, BLOCK_C=block_c, BLOCK_K=next_pow2(k),
+        num_warps=4,
+    )
+    fused_aag.launches += 1
+    return out, yhat
+
+
+class _AAGFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b):
+        if x.is_cuda:
+            out, yhat = _launch(x, w, b)
+        else:
+            out, yhat = fused_aag_plain(x, w, b)
+        ctx.save_for_backward(x, w, yhat)
+        ctx.b_dtype = b.dtype
+        return out, yhat
+
+    @staticmethod
+    def backward(ctx, g_out, g_yhat):
+        x, w, yhat = ctx.saved_tensors
+        mask = yhat[..., 1:].sum(dim=-1, keepdim=True)
+        dmask = (g_out * x).sum(dim=-1, keepdim=True)
+        sel = torch.ones(yhat.shape[-1], dtype=yhat.dtype, device=yhat.device)
+        sel[0] = 0
+        ghat = g_yhat + dmask * sel
+        g_z = yhat * (ghat - (ghat * yhat).sum(dim=-1, keepdim=True))
+        g_x = g_out * mask + g_z @ w.to(g_z.dtype).t()
+        g_w = (x.reshape(-1, x.shape[-1]).t() @ g_z.reshape(-1, g_z.shape[-1])).to(w.dtype)
+        g_b = g_z.reshape(-1, g_z.shape[-1]).sum(dim=0).to(ctx.b_dtype)
+        return g_x, g_w, g_b
+
+
+def fused_aag(x: torch.Tensor, w: torch.Tensor,
+              b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B,H,W,C) contiguous NHWC; w (C,K); b (K,) -> (x*mask, y_hat (B,H,W,K)).
+
+    On a CUDA tensor it launches the Triton kernel (and counts the launch in
+    `fused_aag.launches`); on a CPU tensor it runs `fused_aag_plain`. It is
+    differentiable on both."""
+    check_nhwc("x", x, 4, x.device)
+    if w.ndim != 2 or w.shape[0] != x.shape[-1] or b.shape != (w.shape[1],):
+        raise ValueError(f"w must be (C, K) and b (K,) for C={x.shape[-1]}; got "
+                         f"{tuple(w.shape)}, {tuple(b.shape)}")
+    if w.device != x.device or b.device != x.device:
+        raise ValueError("x, w and b must be on one device")
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"fused_aag: no implementation for device {x.device}")
+    return _AAGFunction.apply(x, w, b)
+
+
+fused_aag.launches = 0

@@ -1,0 +1,153 @@
+"""Weight bridge: the JAX package's variable trees -> reference torch state dicts.
+
+The inverse of `octave_tpu/utils/torch_convert.py::convert_resnest_unet`
+(:52-278) for the ResnestUNet: HWIO conv kernels back to OIHW, Dense kernels
+transposed back, ConvTranspose kernels (in, out, 2, 2) as they are, BN
+scale/bias/mean/var back to weight/bias/running_mean/running_var, and the
+backbone renamed to the UNet's encoder_0_1_2 / encoder_1..4 keys. The result
+loads into `octave_tpu_torch.models.segmentor.ResnestUNet` with
+`load_reference_state_dict`. Folded stats (octave_tpu's fold_batch_stats)
+load the same way; mark the model with `ops.norm.folded_inference` then.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+Path = Tuple[str, ...]
+
+# reference keys the port's ResnestUNet does not build (classification heads)
+HEAD_PREFIXES = ("linear_head_emb.", "linear_head_dec.")
+
+
+def _flatten(tree: Mapping[str, Any], prefix: Path = ()) -> Dict[Path, np.ndarray]:
+    out: Dict[Path, np.ndarray] = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = np.asarray(v)
+    return out
+
+
+def _j(prefix: str, sub: str) -> str:
+    return sub if not prefix else f"{prefix}.{sub}"
+
+
+class _Inverter:
+    def __init__(self, variables: Mapping[str, Any]):
+        self.leaves = {("params",) + p: v for p, v in _flatten(variables["params"]).items()}
+        self.leaves.update({("batch_stats",) + p: v for p, v in
+                            _flatten(variables.get("batch_stats", {})).items()})
+        self.sd: Dict[str, np.ndarray] = {}
+        self.used: set = set()
+
+    def _take(self, path: Path) -> np.ndarray:
+        if path not in self.leaves:
+            raise KeyError(f"variables are missing {'/'.join(path)}")
+        self.used.add(path)
+        return self.leaves[path]
+
+    def has(self, col: str, path: Path) -> bool:
+        return (col,) + path in self.leaves
+
+    def conv(self, tkey: str, fpath: Path):
+        self.sd[_j(tkey, "weight")] = self._take(("params",) + fpath + ("kernel",)).transpose(3, 2, 0, 1)
+        if self.has("params", fpath + ("bias",)):
+            self.sd[_j(tkey, "bias")] = self._take(("params",) + fpath + ("bias",))
+
+    def dense(self, tkey: str, fpath: Path):
+        self.sd[_j(tkey, "weight")] = self._take(("params",) + fpath + ("kernel",)).T
+        if self.has("params", fpath + ("bias",)):
+            self.sd[_j(tkey, "bias")] = self._take(("params",) + fpath + ("bias",))
+
+    def conv_transpose(self, tkey: str, fpath: Path):
+        self.sd[_j(tkey, "weight")] = self._take(("params",) + fpath + ("kernel",))
+        self.sd[_j(tkey, "bias")] = self._take(("params",) + fpath + ("bias",))
+
+    def bn(self, tkey: str, fpath: Path):
+        self.sd[_j(tkey, "weight")] = self._take(("params",) + fpath + ("scale",))
+        self.sd[_j(tkey, "bias")] = self._take(("params",) + fpath + ("bias",))
+        self.sd[_j(tkey, "running_mean")] = self._take(("batch_stats",) + fpath + ("mean",))
+        self.sd[_j(tkey, "running_var")] = self._take(("batch_stats",) + fpath + ("var",))
+
+    def splat(self, tkey: str, fpath: Path):
+        self.conv(_j(tkey, "conv"), fpath + ("conv", "conv"))
+        self.bn(_j(tkey, "bn0"), fpath + ("bn0",))
+        self.conv(_j(tkey, "fc1"), fpath + ("fc1", "conv"))
+        self.bn(_j(tkey, "bn1"), fpath + ("bn1",))
+        self.conv(_j(tkey, "fc2"), fpath + ("fc2", "conv"))
+
+    def bottleneck(self, tkey: str, fpath: Path):
+        self.conv(_j(tkey, "conv1"), fpath + ("conv1", "conv"))
+        self.bn(_j(tkey, "bn1"), fpath + ("bn1",))
+        self.splat(_j(tkey, "conv2"), fpath + ("conv2",))
+        self.conv(_j(tkey, "conv3"), fpath + ("conv3", "conv"))
+        self.bn(_j(tkey, "bn3"), fpath + ("bn3",))
+        if self.has("params", fpath + ("downsample_conv", "conv", "kernel")):
+            # the avg_down shortcut: [AvgPool, Conv, BN]
+            self.conv(_j(tkey, "downsample.1"), fpath + ("downsample_conv", "conv"))
+            self.bn(_j(tkey, "downsample.2"), fpath + ("downsample_bn",))
+
+    def decoder(self, tkey: str, fpath: Path):
+        self.conv(_j(tkey, "conv.0"), fpath + ("conv1", "conv"))
+        self.bn(_j(tkey, "conv.1"), fpath + ("bn1",))
+        self.splat(_j(tkey, "conv.3"), fpath + ("splat",))
+        self.conv(_j(tkey, "downsample.0"), fpath + ("downsample_conv", "conv"))
+        self.bn(_j(tkey, "downsample.1"), fpath + ("downsample_bn",))
+
+
+def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """{"params", "batch_stats"} of octave_tpu's ResnestUNet (nested dicts of
+    arrays) -> the reference-named torch state dict. Every leaf must map."""
+    inv = _Inverter(variables)
+    bb = ("backbone",)
+    inv.conv("encoder_0_1_2.0.0", bb + ("stem_conv1", "conv"))
+    inv.bn("encoder_0_1_2.0.1", bb + ("stem_bn1",))
+    inv.conv("encoder_0_1_2.0.3", bb + ("stem_conv2", "conv"))
+    inv.bn("encoder_0_1_2.0.4", bb + ("stem_bn2",))
+    inv.conv("encoder_0_1_2.0.6", bb + ("stem_conv3", "conv"))
+    inv.bn("encoder_0_1_2.1", bb + ("bn1",))
+    for layer in range(1, 5):
+        block = 0
+        while inv.has("params", bb + (f"layer{layer}_{block}",)
+                      + ("conv1", "conv", "kernel")):
+            inv.bottleneck(f"encoder_{layer}.{block}", bb + (f"layer{layer}_{block}",))
+            block += 1
+    for i in range(5):
+        inv.conv_transpose(f"upsampling_{i}.up", (f"upsampling_{i}",))
+        inv.decoder(f"decoder_{i}", (f"decoder_{i}",))
+        if inv.has("params", (f"aag_{i}", "conv1", "conv", "kernel")):
+            inv.conv(f"aag_{i}.conv1", (f"aag_{i}", "conv1", "conv"))
+    inv.conv("fc", ("fc", "conv"))
+    # classification heads, when the tree has them (not built by the port)
+    if inv.has("params", ("linear_head_emb", "kernel")):
+        inv.dense("linear_head_emb.1", ("linear_head_emb",))
+    if inv.has("params", ("head_dec_conv1", "conv", "kernel")):
+        inv.conv("linear_head_dec.1", ("head_dec_conv1", "conv"))
+        inv.bn("linear_head_dec.3", ("head_dec_bn1",))
+        inv.conv("linear_head_dec.4", ("head_dec_conv2", "conv"))
+        inv.bn("linear_head_dec.6", ("head_dec_bn2",))
+        inv.dense("linear_head_dec.8", ("linear_head_dec",))
+    unused = sorted("/".join(p) for p in inv.leaves if p not in inv.used)
+    if unused:
+        raise ValueError(f"{len(unused)} variable(s) not mapped: {unused[:20]}")
+    return {k: torch.from_numpy(np.array(v)) for k, v in inv.sd.items()}
+
+
+def load_reference_state_dict(model: nn.Module, state_dict: Mapping[str, Any]) -> nn.Module:
+    """Load a reference-named state dict (torch tensors or numpy arrays) into
+    `model`. The classification heads are skipped; every other key must map,
+    and every parameter and buffer of `model` except num_batches_tracked must
+    be given."""
+    sd = {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v) else v
+          for k, v in state_dict.items() if not k.startswith(HEAD_PREFIXES)}
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise ValueError(f"state dict does not match the model: missing {missing[:20]}, "
+                         f"unexpected {unexpected[:20]}")
+    return model
