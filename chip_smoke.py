@@ -33,7 +33,22 @@ Phases, each printing its own lines:
                plain AAG; one bf16 step against one float32 step; 20 bf16
                steps on one batch (finite, all four kinds of state move,
                loss_sup falls); step time, img/s and peak memory in float32
-               and bf16, and a profile of one bf16 step by kernel group.
+               and bf16, and a profile of one bf16 step by kernel group;
+  6. deploy  - the deployment path at 304²: 32 + 16 phantoms written as PNGs
+               into a ROSE tree and read back; `cli train` on that folder
+               with augmentation, bf16, a checkpoint and a profiler trace (4
+               steps, 5 AAG launches per step and eval batch), resumed to
+               step 6; restore into a fresh state, exact; `cli eval
+               --checkpoint` against the live state's metrics; the weights
+               exported to the compact npz and read back; `cli predict` over
+               the 16 test PNGs against the Predictor called directly (5
+               epilogue launches per batch); `BatchServer` on the committed
+               trained weights (bf16, B = 32, ks (1, 2, 4), depth 2): 300
+               images in order against the direct path, launches 5 x the sum
+               of the dispatched k, k > 1 under flood and k = 1 for a lone
+               request, recovery from an injected out-of-memory at k = 4,
+               img/s, latency, device idle share and peak memory; checkpoint
+               and augmentation times.
 Exits non-zero, before printing any result, without CUDA or outside a
 checkout of the repository; any failed check
 raises. The last three lines are the kernels JSON, the card's name and power
@@ -41,12 +56,16 @@ limit, and {"ok": true, "device": ...}.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import logging
 import os
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -157,6 +176,35 @@ def train_group(name):
                             "nhwc", "nchw", "dgrad", "wgrad", "implicit", "sm90")):
         return "cuDNN convolutions and GEMMs"
     return "elementwise, pooling, cat, reductions, losses"
+
+
+def device_busy_ms(torch, prof):
+    """Milliseconds during which at least one device kernel or copy of the
+    profile ran (the union of their intervals, over all streams)."""
+    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and not ev.name.startswith("Activity")
+                   and not getattr(ev, "is_user_annotation", False))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+@contextlib.contextmanager
+def package_log():
+    """The messages the port's logger emits inside the block, as a list."""
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda r: records.append(r.getMessage())
+    logger = logging.getLogger("octave_tpu_torch")
+    logger.addHandler(handler)
+    try:
+        yield records
+    finally:
+        logger.removeHandler(handler)
 
 
 def profile_groups(torch, fn, group):
@@ -415,9 +463,21 @@ def main() -> int:
     # -- 5. training -------------------------------------------------------
     phase_train(torch, smi, fused_aag, fused_aag_plain, fused_decoder_epilogue, kernel_tolerance)
 
+    # -- 6. deployment -----------------------------------------------------
+    del serve_mask, serve_aag, plain, probs, many, mask, probs_aag, stack
+    torch.cuda.empty_cache()
+    by_path = {"aag": {"serve, use_fused_decoder=False": aag_launches["aag"]},
+               "decoder_epilogue": {"serve, __call__": main_launches["decoder_epilogue"]}}
+    deploy = phase_deploy(torch, smi, serve, weights,
+                          f"__call__ {SERVE_B / t_call:.1f} img/s, predict_many k=4 "
+                          f"{4 * SERVE_B / t_many:.1f} img/s")
+    for name, paths in deploy.items():
+        by_path[name].update(paths)
+
     line = {"kernels": [
         {"name": name, "route": "triton", "source": kern["source"],
          "replaces": kern["replaces"], "launches": launches[name],
+         "launches_by_path": by_path[name],
          "max_abs_err": totals[name]["err"], "ms": totals[name]["ms"],
          "plain_ms": totals[name]["plain_ms"], "bound_ms": totals[name]["bound_ms"],
          "bound_by": "bytes" if totals[name]["by"] == {"bytes"} else "operations",
@@ -639,6 +699,401 @@ def phase_train(torch, smi, fused_aag, fused_aag_plain, fused_decoder_epilogue,
             log("[train] top kernels: " + "; ".join(f"{n[:60]} {v:.2f} ms" for n, v in top))
         del tr, state, batch
         torch.cuda.empty_cache()
+
+
+# deploy-phase bounds. Probabilities of one image through the server and
+# through Predictor.__call__ may differ by one bf16 rounding; the npz export
+# rounds the raw weights to bf16 before the BN fold instead of after it.
+SERVER_PROB_ATOL = 2**-7
+SERVER_MASK_FLOOR = 0.9999
+EXPORT_PROB_MEAN_ATOL = 0.02
+
+
+def phase_deploy(torch, smi, serve, weights, direct_rates):
+    """Phase 6. Returns {kernel: {path: launches}} of its main-path runs."""
+    tmp = tempfile.mkdtemp(prefix="octave_deploy_")
+    try:
+        return _deploy(torch, smi, serve, weights, direct_rates, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _deploy(torch, smi, serve, weights, direct_rates, tmp):
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from octave_tpu_torch import cli
+    from octave_tpu_torch.data import augment
+    from octave_tpu_torch.data import datasets as ds
+    from octave_tpu_torch.ops.kernels import launch_counts
+    from octave_tpu_torch.serve import BatchServer, Predictor
+    from octave_tpu_torch.train.trainer import Trainer, build_dataset
+    from octave_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+        export_weights_npz,
+        load_weights_npz,
+        state_to_dict,
+    )
+    from octave_tpu_torch.utils.config import Config
+    from octave_tpu_torch.utils.imageio import read_image, write_png_gray
+
+    paths = {"aag": {}, "decoder_epilogue": {}}
+
+    def counted(label, fn, want):
+        """fn() with the launch counts zeroed just before it and read just after."""
+        launch_counts(reset=True)
+        result = fn()
+        torch.cuda.synchronize()
+        got = launch_counts()
+        log(f"[deploy] {label}: launches {got} (expected {want})")
+        check(got == want, f"{label}: launch counts {got}, expected {want}")
+        for name, n in got.items():
+            if n:
+                paths[name][label] = n
+        return result
+
+    def run_cli(argv):
+        """cli.main(argv) in process -> (its stdout, the package's log messages)."""
+        out = io.StringIO()
+        with package_log() as records, contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        check(rc == 0, f"cli {argv[0]} returned {rc}")
+        return out.getvalue(), records
+
+    def printed_metrics(text):
+        import ast
+
+        return ast.literal_eval([l for l in text.splitlines() if l.startswith("{")][-1])
+
+    # 6.1 phantoms as PNGs in a ROSE tree, read back through rose()
+    t0 = time.time()
+    n_train, n_test = 32, 16
+    root = os.path.join(tmp, "data")
+    phantoms_ds = ds.SyntheticOcta((304, 304), n=n_train + n_test, seed=21)
+    split_of = {"train": range(n_train), "test": range(n_train, n_train + n_test)}
+    for split, idx in split_of.items():
+        base = os.path.join(root, "ROSE-1", "SVC", split)
+        for d in ("img", "gt", "thin_gt"):
+            os.makedirs(os.path.join(base, d))
+        for i in idx:
+            s = phantoms_ds[i]
+            write_png_gray(os.path.join(base, "img", f"{i:03d}.png"), s.image)
+            write_png_gray(os.path.join(base, "gt", f"{i:03d}.png"), s.mask * 255)
+            write_png_gray(os.path.join(base, "thin_gt", f"{i:03d}.png"),
+                           (s.scribble == 2).astype(np.uint8) * 255)
+    for split, idx in split_of.items():
+        folder = ds.rose(root, "ROSE-1/SVC", split)
+        check(len(folder) == len(idx), f"rose {split}: {len(folder)} samples")
+        for j, i in enumerate(idx):
+            got, want = folder[j], phantoms_ds[i]
+            check(np.array_equal(got.image, want.image) and np.array_equal(got.mask, want.mask)
+                  and np.array_equal(got.scribble, np.where(want.scribble == 2, 2, 0)),
+                  f"rose {split} sample {j} differs from the phantom written")
+    log(f"[deploy] {n_train} + {n_test} phantoms (304²) written as PNGs into a ROSE tree and "
+        f"read back through rose(): pixels equal ({time.time() - t0:.1f} s)")
+
+    # 6.2 cli train on the folder: augmentation, bf16, checkpoint, trace; resume
+    ckpt_dir, prof_dir = os.path.join(tmp, "ckpt"), os.path.join(tmp, "prof")
+    over = {"data.dataset": "rose", "data.root": root, "data.augment": "true",
+            "data.augment_intensity": "0.1", "data.batch_size": "8",
+            "train.compute_dtype": "bfloat16", "train.checkpoint_dir": ckpt_dir,
+            "train.checkpoint_every": "4", "train.eval_every": "0", "train.log_every": "1"}
+
+    def argv(cmd, **extra):
+        return [cmd] + [f"{k}={v}" for k, v in {**over, **extra}.items()]
+
+    eval_batches = n_test // 8
+    t0 = time.time()
+    text, records = counted(
+        "cli train, 4 steps + final evaluate",
+        lambda: run_cli(argv("train", **{"train.steps": "4", "train.profile_dir": prof_dir})),
+        {"aag": 5 * (4 + eval_batches), "decoder_epilogue": 0})
+    t_train = time.time() - t0
+    check(CheckpointManager(ckpt_dir).all_steps() == [4], "no complete checkpoint at step 4")
+    traces = [f for f in os.listdir(prof_dir) if f.endswith(".json")]
+    check(len(traces) == 1 and os.path.getsize(os.path.join(prof_dir, traces[0])) > 10_000,
+          f"no profiler trace in {prof_dir}: {traces}")
+    trace_mb = os.path.getsize(os.path.join(prof_dir, traces[0])) / 1e6
+    shutil.rmtree(prof_dir)
+    check(not any("resumed" in r for r in records), "the first run resumed from something")
+    steps_logged = [r for r in records if r.startswith("step ")]
+    check(len(steps_logged) == 4, f"expected 4 logged steps, got {steps_logged}")
+    log(f"[deploy] cli train data.dataset=rose data.augment=true bf16 B=8, 4 steps "
+        f"({t_train:.1f} s with init, data, trace of {trace_mb:.1f} MB and eval): "
+        f"{steps_logged[-1]}; metrics {printed_metrics(text)}")
+
+    # the resumed run through the Trainer itself, to keep the live state
+    cfg = Config().apply_overrides({**over, "train.steps": "6"})
+    tr = Trainer(cfg, device="cuda")
+    with package_log() as records:
+        live = counted("Trainer.fit resumed, steps 5-6", tr.fit,
+                       {"aag": 10, "decoder_epilogue": 0})
+    check(any(r == "resumed from step 4" for r in records), f"no resume logged: {records[:5]}")
+    check(live.step == 6 and CheckpointManager(ckpt_dir).all_steps() == [4, 6],
+          f"resumed run ended at step {live.step}")
+
+    def leaves(obj, path=""):
+        if isinstance(obj, dict):
+            for k, v in obj.items():
+                yield from leaves(v, f"{path}/{k}")
+        elif isinstance(obj, (list, tuple)):
+            for i, v in enumerate(obj):
+                yield from leaves(v, f"{path}/{i}")
+        else:
+            yield path, obj
+
+    # checkpoint times on the live state, and the exact restore
+    timing_dir = os.path.join(tmp, "ckpt_timing")
+    mgr = CheckpointManager(timing_dir)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check(mgr.save(live.step, live), "save refused")
+    t_snapshot = time.perf_counter() - t0
+    mgr.wait()
+    t_write = time.perf_counter() - t0 - t_snapshot
+    ckpt_bytes = os.path.getsize(os.path.join(timing_dir, f"step_{live.step:08d}", "state.pt"))
+    fresh = tr.init_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = mgr.restore_latest(fresh)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    mgr.close()
+    shutil.rmtree(timing_dir)
+    want, got = dict(leaves(state_to_dict(live))), dict(leaves(state_to_dict(restored)))
+    check(want.keys() == got.keys(), "restored state has other entries than the live one")
+    n_tensors = 0
+    for k, v in want.items():
+        if torch.is_tensor(v):
+            n_tensors += 1
+            check(v.device == got[k].device and v.dtype == got[k].dtype
+                  and v.stride() == got[k].stride() and torch.equal(v, got[k]),
+                  f"restored {k} differs from the live state")
+        else:
+            check(v == got[k], f"restored {k}: {got[k]} != {v}")
+    log(f"[deploy] resumed from step 4 to step 6; checkpoint of the 304² state on {smi}: "
+        f"{ckpt_bytes / 1e9:.3f} GB, save blocks {t_snapshot:.3f} s (snapshot to host), "
+        f"background write {t_write:.3f} s, restore into a fresh state {t_restore:.3f} s; "
+        f"restored == live in all {n_tensors} tensors, counters, generator and step")
+
+    # 6.3 cli eval --checkpoint against the live state's metrics
+    live_metrics = counted("Trainer.evaluate, live state", lambda: tr.evaluate(live),
+                           {"aag": 5 * eval_batches, "decoder_epilogue": 0})
+    restored_metrics = tr.evaluate(restored)
+    text, _ = counted("cli eval --checkpoint",
+                      lambda: run_cli(["eval", "--checkpoint", ckpt_dir] + argv("x")[1:]),
+                      {"aag": 5 * eval_batches, "decoder_epilogue": 0})
+    cli_metrics = printed_metrics(text)
+    for k, v in live_metrics.items():
+        check(abs(restored_metrics[k] - v) <= 1e-6, f"restored evaluate {k}: "
+              f"{restored_metrics[k]} vs live {v}")
+        # the command prints 4 decimals
+        check(abs(cli_metrics[k] - v) <= 5e-5 + 1e-6, f"cli eval {k}: {cli_metrics[k]} vs {v}")
+    log(f"[deploy] cli eval --checkpoint prints {cli_metrics}; live state "
+        + ", ".join(f"{k} {v:.6f}" for k, v in live_metrics.items())
+        + "; restored state's evaluate within 1e-6")
+
+    # augmentation's share of a train step (host clock, synchronised)
+    host = next(ds.batch_iterator(build_dataset(cfg), 8, seed=0))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def wall_ms(fn, reps=10):
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    t_plain = wall_ms(lambda: tr.device_batch(host))
+    t_aug = wall_ms(lambda: tr.device_batch(host, augment.draw(gen, 8, 0.1)))
+    batch = tr.device_batch(host, augment.draw(gen, 8, 0.1))
+    check(all(t.is_contiguous() for t in (batch["image"], batch["scribble_onehot"],
+                                          batch["mask_onehot"])), "augmented batch not contiguous")
+    t_step = wall_ms(lambda: tr.train_step(live, batch), reps=5)
+    log(f"[deploy] prepare_batch B=8 304² on {smi}: {t_plain:.3f} ms plain, {t_aug:.3f} ms with "
+        f"D4 + jitter (draws included); bf16 train step {t_step:.1f} ms; augmentation is "
+        f"{(t_aug - t_plain) / (t_step + t_aug):.2%} of batch preparation + step")
+    seg_sd = {k: v.detach().clone() for k, v in restored.segmentor.state_dict().items()}
+    del tr, live, restored, fresh, batch, want, got
+    torch.cuda.empty_cache()
+
+    # 6.4 export to the compact npz, read back; cli predict over the test PNGs
+    t0 = time.time()
+    npz = os.path.join(tmp, "weights.npz")
+    export_weights_npz(npz, seg_sd, max_bytes=90 * 10**6)
+    shards = sorted(f for f in os.listdir(tmp) if f.startswith("weights-shard"))
+    loaded = load_weights_npz(npz)
+    check(loaded.keys() == seg_sd.keys(), "exported npz has other keys than the state dict")
+    for k, v in seg_sd.items():
+        ref = v.bfloat16().float().cpu().numpy() if v.dtype == torch.float32 else v.cpu().numpy()
+        check(loaded[k].dtype == ref.dtype and np.array_equal(loaded[k], ref),
+              f"exported {k} is not the bf16 rounding of the state")
+    npz_mb = sum(os.path.getsize(os.path.join(tmp, f)) for f in shards) / 1e6
+    log(f"[deploy] export_weights_npz -> {len(shards)} shards, {npz_mb:.1f} MB; load_weights_npz "
+        f"gives every tensor's bf16 rounding ({time.time() - t0:.1f} s)")
+
+    test_dir = os.path.join(root, "ROSE-1", "SVC", "test", "img")
+    out_dir = os.path.join(tmp, "pred")
+    text, _ = counted(
+        "cli predict, 16 images in 2 batches",
+        lambda: run_cli(["predict", "--images", test_dir, "--out", out_dir, "--checkpoint",
+                         ckpt_dir] + argv("x")[1:]),
+        {"aag": 0, "decoder_epilogue": 10})
+    names = sorted(os.listdir(out_dir))
+    check(len(names) == 2 * n_test and sum(n.endswith("_prob.npy") for n in names) == n_test
+          and sum(n.endswith("_mask.png") for n in names) == n_test, f"predict wrote {names}")
+    files = sorted(os.path.join(test_dir, f) for f in os.listdir(test_dir))
+    gray = ds.load_image_batch(files, (304, 304))
+    x = np.repeat((gray.astype(np.float32) / 255.0)[..., None], 3, axis=-1)
+    direct = Predictor(seg_sd)
+    direct_probs = np.concatenate([direct(x[:8]), direct(x[8:])])[..., 1]
+    exported = Predictor(loaded)
+    exported_probs = np.concatenate([exported(x[:8]), exported(x[8:])])[..., 1]
+    cli_probs = np.stack([np.load(os.path.join(out_dir, os.path.basename(f)[:-4] + "_prob.npy"))
+                          for f in files])
+    cli_masks = np.stack([read_image(os.path.join(out_dir, os.path.basename(f)[:-4]
+                                                  + "_mask.png")) for f in files])
+    direct_masks = np.where(direct_probs >= 0.5, 255, 0)
+    agree = float((cli_masks == direct_masks).mean())
+    prob_err = float(np.abs(cli_probs - direct_probs).max())
+    export_err = float(np.abs(exported_probs - direct_probs).mean())
+    export_agree = float(((exported_probs >= 0.5) == (direct_probs >= 0.5)).mean())
+    log(f"[deploy] cli predict wrote {n_test} .npy and {n_test} masks; masks vs Predictor called "
+        f"directly: {agree:.6f} equal (exactly equal: {agree == 1.0}), max |prob diff| "
+        f"{prob_err:.3g}; vessel share {float((cli_masks > 0).mean()):.4f}; Predictor on the "
+        f"exported npz vs on the state: mean |prob diff| {export_err:.4f} "
+        f"(bound {EXPORT_PROB_MEAN_ATOL}), mask agreement {export_agree:.4f}")
+    check(bool(np.isfinite(cli_probs).all()), "non-finite predictions")
+    check(agree >= SERVER_MASK_FLOOR and prob_err <= SERVER_PROB_ATOL,
+          "cli predict differs from the Predictor called directly")
+    check(export_err <= EXPORT_PROB_MEAN_ATOL, "the exported weights predict differently")
+    del direct, exported, loaded, seg_sd
+    torch.cuda.empty_cache()
+
+    # 6.5 BatchServer on the committed trained weights
+    n_flood = 300
+    base = phantoms(64, 304, seed=12)
+    images = [np.roll(base[i % 64], i, axis=1) for i in range(n_flood)]  # all distinct
+    padded = np.zeros((-(-n_flood // SERVE_B) * SERVE_B, 304, 304, 3), np.uint8)
+    padded[:n_flood] = np.stack(images)
+    ref_probs = np.concatenate([serve(padded[i:i + SERVE_B])
+                                for i in range(0, len(padded), SERVE_B)])[:n_flood]
+
+    dispatched = []
+    inject = {"oom_at_k": None}
+    dispatch = serve.predict_many_device
+
+    def recording(stack):
+        if stack.shape[0] == inject["oom_at_k"]:
+            raise torch.OutOfMemoryError(f"injected at k = {stack.shape[0]}")
+        dispatched.append(stack.shape[0])
+        return dispatch(stack)
+
+    serve.predict_many_device = recording  # the server's only way to the device
+    try:
+        srv = BatchServer(serve, batch=SERVE_B, image_hw=(304, 304), ks=(1, 2, 4),
+                          pipeline_depth=2)  # warms up at (32, 304², uint8)
+        check(srv.ks == (1, 2, 4), f"server dropped depths upfront: {srv.ks}")
+
+        def flood():
+            return list(srv.map(iter(images)))
+
+        def check_flood(outs, label):
+            check(len(outs) == n_flood and all(o.shape == (304, 304, 2) for o in outs),
+                  f"{label}: {len(outs)} results")
+            got = np.stack(outs)
+            err = float(np.abs(got - ref_probs).max())
+            agree = float(((got[..., 1] >= 0.5) == (ref_probs[..., 1] >= 0.5)).mean())
+            check(bool(np.isfinite(got).all()), f"{label}: non-finite results")
+            check(err <= SERVER_PROB_ATOL and agree >= SERVER_MASK_FLOOR,
+                  f"{label}: max |prob diff| {err}, mask agreement {agree}")
+            return err, agree
+
+        flood()  # warm: pinned download buffers of every k
+        dispatched.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        outs = flood()
+        t_flood = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        got_counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want_counts = {"aag": 0, "decoder_epilogue": 5 * sum(dispatched)}
+        log(f"[deploy] BatchServer flood of {n_flood}: dispatched k {dispatched}; launches "
+            f"{got_counts} (expected {want_counts})")
+        check(got_counts == want_counts, "flood: launches are not 5 x the sum of the k")
+        check(sum(dispatched) * SERVE_B >= n_flood and any(k > 1 for k in dispatched),
+              f"no dispatch took k > 1 under the flood: {dispatched}")
+        paths["decoder_epilogue"]["BatchServer flood of 300"] = got_counts["decoder_epilogue"]
+        err, agree = check_flood(outs, "flood")
+
+        times = [t_flood]
+        for _ in range(2):
+            t0 = time.perf_counter()
+            flood()
+            times.append(time.perf_counter() - t0)
+
+        n_long = 40 * SERVE_B  # a longer flood: start-up and the padded tail weigh less
+        t0 = time.perf_counter()
+        n_out = sum(1 for _ in srv.map(images[i % n_flood] for i in range(n_long)))
+        t_long = time.perf_counter() - t0
+        check(n_out == n_long, f"long flood returned {n_out} of {n_long}")
+
+        dispatched.clear()
+        lat = []
+        for img in images[:10]:
+            t0 = time.perf_counter()
+            srv.submit(img).result(timeout=120)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        check(dispatched == [1] * 10, f"lone requests took k {dispatched}")
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            flood()
+            torch.cuda.synchronize()
+            t_prof = (time.perf_counter() - t0) * 1e3
+        busy = device_busy_ms(torch, prof)
+        check(busy > 0, "the profiler saw no device time in the flood")
+        log(f"[deploy] BatchServer 304² bf16 trained weights, B={SERVE_B}, ks (1,2,4), depth 2, "
+            f"uint8 in, prob_f32 out, on {smi}: flood of {n_flood} "
+            f"{n_flood / statistics.median(times):.1f} img/s (median of 3: "
+            + ", ".join(f"{n_flood / t:.1f}" for t in times)
+            + f"), flood of {n_long} {n_long / t_long:.1f} img/s, beside {direct_rates} "
+            f"(phase 4); results in order, max |prob diff| "
+            f"{err:.3g} vs __call__, mask agreement {agree:.6f}; lone request k=1 latency median "
+            f"{statistics.median(lat):.1f} ms (min {min(lat):.1f}, max {max(lat):.1f}); "
+            f"profiled flood: wall {t_prof:.1f} ms, device busy {busy:.1f} ms, idle "
+            f"{1 - busy / t_prof:.1%}; peak memory {peak:.2f} GiB")
+
+        # an out-of-memory at k = 4: the depth is dropped, every request resolves
+        inject["oom_at_k"] = 4
+        dispatched.clear()
+        outs = flood()
+        check(srv._ks_live == (1, 2), f"after the injected OOM _ks_live is {srv._ks_live}")
+        check(all(k < 4 for k in dispatched), f"k = 4 dispatched after its OOM: {dispatched}")
+        check_flood(outs, "flood after the injected OOM")
+        log(f"[deploy] injected torch.OutOfMemoryError at k = 4: _ks_live {srv._ks_live}, all "
+            f"{n_flood} futures resolved and correct, dispatched k {dispatched}")
+        srv.close()
+    finally:
+        del serve.predict_many_device
+
+    # the mask_u8 wire format through the server
+    serve_mask = Predictor(weights, output_format="mask_u8")
+    with BatchServer(serve_mask, batch=SERVE_B, image_hw=(304, 304), ks=(1, 2, 4)) as srv:
+        masks = np.stack(list(srv.map(iter(images[:70]))))
+    want = np.concatenate([serve_mask(padded[i:i + SERVE_B]) for i in (0, 32, 64)])[:70]
+    agree = float((masks == want).mean())
+    log(f"[deploy] BatchServer mask_u8, 70 images: {agree:.6f} of pixels equal to __call__")
+    check(masks.dtype == np.uint8 and agree >= SERVER_MASK_FLOOR, "mask_u8 through the server")
+    return paths
 
 
 if __name__ == "__main__":

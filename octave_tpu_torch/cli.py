@@ -1,17 +1,23 @@
-"""octave_tpu_torch command line: train.
+"""octave_tpu_torch command line: train / eval / predict / convert.
 
 Usage:
-    python -m octave_tpu_torch.cli train [--config cfg.json] [--device cuda|cpu] [k.ey=value ...]
+    python -m octave_tpu_torch.cli train   [--config cfg.json] [--device cuda|cpu] [k.ey=value ...]
+    python -m octave_tpu_torch.cli eval    --checkpoint DIR [--config ...] [--device ...] [k.ey=value ...]
+    python -m octave_tpu_torch.cli predict --images DIR --out DIR [--checkpoint DIR] [--device ...] [...]
+    python -m octave_tpu_torch.cli convert --pth resnest50-<hash>.pth --out backbone.pt [--sha256 HEX]
 
-The port of `octave_tpu/cli.py` (:40-50, `train`): the same config files
-and dotted overrides (utils/config.py), then Trainer.fit and a final
-evaluate whose metrics are printed. The device is CUDA unless --device says
-otherwise; without CUDA the command exits with a message.
+The port of `octave_tpu/cli.py` (`train` :40-48, `eval` :51-66, `convert`
+:69-104, `predict` :107-170): the same config files and dotted overrides
+(utils/config.py). The device is CUDA unless --device says otherwise; without
+CUDA the commands exit with a message. `bench` is not ported.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import logging
+import os
+import re
 import sys
 from typing import Dict, List
 
@@ -35,18 +41,122 @@ def _load_cfg(args):
     return cfg
 
 
-def cmd_train(args) -> int:
+def _device(args):
     from octave_tpu_torch.serve import resolve_device
-    from octave_tpu_torch.train.trainer import Trainer
 
     try:
-        device = resolve_device(args.device)
+        return resolve_device(args.device)
     except RuntimeError as e:
-        raise SystemExit(f"octave_tpu_torch train: {e}")
-    trainer = Trainer(_load_cfg(args), device=device)
+        raise SystemExit(f"octave_tpu_torch {args.cmd}: {e}")
+
+
+def _restored_state(trainer, checkpoint: str):
+    """A fresh TrainState with the newest checkpoint of `checkpoint` loaded."""
+    from octave_tpu_torch.utils.checkpoint import CheckpointManager
+
+    state = CheckpointManager(checkpoint).restore_latest(trainer.init_state())
+    if state is None:
+        raise SystemExit(f"no checkpoint found in {checkpoint}")
+    return state
+
+
+def cmd_train(args) -> int:
+    from octave_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(_load_cfg(args), device=_device(args))
     state = trainer.fit()
     metrics = trainer.evaluate(state)
     print({k: round(v, 4) for k, v in metrics.items()})
+    return 0
+
+
+def cmd_eval(args) -> int:
+    from octave_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(_load_cfg(args), device=_device(args))
+    state = (_restored_state(trainer, args.checkpoint) if args.checkpoint
+             else trainer.init_state())
+    metrics = trainer.evaluate(state)
+    print({k: round(v, 4) for k, v in metrics.items()})
+    return 0
+
+
+def cmd_convert(args) -> int:
+    from octave_tpu_torch.utils.checkpoint import save_pytree
+    from octave_tpu_torch.utils.convert import convert_resnest50, load_torch_state_dict
+
+    # checksum-verified ingest: --sha256 checks the full digest; otherwise a
+    # torch-hub style `-<hex>` filename fragment (resnest50-528c19ca.pth) is
+    # verified as a prefix of the digest
+    with open(args.pth, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    if args.sha256:
+        if digest != args.sha256.lower():
+            raise SystemExit(f"sha256 mismatch for {args.pth}: got {digest}, "
+                             f"expected {args.sha256}")
+        print(f"sha256 verified: {digest}")
+    else:
+        m = re.search(r"-([0-9a-f]{8,})\.pth$", args.pth)
+        if m:
+            frag = m.group(1)
+            if not digest.startswith(frag):
+                raise SystemExit(f"filename hash fragment {frag!r} does not match the "
+                                 f"file's sha256 {digest}: corrupted or renamed download")
+            print(f"sha256 prefix verified via filename: {digest}")
+
+    sd = load_torch_state_dict(args.pth)
+    tree = convert_resnest50(sd, with_fc=not args.no_fc, strict=not args.lenient)
+    save_pytree(args.out, tree)
+    n = sum(v.numel() for v in tree.values())
+    print(f"converted {len(sd)} torch tensors -> {args.out} ({n / 1e6:.1f}M params)")
+    return 0
+
+
+def cmd_predict(args) -> int:
+    """Segment a directory of images: per image, the vessel probability map
+    as <name>_prob.npy and its 0.5 mask as <name>_mask.png."""
+    import numpy as np
+
+    from octave_tpu_torch.data.datasets import _list_images, load_image_batch
+    from octave_tpu_torch.serve import Predictor
+    from octave_tpu_torch.utils.imageio import write_png_gray
+
+    if args.int8:
+        raise SystemExit("octave_tpu_torch predict: --int8 (post-training quantisation) "
+                         "is not ported yet (ROADMAP A.6)")
+    cfg = _load_cfg(args)
+    device = _device(args)
+    size = tuple(cfg.data.image_size)
+    paths = _list_images(args.images)
+    if not paths:
+        raise SystemExit(f"no images found in {args.images}")
+    os.makedirs(args.out, exist_ok=True)
+    bs = cfg.data.batch_size
+
+    def batches():
+        for i in range(0, len(paths), bs):
+            imgs = load_image_batch(paths[i: i + bs], size)
+            yield np.repeat((imgs.astype(np.float32) / 255.0)[..., None], 3, axis=-1)
+
+    kw = dict(num_classes=cfg.model.num_classes, device=device)
+    if args.checkpoint:
+        from octave_tpu_torch.train.trainer import Trainer
+
+        state = _restored_state(Trainer(cfg, device=device), args.checkpoint)
+        pred = Predictor(state.segmentor.state_dict(), **kw)
+    else:
+        pred = Predictor.initialize(image_hw=size, **kw)
+
+    i = 0
+    for out in pred.predict_stream(batches()):
+        for b in range(out.shape[0]):
+            name = os.path.splitext(os.path.basename(paths[i]))[0]
+            vessel = out[b, ..., 1] if out.shape[-1] > 1 else out[b, ..., 0]
+            np.save(os.path.join(args.out, name + "_prob.npy"), vessel)
+            write_png_gray(os.path.join(args.out, name + "_mask.png"),
+                           (vessel >= 0.5).astype(np.uint8) * 255)
+            i += 1
+    print(f"wrote {i} predictions to {args.out}")
     return 0
 
 
@@ -55,11 +165,39 @@ def main(argv=None) -> int:
                         stream=sys.stderr)
     p = argparse.ArgumentParser(prog="octave_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    def common(sp):
+        sp.add_argument("--config", default=None, help="YAML/JSON config path")
+        sp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+        sp.add_argument("overrides", nargs="*", help="dotted key=value overrides")
+
     sp = sub.add_parser("train")
-    sp.add_argument("--config", default=None, help="YAML/JSON config path")
-    sp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    sp.add_argument("overrides", nargs="*", help="dotted key=value overrides")
+    common(sp)
     sp.set_defaults(fn=cmd_train)
+
+    sp = sub.add_parser("eval")
+    sp.add_argument("--checkpoint", default=None)
+    common(sp)
+    sp.set_defaults(fn=cmd_eval)
+
+    sp = sub.add_parser("convert")
+    sp.add_argument("--pth", required=True)
+    sp.add_argument("--out", required=True)
+    sp.add_argument("--no-fc", action="store_true")
+    sp.add_argument("--sha256", default=None,
+                    help="expected sha256 of the .pth (fails on mismatch)")
+    sp.add_argument("--lenient", action="store_true",
+                    help="skip the strict full-key-coverage check")
+    sp.set_defaults(fn=cmd_convert)
+
+    sp = sub.add_parser("predict")
+    sp.add_argument("--images", required=True, help="directory of input images")
+    sp.add_argument("--out", required=True, help="output directory")
+    sp.add_argument("--checkpoint", default=None)
+    sp.add_argument("--int8", action="store_true", help="not ported yet")
+    common(sp)
+    sp.set_defaults(fn=cmd_predict)
+
     args = p.parse_args(argv)
     return args.fn(args)
 

@@ -1,20 +1,62 @@
-"""The synthetic vessel phantoms, scribble derivation and host batching.
+"""ROSE / OCTA-500 folder datasets, the synthetic phantoms and host batching.
 
-The port of `octave_tpu/data/datasets.py`: `skeletonize_to_scribble`
-(:116-139), `SyntheticOcta` (:215-258) and `batch_iterator` (:261-294), in
-numpy. With the same seed they give byte-identical arrays to the JAX
-package's: the random draws come in the same order and every pixel of a
-vessel disc is decided by the same float64 arithmetic; only the disc test is
-confined to the disc's bounding box, which makes a 304² phantom much
-cheaper to draw. The ROSE / OCTA-500 image-folder
-datasets wait for their port (ROADMAP A.3).
+The port of `octave_tpu/data/datasets.py`, in numpy. The image-folder
+datasets read the standard on-disk layouts:
+
+ROSE, e.g. ROSE-1 SVC:
+    <root>/ROSE-1/SVC/{train,test}/img/*.png
+    <root>/ROSE-1/SVC/{train,test}/gt/*.png     (full vessel ground truth)
+    <root>/ROSE-1/SVC/train/thin_gt             (centerline scribbles)
+OCTA-500 (3M/6M projections):
+    <root>/OCTA_3M/{train,test}/{img,gt}/*.bmp
+
+through `utils.imageio.read_image` (PNG, BMP, PGM; TIFF waits with the
+threaded loader, ROADMAP A.1). `skeletonize_to_scribble` (:116-139),
+`SyntheticOcta` (:215-258) and `batch_iterator` (:261-294) give, with the
+same seed, byte-identical arrays to the JAX package's: the random draws come
+in the same order and every pixel of a vessel disc is decided by the same
+float64 arithmetic; only the disc test is confined to the disc's bounding
+box, which makes a 304² phantom much cheaper to draw.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
+
+from octave_tpu_torch.utils.imageio import read_image
+
+_IMG_EXTS = (".png", ".tif", ".tiff", ".bmp", ".jpg", ".jpeg", ".gif")
+
+
+def _load_image(path: str) -> np.ndarray:
+    """Read an image file to a (h, w) uint8 grayscale array."""
+    return read_image(path)
+
+
+def load_image_batch(paths, size) -> np.ndarray:
+    """Decode a batch of files to (n, h, w) uint8 grayscale at `size`:
+    ITU-R 601 luma for colour files, nearest resize with
+    src = floor(dst * in / out)."""
+    paths = list(paths)
+    h, w = size
+    out = np.empty((len(paths), h, w), np.uint8)
+    for i, p in enumerate(paths):
+        img = _load_image(p)
+        if img.shape != (h, w):
+            sy = (np.arange(h, dtype=np.int64) * img.shape[0]) // h
+            sx = (np.arange(w, dtype=np.int64) * img.shape[1]) // w
+            img = img[sy[:, None], sx[None, :]]
+        out[i] = img
+    return out
+
+
+def _list_images(d: str) -> List[str]:
+    if not os.path.isdir(d):
+        return []
+    return sorted(os.path.join(d, f) for f in os.listdir(d) if f.lower().endswith(_IMG_EXTS))
 
 
 @dataclass
@@ -46,6 +88,61 @@ def skeletonize_to_scribble(mask: np.ndarray, rng: np.random.Generator,
     bg = (~m) & (rng.random(mask.shape) < bg_fraction)
     scrib[bg] = 1
     return scrib
+
+
+def _binarize(a: np.ndarray) -> np.ndarray:
+    return (a > 127).astype(np.uint8)
+
+
+class ImageFolderOcta:
+    """Generic {img, gt[, scribble]} folder dataset. Without a scribble
+    directory the scribbles are derived from the mask's skeleton."""
+
+    def __init__(self, img_dir: str, gt_dir: str, scribble_dir: Optional[str] = None,
+                 seed: int = 0, scribble_c_dir: Optional[str] = None):
+        if scribble_c_dir is not None:
+            raise NotImplementedError("scribble_c (the dual-head thin-branch targets) is "
+                                      "not ported yet (ROADMAP A.4)")
+        self.images = _list_images(img_dir)
+        self.gts = _list_images(gt_dir)
+        if len(self.images) != len(self.gts) or not self.images:
+            raise ValueError(f"mismatched/empty dataset: {img_dir} ({len(self.images)}) vs "
+                             f"{gt_dir} ({len(self.gts)})")
+        self.scribbles = _list_images(scribble_dir) if scribble_dir else []
+        self._rng = np.random.default_rng(seed)
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    def __getitem__(self, i: int) -> Sample:
+        img = _load_image(self.images[i])
+        mask = _binarize(_load_image(self.gts[i]))
+        if self.scribbles:
+            scrib = np.zeros_like(mask, dtype=np.uint8)
+            scrib[_binarize(_load_image(self.scribbles[i])).astype(bool)] = 2
+        else:
+            scrib = skeletonize_to_scribble(mask, self._rng)
+        return Sample(img, scrib, mask)
+
+
+def rose(root: str, subset: str = "ROSE-1/SVC", split: str = "train",
+         dual: bool = False) -> ImageFolderOcta:
+    """ROSE layout: the centerline (`thin_gt`) annotations are the weak
+    scribbles, as in the paper's weakly-supervised setup. `dual=True` (the
+    ParallelHead variants' thick/thin targets) is not ported yet."""
+    if dual:
+        raise NotImplementedError("rose(dual=True), the dual-head thick/thin targets, is "
+                                  "not ported yet (ROADMAP A.4)")
+    base = os.path.join(root, subset, split)
+    thin = os.path.join(base, "thin_gt")
+    return ImageFolderOcta(os.path.join(base, "img"), os.path.join(base, "gt"),
+                           thin if os.path.isdir(thin) else None)
+
+
+def octa500(root: str, fov: str = "3M", split: str = "train") -> ImageFolderOcta:
+    """OCTA-500 layout: no scribble directory, so scribbles are derived."""
+    base = os.path.join(root, f"OCTA_{fov}", split)
+    return ImageFolderOcta(os.path.join(base, "img"), os.path.join(base, "gt"))
 
 
 class SyntheticOcta:

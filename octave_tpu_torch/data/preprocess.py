@@ -1,21 +1,24 @@
 """Device-side preprocessing: raw host batch -> model-ready NHWC tensors.
 
-The port of `octave_tpu/data/preprocess.py` (:26-176) without augmentation:
+The port of `octave_tpu/data/preprocess.py` (:26-176):
 
     raw uint8 (b,h,w[,1]) -> float [0,1] -> bilinear resize to the target ->
     grayscale tiled to the stem's channels; scribble label map -> one-hot;
-    dense mask -> one-hot -> finest-first pyramid for the critic's real branch.
+    dense mask -> one-hot; optional train-time augmentation of all three
+    (data/augment.py); augmented mask -> finest-first pyramid for the critic's
+    real branch.
 
 Everything after the upload runs on the tensors' device.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from octave_tpu_torch.data.augment import Draws, augment
 from octave_tpu_torch.ops.common import avg_pool2d, nearest_resize
 
 
@@ -104,11 +107,16 @@ def prepare_batch(
     num_classes: int = 2,
     depth: int = 4,
     in_channels: int = 3,
-    device: torch.device | str = "cpu",
+    augment_draws: Optional[Draws] = None,
+    *,
+    device: torch.device | str,
 ) -> Dict[str, object]:
     """Raw host batch -> dict(image (b,h,w,in_channels), scribble_onehot,
     mask_onehot (b,h,w,num_classes), mask_pyramid) on `device`. Label maps
-    resize with nearest, never bilinear."""
+    resize with nearest, never bilinear. With `augment_draws`
+    (`augment.draw`), image, scribbles and mask get one D4 transform per
+    sample and the image its jitter before the pyramid is built: train time
+    only."""
     device = torch.device(device)
     image, scribble, full_mask = (to_device(a, device) for a in (image, scribble, full_mask))
     img = grayscale_to_channels(resize_or_pad(normalize_image(image), size), in_channels)
@@ -116,10 +124,13 @@ def prepare_batch(
         scribble = nearest_resize(scribble[..., None], size)[..., 0]
     if tuple(full_mask.shape[1:3]) != tuple(size):
         full_mask = nearest_resize(full_mask[..., None], size)[..., 0]
+    scrib = scribble_to_onehot(scribble, num_classes)
     dense = mask_to_onehot(full_mask, num_classes)
+    if augment_draws is not None:
+        img, scrib, dense = augment(augment_draws, img, scrib, dense)
     return {
         "image": img,
-        "scribble_onehot": scribble_to_onehot(scribble, num_classes),
+        "scribble_onehot": scrib,
         "mask_onehot": dense,
         "mask_pyramid": mask_pyramid(dense, depth),
     }

@@ -7,6 +7,7 @@ PyTorch versions on CPU tensors.
 from __future__ import annotations
 
 import os
+import threading
 from pathlib import Path
 
 import torch
@@ -22,6 +23,36 @@ def triton_build_dir() -> Path:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         os.environ["TRITON_CACHE_DIR"] = str(BUILD_DIR)
     return BUILD_DIR
+
+
+# Each kernel wrapper carries a `launches` count, raised once where it
+# launches its kernel. A serving worker thread launches while another thread
+# reads or zeroes the counts, so all three go through one lock.
+_COUNT_LOCK = threading.Lock()
+_COUNTED: dict = {}
+
+
+def register_counter(name: str, wrapper) -> None:
+    """Give a kernel wrapper its `launches` count, starting at 0."""
+    with _COUNT_LOCK:
+        _COUNTED[name] = wrapper
+        wrapper.launches = 0
+
+
+def count_launch(wrapper) -> None:
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
+def launch_counts(reset: bool = False) -> dict:
+    """{kernel name: launches since the last reset} of every registered
+    wrapper; with `reset`, zero them in the same critical section."""
+    with _COUNT_LOCK:
+        counts = {name: w.launches for name, w in _COUNTED.items()}
+        if reset:
+            for w in _COUNTED.values():
+                w.launches = 0
+        return counts
 
 
 def check_nhwc(name: str, t: torch.Tensor, ndim: int, device: torch.device,

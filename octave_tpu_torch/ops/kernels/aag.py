@@ -26,7 +26,14 @@ from typing import Tuple
 
 import torch
 
-from octave_tpu_torch.ops.kernels import check_nhwc, next_pow2, pow2_tile, triton_build_dir
+from octave_tpu_torch.ops.kernels import (
+    check_nhwc,
+    count_launch,
+    next_pow2,
+    pow2_tile,
+    register_counter,
+    triton_build_dir,
+)
 
 # register tile of one program: rows x next_pow2(C) values
 _TILE_ELEMS = 4096
@@ -64,7 +71,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor,
         C=c, K=k, BLOCK_N=block_n, BLOCK_C=block_c, BLOCK_K=next_pow2(k),
         num_warps=4,
     )
-    fused_aag.launches += 1
+    count_launch(fused_aag)
     return out, yhat
 
 
@@ -117,4 +124,4 @@ def fused_aag(x: torch.Tensor, w: torch.Tensor,
     return _AAGFunction.apply(x, w, b)
 
 
-fused_aag.launches = 0
+register_counter("aag", fused_aag)

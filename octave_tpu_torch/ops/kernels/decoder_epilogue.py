@@ -32,7 +32,14 @@ from typing import Tuple
 
 import torch
 
-from octave_tpu_torch.ops.kernels import check_nhwc, next_pow2, pow2_tile, triton_build_dir
+from octave_tpu_torch.ops.kernels import (
+    check_nhwc,
+    count_launch,
+    next_pow2,
+    pow2_tile,
+    register_counter,
+    triton_build_dir,
+)
 
 # register tile of one program: pixels x next_pow2(C); four such tiles live
 _TILE_ELEMS = 2048
@@ -71,7 +78,7 @@ def _launch(z, attn, res, res_scale, res_bias, w, b):
         C=c, K=k, BLOCK_P=block_p, BLOCK_C=block_c, BLOCK_K=next_pow2(k),
         num_warps=4,
     )
-    fused_decoder_epilogue.launches += 1
+    count_launch(fused_decoder_epilogue)
     return out, yhat
 
 
@@ -107,4 +114,4 @@ def fused_decoder_epilogue(
     raise ValueError(f"fused_decoder_epilogue: no implementation for device {dev}")
 
 
-fused_decoder_epilogue.launches = 0
+register_counter("decoder_epilogue", fused_decoder_epilogue)

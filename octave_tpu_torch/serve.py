@@ -1,14 +1,34 @@
-"""Batched inference: the port of octave_tpu/serve.py::Predictor (:26-297).
+"""Inference serving: the port of `octave_tpu/serve.py`.
 
-The serving forward is the 304² ResnestUNet eval forward in bf16 with the
+`Predictor` (:26-318) runs the 304² ResnestUNet eval forward in bf16 with the
 batch-norm stats folded into an affine and, by default, the fused decoder
-epilogue kernel at every gated depth. Requests arrive as uint8 (B,H,W,3)
-and are normalised on the device; results leave as float32 / float16
+epilogue kernel at every gated depth. Requests arrive as uint8 (B,H,W,3) and
+are normalised on the device; results leave as float32 / float16
 probabilities or a uint8 vessel mask.
+
+`BatchServer` (:321-671) is the request front end: callers submit single
+images, a worker thread groups them into (k, batch) stacks, and a resolver
+thread hands the results back, so that the device runs one stack while the
+next is assembled and the previous is downloaded.
+
+Asynchrony is explicit on CUDA. A dispatch (`predict_many_device`) uploads
+with a non-blocking copy (truly asynchronous when the caller's array lies in
+pinned memory, as the server's staging buffers do), enqueues its forwards on
+the calling thread's current stream, records an event and returns a
+`DeviceResult` without waiting. Converting that to numpy waits for the event
+on a separate copy stream and downloads into pinned memory, so a download
+never queues behind forwards that were enqueued after its own. The device
+tensor stays referenced by the `DeviceResult` until its download has
+finished, so the caching allocator cannot hand its block to a later forward.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping
+import queue
+import threading
+import time
+from collections import deque
+from concurrent.futures import Future
+from typing import Any, Iterable, Iterator, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +83,8 @@ class Predictor:
         load_reference_state_dict(model, state_dict)
         folded_inference(model, fold_bn)
         self.model = model.to(self.device, dtype).to(memory_format=torch.channels_last).eval()
+        self._copy_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
+                             else None)
 
     def _forward(self, batch: torch.Tensor) -> torch.Tensor:
         """Device forward of one (B,H,W,3) batch already on the device."""
@@ -76,22 +98,439 @@ class Predictor:
             return pred.to(torch.float16)
         return pred.to(torch.float32)
 
+    @classmethod
+    def initialize(cls, image_hw: Tuple[int, int] = (304, 304), seed: int = 0, **kw):
+        """A predictor on fresh random weights (torch's initialisers from
+        `seed`); weights usually come from a checkpoint or an exported npz.
+        `image_hw` is accepted for the JAX signature: the modules need no
+        input shape to be built."""
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            model = ResnestUNet(kw.get("num_classes", 2))
+        return cls(model.state_dict(), **kw)
+
+    def host_buffer(self, shape: Sequence[int], dtype) -> np.ndarray:
+        """An uninitialised host array for requests: in pinned memory when the
+        predictor is on CUDA, so that its upload does not block the host."""
+        dtype = np.dtype(dtype)
+        raw = torch.empty(int(np.prod(shape)) * dtype.itemsize, dtype=torch.uint8,
+                          pin_memory=self.device.type == "cuda")
+        return raw.numpy().view(dtype).reshape(tuple(shape))
+
     def _put(self, batch: np.ndarray) -> torch.Tensor:
         # uint8 stays uint8 on the wire; floats go up in the compute dtype
         t = torch.from_numpy(np.ascontiguousarray(batch))
         if t.dtype != torch.uint8:
             t = t.to(self.dtype)
-        return t.to(self.device)
+        return t.to(self.device, non_blocking=True)
+
+    def _result(self, out: torch.Tensor) -> "DeviceResult":
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        return DeviceResult(out, done, self._copy_stream)
 
     @torch.inference_mode()
     def __call__(self, batch: np.ndarray) -> np.ndarray:
         """(B,H,W,3) uint8 or float in [0,1] -> (B,H,W,K) probabilities, or
         a (B,H,W) uint8 mask for output_format='mask_u8'."""
-        return self._forward(self._put(batch)).cpu().numpy()
+        return np.asarray(self._result(self._forward(self._put(batch))))
 
-    @torch.inference_mode()
     def predict_many(self, stack: np.ndarray) -> np.ndarray:
         """A (k,B,H,W,3) stack of batches: one upload, k forwards in order,
         one download."""
+        return np.asarray(self.predict_many_device(stack))
+
+    @torch.inference_mode()
+    def predict_many_device(self, stack: np.ndarray) -> "DeviceResult":
+        """predict_many without the download: enqueues the upload and the k
+        forwards and returns at once. `.tensor` is the (k, B, ...) device
+        tensor, for work that stays on the device; `np.asarray(result)` waits
+        and downloads. The k forwards are a loop on one stream, so their
+        activations reuse each other's memory."""
         xs = self._put(stack)
-        return torch.stack([self._forward(xs[i]) for i in range(xs.shape[0])]).cpu().numpy()
+        return self._result(torch.stack([self._forward(xs[i]) for i in range(xs.shape[0])]))
+
+    def warmup(self, batch: int, image_hw: Tuple[int, int], ks: Sequence[int] = (1,),
+               in_channels: int = 3, wire_dtype=np.uint8) -> None:
+        """Run one forward at (batch, image_hw, wire_dtype) so that the first
+        request pays neither the Triton kernels' compilation nor cuDNN's
+        algorithm choice. Both depend on the batch's shape and dtype, not on
+        the aggregation depth: the k forwards of a stack are a loop, so `ks`
+        needs no warm-up of its own."""
+        np.asarray(self.predict_many_device(
+            np.zeros((1, batch, *image_hw, in_channels), wire_dtype)))
+
+    def predict_stream(self, batches: Iterable[np.ndarray],
+                       depth: int = 2) -> Iterator[np.ndarray]:
+        """Pipelined prediction over a stream of batches: up to `depth`
+        dispatches are in flight, so the device runs batch i while the host
+        prepares and uploads batch i+1."""
+        inflight: deque = deque()
+        for batch in batches:
+            # drain before dispatching, so at most `depth` are ever in flight
+            if len(inflight) >= depth:
+                yield np.asarray(inflight.popleft())[0]
+            inflight.append(self.predict_many_device(batch[None]))  # a stack of one
+        while inflight:
+            yield np.asarray(inflight.popleft())[0]
+
+
+class DeviceResult:
+    """The output of a dispatch, still on the device and possibly still being
+    computed. `np.asarray(result)` waits for it and returns it as a host
+    array (backed by pinned memory on CUDA)."""
+
+    def __init__(self, tensor: torch.Tensor, done: Optional["torch.cuda.Event"],
+                 copy_stream: Optional["torch.cuda.Stream"]):
+        self.tensor, self._done, self._copy_stream = tensor, done, copy_stream
+
+    def __array__(self, dtype=None, copy=None) -> np.ndarray:
+        out = self.tensor
+        if out.device.type == "cuda":
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            with torch.cuda.stream(self._copy_stream):
+                self._copy_stream.wait_event(self._done)
+                host.copy_(out, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record()
+            copied.synchronize()  # `out` is referenced until here
+            out = host
+        arr = out.numpy()
+        return arr if dtype is None else arr.astype(dtype)
+
+
+class BatchServer:
+    """Queue-depth-adaptive dynamic batcher over a `Predictor`.
+
+    Callers `submit()` single images (h, w, c) and get a
+    `concurrent.futures.Future` for the per-image output. A worker thread
+    groups pending requests into (k, batch, h, w, c) stacks for
+    `Predictor.predict_many_device` and picks the aggregation depth k PER
+    DISPATCH from the queue backlog:
+
+      * idle or low load -> k = 1, a partial batch zero-padded: lowest latency;
+      * backlog          -> the largest k in `ks` the backlog fills: one
+        upload, one download and one hand-over per k batches.
+
+    Shapes are static: every request must be exactly `image_hw` + `channels`
+    in `wire_dtype` (resize upstream), and every dispatch uses the batch
+    shape that `warmup` ran, so serving never compiles a kernel or picks a
+    cuDNN algorithm again. Zero-padded slots ride along and are dropped on
+    the way out: at k = 1 a single request costs one full batch of device
+    time, the price of static shapes; pick `batch` for the latency target and
+    let k scale throughput.
+
+    Dispatch is pipelined: the worker stacks requests into a pinned staging
+    buffer and dispatches chunk i+1 (upload and forwards are only enqueued)
+    while the resolver thread waits for chunk i's download and resolves its
+    futures. `pipeline_depth` bounds the dispatched-but-unresolved chunks.
+    A staging buffer goes back to the free pool only when its chunk has been
+    resolved, so it is never refilled while its upload is pending; the pool
+    holds pipeline_depth + 2 buffers (the chunks in the result queue, the one
+    the resolver holds and the one being assembled).
+
+    Two layers of memory protection. Forwards enqueued on one stream reuse
+    each other's activation memory, but every dispatched chunk holds its own
+    input and output stacks on the device until it is resolved:
+    `max_inflight_images` caps the images dispatched and unresolved at once.
+    If the device still runs out (`torch.OutOfMemoryError`, raised in the
+    dispatching thread at the allocation), the server permanently drops the
+    aggregation depths from the failing one up and re-runs the chunk at a
+    smaller k: serving degrades instead of dying.
+
+    `predictor` needs `warmup`, `predict_many_device` and `host_buffer`.
+    """
+
+    def __init__(
+        self,
+        predictor: Any,
+        batch: int = 16,
+        image_hw: Tuple[int, int] = (304, 304),
+        channels: int = 3,
+        ks: Sequence[int] = (1, 2, 4),
+        wire_dtype=np.uint8,
+        warmup: bool = True,
+        max_queue: int = 4096,
+        pipeline_depth: int = 2,
+        max_inflight_images: int = 256,
+    ):
+        self.predictor = predictor
+        self.batch = int(batch)
+        self.image_hw = tuple(image_hw)
+        self.channels = int(channels)
+        self.ks = tuple(sorted(set(int(k) for k in ks)))
+        if not self.ks or self.ks[0] < 1:
+            raise ValueError(f"ks must be positive ints, got {ks!r}")
+        self.wire_dtype = np.dtype(wire_dtype)
+        self._shape = (*self.image_hw, self.channels)
+        if pipeline_depth < 1:
+            raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
+        self.pipeline_depth = int(pipeline_depth)
+        # The budget has two consequences:
+        #   1. admission: the worker blocks until the dispatched images plus
+        #      k*batch fit max_inflight_images (a lone chunk always passes);
+        #   2. k capping: depths whose stacks cannot run TWO abreast within
+        #      the budget are dropped upfront, since a k that forfeits the
+        #      overlap of dispatch and download is not worth dispatching.
+        self.max_inflight_images = int(max_inflight_images)
+        if self.max_inflight_images < 1:
+            raise ValueError(f"max_inflight_images must be >= 1, got {max_inflight_images}")
+        self.ks_requested = self.ks
+        usable = tuple(k for k in self.ks if 2 * k * self.batch <= self.max_inflight_images)
+        self.ks = usable or (self.ks[0],)
+        self._ks_live = self.ks  # shrinks further on device OOM (_shrink_ks)
+        self._inflight_images = 0
+        self._inflight_cv = threading.Condition()
+        if warmup:
+            predictor.warmup(self.batch, self.image_hw, self.ks, self.channels, self.wire_dtype)
+        self._queue: "queue.Queue" = queue.Queue(maxsize=max_queue)
+        # dispatched-but-unresolved chunks; bounded, so a slow download holds
+        # the worker back instead of piling up device buffers
+        self._results: "queue.Queue" = queue.Queue(maxsize=self.pipeline_depth)
+        self._staging: "queue.Queue" = queue.Queue()
+        for _ in range(self.pipeline_depth + 2):
+            self._staging.put(predictor.host_buffer(
+                (self.ks[-1], self.batch, *self._shape), self.wire_dtype))
+        self._closed = False
+        self._worker = threading.Thread(target=self._run, daemon=True,
+                                        name="octave-batch-server")
+        self._resolver = threading.Thread(target=self._resolve, daemon=True,
+                                          name="octave-batch-resolver")
+        self._worker.start()
+        self._resolver.start()
+
+    # -- client side ----------------------------------------------------
+    def submit(self, image: np.ndarray) -> Future:
+        """Enqueue one (h, w, c) image; returns a Future of the (h, w, ...)
+        output (the predictor's output_format decides the payload)."""
+        if self._closed:
+            raise RuntimeError("BatchServer is closed")
+        img = np.asarray(image)
+        if img.shape != self._shape:
+            raise ValueError(f"request shape {img.shape} != served shape {self._shape} "
+                             "(resize upstream; serving shapes are static)")
+        if img.dtype != self.wire_dtype:
+            raise ValueError(f"request dtype {img.dtype} != wire dtype {self.wire_dtype} "
+                             "(the dtype is part of the warmed-up signature)")
+        fut: Future = Future()
+        self._queue.put((img, fut))
+        return fut
+
+    def map(self, images: Iterable[np.ndarray]) -> Iterator[np.ndarray]:
+        """Submit a stream and yield results in order (keeps enough requests
+        pending to fill every pipeline slot's max-k stack, plus one being
+        assembled)."""
+        pending: "deque[Future]" = deque()
+        depth = self.ks[-1] * self.batch * (self.pipeline_depth + 2)
+        for img in images:
+            while len(pending) >= depth:
+                yield pending.popleft().result()
+            pending.append(self.submit(img))
+        while pending:
+            yield pending.popleft().result()
+
+    def close(self) -> None:
+        """Drain outstanding requests, then stop the worker and the resolver."""
+        if self._closed:
+            return
+        self._closed = True
+        self._queue.put(None)  # sentinel
+        self._worker.join()  # the worker forwards the sentinel to the resolver
+        self._resolver.join()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # -- worker side ----------------------------------------------------
+    def _take(self):
+        """Block for the first request, then greedily drain up to
+        max_k*batch more without blocking. Returns (items, stop)."""
+        first = self._queue.get()
+        if first is None:
+            return [], True
+        items = [first]
+        cap = self.ks[-1] * self.batch
+        stop = False
+        while len(items) < cap:
+            try:
+                nxt = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if nxt is None:
+                stop = True
+                break
+            items.append(nxt)
+        return items, stop
+
+    def _pick_k(self, n: int) -> int:
+        """Largest LIVE k whose stack the backlog fills at least (k-1)
+        batches of: grow k only when there is work to amortise over.
+        `_ks_live` starts as `ks` and shrinks permanently when a depth runs
+        the device out of memory."""
+        k = self._ks_live[0]
+        for cand in self._ks_live:
+            if n > (cand - 1) * self.batch:
+                k = cand
+        return k
+
+    @staticmethod
+    def _is_oom(e: BaseException) -> bool:
+        """Device out-of-memory: raised at the allocation, in the thread that
+        dispatches (or, for the download's host buffer, resolves)."""
+        return isinstance(e, torch.OutOfMemoryError)
+
+    def _shrink_ks(self, failed_k: int) -> bool:
+        """Permanently drop every aggregation depth >= failed_k. Returns
+        False if nothing smaller is left (the smallest k also fails:
+        unrecoverable)."""
+        live = [k for k in self._ks_live if k < failed_k]
+        if not live:
+            return False
+        self._ks_live = tuple(live)
+        return True
+
+    def _stack(self, chunk, k: int):
+        """(staging buffer, its first k batches filled with the chunk and
+        zero-padded). Blocks until a staging buffer is free."""
+        buf = self._staging.get()
+        stack = buf[:k]
+        flat = stack.reshape(k * self.batch, *self._shape)
+        for i, (img, _) in enumerate(chunk):
+            flat[i] = img
+        flat[len(chunk):] = 0
+        return buf, stack
+
+    def _dispatch_retrying(self, stack: np.ndarray):
+        """Dispatch a stack; on an OOM, back off once and retry at the SAME k
+        before letting the caller shrink: an allocation failure at enqueue
+        time is often pressure from the other chunks in flight, not proof
+        that k is too big."""
+        try:
+            return self.predictor.predict_many_device(stack)
+        except Exception as e:
+            if not self._is_oom(e):
+                raise
+            time.sleep(1.0)  # let the chunks in flight resolve and free their stacks
+            return self.predictor.predict_many_device(stack)
+
+    def _run(self) -> None:
+        while True:
+            items, stop = self._take()
+            while items:
+                k = self._pick_k(len(items))
+                take = min(len(items), k * self.batch)
+                chunk, items = items[:take], items[take:]
+                # block until the budget admits this chunk (a lone one always
+                # passes); the resolver releases as chunks complete
+                with self._inflight_cv:
+                    while (self._inflight_images > 0 and self._inflight_images
+                           + k * self.batch > self.max_inflight_images):
+                        self._inflight_cv.wait()
+                    self._inflight_images += k * self.batch
+                buf, stack = self._stack(chunk, k)
+                try:
+                    # returns once the upload and the forwards are ENQUEUED;
+                    # the resolver waits for the result while this thread
+                    # stacks and dispatches the next chunk
+                    out = self._dispatch_retrying(stack)
+                except Exception as e:
+                    self._staging.put(buf)
+                    self._release_inflight(k)
+                    if self._is_oom(e) and self._shrink_ks(k):
+                        # re-chunk at the shrunk depths through the normal
+                        # pipelined path
+                        items = chunk + items
+                    else:
+                        self._fail(chunk, e)
+                    continue
+                self._results.put((chunk, k, out, buf))  # blocks at pipeline_depth
+            if stop:
+                self._results.put(None)
+                # resolve anything enqueued after the sentinel raced in
+                while True:
+                    try:
+                        nxt = self._queue.get_nowait()
+                    except queue.Empty:
+                        return
+                    if nxt is not None:
+                        nxt[1].set_exception(RuntimeError("BatchServer closed"))
+
+    @staticmethod
+    def _deliver(chunk, out) -> None:
+        """Resolve a chunk's futures from its (k, batch, ...) output."""
+        arr = np.asarray(out)  # waits for the forwards and the download
+        arr = arr.reshape(arr.shape[0] * arr.shape[1], *arr.shape[2:])
+        for i, (_, fut) in enumerate(chunk):
+            fut.set_result(arr[i])
+
+    @staticmethod
+    def _fail(chunk, e: BaseException) -> None:
+        """Surface a failure on every waiter of a chunk."""
+        for _, fut in chunk:
+            if not fut.done():
+                fut.set_exception(e)
+
+    def _release_inflight(self, k: int) -> None:
+        with self._inflight_cv:
+            self._inflight_images -= k * self.batch
+            self._inflight_cv.notify_all()
+
+    def _resolve(self) -> None:
+        """Wait for each dispatched chunk's download and resolve its
+        futures, in dispatch order."""
+        while True:
+            item = self._results.get()
+            if item is None:
+                return
+            chunk, k, out, buf = item
+            try:
+                arr = np.asarray(out)  # waits for the forwards and the download
+            except Exception as e:
+                self._staging.put(buf)
+                self._release_inflight(k)
+                # A chunk can also fail here (the download's host buffer, or
+                # a predictor that reports failures at consumption). Shrink
+                # the live depths, then re-run THIS chunk synchronously at
+                # the smallest k, right here: the resolver must never block
+                # on _results.put (it is its own consumer) or _queue.put
+                # (deadlocks against a full client queue while the worker
+                # waits on _results).
+                if self._is_oom(e) and self._shrink_ks(k):
+                    self._resolve_fallback(chunk)
+                else:
+                    self._fail(chunk, e)
+                continue
+            self._staging.put(buf)
+            self._release_inflight(k)
+            self._deliver(chunk, arr)
+
+    def _resolve_fallback(self, chunk) -> None:
+        """Re-run an OOM-failed chunk at the smallest live k, synchronously
+        (dispatching from this thread beside the worker is safe: both
+        enqueue on one stream). Chunks dispatched at the old k may still
+        fail the same way and land back here; `_ks_live` shrinks
+        monotonically, so this terminates. Each piece retries with backoff:
+        right after an OOM the other chunks in flight still hold their
+        stacks."""
+        kmin = self._ks_live[0]
+        size = kmin * self.batch
+        for lo in range(0, len(chunk), size):
+            piece = chunk[lo:lo + size]
+            for attempt in range(6):
+                buf, stack = self._stack(piece, kmin)
+                try:
+                    self._deliver(piece, self.predictor.predict_many_device(stack))
+                    break
+                except Exception as e:
+                    if self._is_oom(e) and attempt < 5:
+                        time.sleep(0.5 * (2 ** attempt))  # let the device drain
+                        continue
+                    self._fail(piece, e)
+                    break
+                finally:
+                    self._staging.put(buf)

@@ -1,15 +1,19 @@
 """The adversarial scribble trainer on one device.
 
 The port of `octave_tpu/train/trainer.py` (build_dataset :89-100,
-Trainer.__init__ :107-214, init_state :217-276, fit :369-498, evaluate
-:501-549) for the `unet` architecture with one critic, on the synthetic
-phantoms. The host never waits for a step unless it is `dispatch_ahead`
-steps ahead of the device, or logs. Options whose port is still to come
-raise NotImplementedError naming their ROADMAP item; none is ignored.
+Trainer.__init__ :107-214, init_state :217-276, load_pretrained_backbone
+:278-300, fit :369-498, evaluate :501-549) for the `unet` architecture with
+one critic, on the synthetic phantoms or a ROSE / OCTA-500 folder, with
+train-time augmentation, checkpoint and resume, a final save on SIGTERM and
+an optional profiler trace. The host never waits for a step unless it is
+`dispatch_ahead` steps ahead of the device, or logs. Options whose port is
+still to come raise NotImplementedError naming their ROADMAP item; none is
+ignored.
 """
 from __future__ import annotations
 
 import logging
+import signal
 import time
 from collections import deque
 from typing import Dict, Optional
@@ -17,6 +21,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from octave_tpu_torch.data import augment
 from octave_tpu_torch.data import datasets as ds
 from octave_tpu_torch.data.preprocess import prepare_batch
 from octave_tpu_torch.models.discriminator import DiscriminatorBlock
@@ -25,9 +30,12 @@ from octave_tpu_torch.serve import resolve_device
 from octave_tpu_torch.train.schedule import make_optimizer, polynomial_decay
 from octave_tpu_torch.train.state import TrainState
 from octave_tpu_torch.train.steps import StepConfig, make_eval_accumulate_step, make_train_step
+from octave_tpu_torch.utils import convert
+from octave_tpu_torch.utils.checkpoint import CheckpointManager
 from octave_tpu_torch.utils.config import Config
 from octave_tpu_torch.utils.logging import MetricsLogger, StepTimer
 from octave_tpu_torch.utils.metrics import AucAccumulator, ConfusionAccumulator
+from octave_tpu_torch.utils.profiling import trace
 
 log = logging.getLogger("octave_tpu_torch")
 
@@ -38,17 +46,12 @@ def _unported(cfg: Config) -> list:
     checks = [
         (m.architecture != "unet", f"model.architecture={m.architecture!r}", "A.4"),
         (m.encoder_gating, "model.encoder_gating", "A.4"),
-        (m.pretrain, "model.pretrain (the resnest50 .pth is not in the repo)", "A.1"),
-        (d.dataset != "synthetic", f"data.dataset={d.dataset!r}", "A.3"),
-        (d.augment or d.augment_intensity != 0.0, "data.augment", "A.3"),
         (o.moment_dtype is not None, "optim.moment_dtype", "A.7"),
         (t.data_parallel or t.n_devices is not None, "train.data_parallel / n_devices", "A.5"),
         (t.remat not in (False, None), "train.remat", "A.7"),
         (t.dense_groups is not None or t.einsum_groups is not None,
          "train.dense_groups / einsum_groups", "A.7"),
         (int(t.steps_per_call) > 1, "train.steps_per_call > 1", "A.7"),
-        (t.checkpoint_dir is not None, "train.checkpoint_dir", "A.1"),
-        (t.profile_dir is not None, "train.profile_dir", "A.1"),
     ]
     return [(name, item) for bad, name, item in checks if bad]
 
@@ -58,8 +61,11 @@ def build_dataset(cfg: Config, split: str = "train"):
     if d.dataset == "synthetic":
         return ds.SyntheticOcta(size=tuple(d.image_size), n=d.synthetic_n,
                                 seed=cfg.train.seed + (0 if split == "train" else 1))
-    raise NotImplementedError(f"data.dataset={d.dataset!r}: the image-folder datasets "
-                              "are not ported yet (ROADMAP A.3)")
+    if d.dataset == "rose":
+        return ds.rose(d.root, d.subset, split)
+    if d.dataset == "octa500":
+        return ds.octa500(d.root, d.subset, split)
+    raise ValueError(f"unknown dataset: {d.dataset}")
 
 
 class Trainer:
@@ -126,24 +132,67 @@ class Trainer:
                 schedule=polynomial_decay(o.disc_lr, o.end_lr, o.decay_steps, o.power),
                 grad_clip=o.grad_clip)
         gen = torch.Generator(device=self.device).manual_seed(cfg.train.seed + 1)
-        return TrainState(segmentor=segmentor, seg_opt=seg_opt, critic=critic,
-                          critic_opt=critic_opt, generator=gen)
+        state = TrainState(segmentor=segmentor, seg_opt=seg_opt, critic=critic,
+                           critic_opt=critic_opt, generator=gen)
+        if cfg.model.pretrain:
+            self.load_pretrained_backbone(state, cfg.model.weight_path)
+        return state
 
-    def device_batch(self, host_batch: Dict[str, np.ndarray]) -> Dict[str, object]:
+    def load_pretrained_backbone(self, state: TrainState, path: str) -> TrainState:
+        """Load a resnest50 classification .pth into the segmentor's encoder
+        (the reference constructor's pretrained path); its `fc` is dropped.
+        Every encoder tensor must be in the file."""
+        tree = convert.convert_resnest50(convert.load_torch_state_dict(path), with_fc=False)
+        sd = convert.backbone_to_unet_keys(tree)
+        encoder = {k for k in state.segmentor.state_dict()
+                   if k.startswith("encoder_") and not k.endswith("num_batches_tracked")}
+        if set(sd) != encoder:
+            raise ValueError(f"pretrained backbone does not cover the encoder: "
+                             f"{sorted(encoder ^ set(sd))[:20]}")
+        state.segmentor.load_state_dict(sd, strict=False)
+        log.info("loaded %d pretrained backbone tensors from %s", len(sd), path)
+        return state
+
+    def device_batch(self, host_batch: Dict[str, np.ndarray],
+                     augment_draws: Optional[augment.Draws] = None) -> Dict[str, object]:
         """A host batch of `batch_iterator` -> model-ready tensors on the device."""
         cfg = self.cfg
         return prepare_batch(
             host_batch["image"], host_batch["scribble"], host_batch["mask"],
             size=tuple(cfg.data.image_size), num_classes=cfg.model.num_classes,
             depth=max(cfg.model.discriminator_depth, 1), in_channels=cfg.data.in_channels,
-            device=self.device)
+            augment_draws=augment_draws, device=self.device)
 
     # ------------------------------------------------------------------
     def fit(self, state: Optional[TrainState] = None) -> TrainState:
         cfg = self.cfg
         state = state if state is not None else self.init_state()
+
+        # preemption: a SIGTERM ends the loop at the next step boundary, and
+        # the final save below keeps what was trained
+        preempted = {"flag": False}
+
+        def on_sigterm(signum, frame):
+            preempted["flag"] = True
+
+        prev_handler = None
+        try:
+            prev_handler = signal.signal(signal.SIGTERM, on_sigterm)
+        except ValueError:
+            pass  # not on the main thread
+
+        ckpt = None
+        if cfg.train.checkpoint_dir:
+            ckpt = CheckpointManager(cfg.train.checkpoint_dir)
+            if ckpt.restore_latest(state) is not None:
+                log.info("resumed from step %d", state.step)
+
         it = ds.batch_iterator(build_dataset(cfg, "train"), cfg.data.batch_size,
                                seed=cfg.train.seed)
+        # the augmentation draws of step s come from a generator seeded with
+        # (train.seed + 7919, s): a resumed run draws what an uninterrupted
+        # one would
+        aug_gen = torch.Generator(device=self.device) if cfg.data.augment else None
         mlog = MetricsLogger(cfg.train.log_dir) if cfg.train.log_dir else None
         timer = StepTimer()
         ahead = max(0, int(cfg.train.dispatch_ahead))
@@ -151,40 +200,58 @@ class Trainer:
         window = []
         t0 = time.perf_counter()
         try:
-            for host_batch in it:
-                if state.step >= cfg.train.steps:
-                    break
-                losses = self.train_step(state, self.device_batch(host_batch))
-                if cfg.train.debug_nans:
-                    bad = [k for k, v in losses.items() if not bool(torch.isfinite(v))]
-                    if bad:
-                        raise FloatingPointError(f"non-finite {bad} at step {state.step}")
-                if self.device.type == "cuda":
-                    # bound the host's run-ahead: wait for the oldest step
-                    done = torch.cuda.Event()
-                    done.record()
-                    inflight.append(done)
-                    while len(inflight) > ahead:
-                        inflight.popleft().synchronize()
-                timer.tick()
-                window.append(losses)
-                step = state.step
-                if cfg.train.log_every > 0 and step % cfg.train.log_every == 0:
-                    mean = {k: float(torch.stack([l[k] for l in window]).float().mean())
-                            for k in window[-1]}
-                    dt = time.perf_counter() - t0
-                    ips = cfg.data.batch_size * len(window) / dt
-                    log.info("step %d  %s  %.1f img/s", step,
-                             "  ".join(f"{k}={v:.4f}" for k, v in mean.items()), ips)
-                    if mlog is not None:
-                        mlog.log(step, {**mean, "img_per_s_wall": ips,
-                                        **timer.stats(cfg.data.batch_size)}, prefix="train/")
-                    window, t0 = [], time.perf_counter()
-                if cfg.train.eval_every > 0 and step % cfg.train.eval_every == 0:
-                    self.evaluate(state)
+            with trace(cfg.train.profile_dir):
+                for host_batch in it:
+                    if state.step >= cfg.train.steps:
+                        break
+                    if preempted["flag"]:
+                        log.warning("SIGTERM received: saving and stopping at step %d",
+                                    state.step)
+                        break
+                    draws = None
+                    if aug_gen is not None:
+                        aug_gen.manual_seed((cfg.train.seed + 7919) * 1_000_003 + state.step)
+                        draws = augment.draw(aug_gen, host_batch["image"].shape[0],
+                                             cfg.data.augment_intensity)
+                    losses = self.train_step(state, self.device_batch(host_batch, draws))
+                    if cfg.train.debug_nans:
+                        bad = [k for k, v in losses.items() if not bool(torch.isfinite(v))]
+                        if bad:
+                            raise FloatingPointError(f"non-finite {bad} at step {state.step}")
+                    if self.device.type == "cuda":
+                        # bound the host's run-ahead: wait for the oldest step
+                        done = torch.cuda.Event()
+                        done.record()
+                        inflight.append(done)
+                        while len(inflight) > ahead:
+                            inflight.popleft().synchronize()
+                    timer.tick()
+                    window.append(losses)
+                    step = state.step
+                    if cfg.train.log_every > 0 and step % cfg.train.log_every == 0:
+                        mean = {k: float(torch.stack([l[k] for l in window]).float().mean())
+                                for k in window[-1]}
+                        dt = time.perf_counter() - t0
+                        ips = cfg.data.batch_size * len(window) / dt
+                        log.info("step %d  %s  %.1f img/s", step,
+                                 "  ".join(f"{k}={v:.4f}" for k, v in mean.items()), ips)
+                        if mlog is not None:
+                            mlog.log(step, {**mean, "img_per_s_wall": ips,
+                                            **timer.stats(cfg.data.batch_size)}, prefix="train/")
+                        window, t0 = [], time.perf_counter()
+                    if (ckpt is not None and cfg.train.checkpoint_every > 0
+                            and step % cfg.train.checkpoint_every == 0):
+                        ckpt.save(step, state)
+                    if cfg.train.eval_every > 0 and step % cfg.train.eval_every == 0:
+                        self.evaluate(state)
         finally:
+            if ckpt is not None:
+                ckpt.save(state.step, state)
+                ckpt.close()
             if mlog is not None:
                 mlog.close()
+            if prev_handler is not None:
+                signal.signal(signal.SIGTERM, prev_handler)
         return state
 
     # ------------------------------------------------------------------

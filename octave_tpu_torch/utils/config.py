@@ -4,7 +4,7 @@
 The port's own copy of `octave_tpu/utils/config.py` (:14-188): the same
 fields, defaults, JSON/YAML loading and dotted overrides, so one config file
 drives either package. Fields that name work the port has not done yet
-(multi-GPU, remat, checkpoints, augmentation, ...) are kept so such files
+(multi-GPU, remat, the ParallelHead variants, ...) are kept so such files
 load; `train.trainer.Trainer` raises NotImplementedError on any of them set.
 """
 from __future__ import annotations
@@ -43,7 +43,8 @@ class DataConfig:
     batch_size: int = 8
     in_channels: int = 3
     synthetic_n: int = 64
-    # train-time augmentation (octave_tpu/data/augment.py), not ported yet
+    # train-time augmentation (data/augment.py): D4 per sample, plus a
+    # brightness/contrast jitter of +-augment_intensity
     augment: bool = False
     augment_intensity: float = 0.0
 

@@ -15,6 +15,12 @@ on purpose (HEAD_PREFIXES): the port does not build the heads yet.
 `from_jax_discriminator` is the inverse of `convert_discriminator`
 (:281-293): the critic's params and its `spectral` u, v go to the
 reference-named state dict of `models.discriminator.DiscriminatorBlock`.
+
+`convert_resnest50` is the counterpart of `convert_resnest50` (:125-178) for
+the pretrained `resnest50-*.pth`: the port's `models.resnest.ResNeSt` already
+carries the file's key names, so conversion is a strict key and shape check
+that files the tensors under `backbone.`; `backbone_to_unet_keys` renames
+them to the segmentor's encoder modules.
 """
 from __future__ import annotations
 
@@ -186,3 +192,57 @@ def load_reference_state_dict(model: nn.Module, state_dict: Mapping[str, Any]) -
         raise ValueError(f"state dict does not match the model: missing {missing[:20]}, "
                          f"unexpected {unexpected[:20]}")
     return model
+
+
+def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """Read a .pth state dict (tensors only) onto the CPU."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: v.detach() for k, v in sd.items() if torch.is_tensor(v)}
+
+
+def convert_resnest50(sd: Mapping[str, torch.Tensor], with_fc: bool = True,
+                      strict: bool = True) -> Dict[str, torch.Tensor]:
+    """A resnest50 classification state dict -> {"backbone.<key>": tensor}.
+
+    Every tensor the backbone needs must be there with its shape (KeyError /
+    ValueError otherwise). With `strict`, every tensor of the file must also
+    have been taken: nothing is dropped silently except BN step counters and,
+    with with_fc=False, the classification head `fc`."""
+    from octave_tpu_torch.models.resnest import resnest50
+
+    with torch.device("meta"):
+        want = {k: tuple(v.shape) for k, v in resnest50().state_dict().items()
+                if not k.endswith("num_batches_tracked")}
+    if with_fc:
+        want.update({"fc.weight": (1000, 2048), "fc.bias": (1000,)})
+    out = {}
+    for key, shape in want.items():
+        if key not in sd:
+            near = [k for k in sd if k.split(".")[0] == key.split(".")[0]][:8]
+            raise KeyError(f"state dict is missing {key!r}; keys under the same module: {near}")
+        if tuple(sd[key].shape) != shape:
+            raise ValueError(f"{key}: shape {tuple(sd[key].shape)}, expected {shape}")
+        out["backbone." + key] = sd[key]
+    unused = sorted(k for k in sd if k not in want and not k.endswith("num_batches_tracked")
+                    and not (k.startswith("fc.") and not with_fc))
+    if strict and unused:
+        raise ValueError(f"{len(unused)} state dict tensor(s) were not mapped (the .pth does "
+                         f"not match resnest50): {unused[:20]}")
+    return out
+
+
+def backbone_to_unet_keys(tree: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """{"backbone.<resnest key>"} -> the ResnestUNet's own names: the deep
+    stem `conv1` and `bn1` are `encoder_0_1_2.0` and `.1`, `layerN` is
+    `encoder_N`; the classification `fc` has no place in the segmentor."""
+    out = {}
+    for key, v in tree.items():
+        key = key[len("backbone."):]
+        head, rest = key.split(".", 1)
+        if head == "conv1":
+            out["encoder_0_1_2.0." + rest] = v
+        elif head == "bn1":
+            out["encoder_0_1_2.1." + rest] = v
+        elif head.startswith("layer"):
+            out[f"encoder_{head[len('layer'):]}.{rest}"] = v
+    return out

@@ -1,4 +1,5 @@
-"""The port's Triton kernels against their plain PyTorch versions, on a GPU.
+"""The port's Triton kernels against their plain PyTorch versions, and its
+deployment path (augmentation, checkpoints, the pipelined server), on a GPU.
 
 Every case skips without CUDA. The file imports neither JAX nor the JAX
 package, so on a GPU host without JAX it runs on its own:
@@ -163,3 +164,108 @@ def test_bottleneck_gradient_on_card(cuda, stride, hw):
             assert err < 1e-3, err
     finally:
         torch.backends.cudnn.allow_tf32 = True
+
+
+# -- the deployment path on the card -------------------------------------------
+def _small_trainer(device, **extra):
+    from octave_tpu_torch.train.trainer import Trainer
+    from octave_tpu_torch.utils.config import Config
+
+    cfg = Config().apply_overrides({
+        "data.image_size": "[64,64]", "data.synthetic_n": "4", "data.batch_size": "2",
+        "model.num_filters": "8", "train.steps": "2", "train.eval_every": "0",
+        "train.log_every": "0", **extra})
+    return Trainer(cfg, device=device)
+
+
+def test_augmentation_on_card_equals_cpu(cuda, gen):
+    """The same draws give the same batch on the card and on the CPU, in
+    contiguous NHWC; a CUDA generator draws on the card."""
+    from octave_tpu_torch.data import augment
+    from octave_tpu_torch.data.preprocess import prepare_batch
+
+    image = gen.integers(0, 256, (4, 40, 40), dtype=np.uint8)
+    scrib = gen.integers(0, 3, (4, 40, 40)).astype(np.uint8)
+    mask = gen.integers(0, 2, (4, 40, 40)).astype(np.uint8)
+    draws = augment.draw(torch.Generator(device=cuda).manual_seed(3), 4, 0.1)
+    assert all(t.is_cuda for t in draws)
+    on_card = prepare_batch(image, scrib, mask, size=(32, 32), depth=2,
+                            augment_draws=draws, device=cuda)
+    on_cpu = prepare_batch(image, scrib, mask, size=(32, 32), depth=2,
+                           augment_draws=augment.Draws(*(t.cpu() for t in draws)), device="cpu")
+    for k in ("image", "scribble_onehot", "mask_onehot"):
+        assert on_card[k].is_cuda and on_card[k].is_contiguous()
+        torch.testing.assert_close(on_card[k].cpu(), on_cpu[k], atol=2e-6, rtol=0)
+    for a, b in zip(on_card["mask_pyramid"], on_cpu["mask_pyramid"]):
+        assert torch.equal(a.cpu(), b)
+    again = augment.draw(torch.Generator(device=cuda).manual_seed(3), 4, 0.1)
+    assert all(torch.equal(a, b) for a, b in zip(draws, again))
+
+
+def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
+    """Restored parameters, fused Adam moments and step counters lie on the
+    card in the parameters' layout, bit-equal to the live state, and the next
+    step of both states gives the same losses."""
+    from octave_tpu_torch.data import datasets as ds
+    from octave_tpu_torch.train.trainer import build_dataset
+    from octave_tpu_torch.utils.checkpoint import CheckpointManager, state_to_dict
+
+    tr = _small_trainer(cuda)
+    live = tr.fit()
+    mgr = CheckpointManager(str(tmp_path))
+    assert mgr.save(live.step, live)
+    restored = mgr.restore_latest(tr.init_state())
+    mgr.close()
+    assert restored.step == live.step == 2
+
+    def leaves(obj, path=""):
+        if isinstance(obj, dict):
+            for k, v in obj.items():
+                yield from leaves(v, f"{path}/{k}")
+        elif isinstance(obj, (list, tuple)):
+            for i, v in enumerate(obj):
+                yield from leaves(v, f"{path}/{i}")
+        else:
+            yield path, obj
+
+    want, got = dict(leaves(state_to_dict(live))), dict(leaves(state_to_dict(restored)))
+    assert want.keys() == got.keys()
+    for k, v in want.items():
+        if torch.is_tensor(v):
+            assert got[k].device == v.device and got[k].stride() == v.stride(), k
+            assert torch.equal(got[k], v), k
+        else:
+            assert got[k] == v, k
+    moments = restored.seg_opt.opt.state_dict()["state"][0]
+    assert moments["exp_avg"].is_cuda and moments["step"].is_cuda
+    batch = tr.device_batch(next(ds.batch_iterator(build_dataset(tr.cfg), 2, seed=1)))
+    a, b = tr.train_step(live, batch), tr.train_step(restored, batch)
+    for k in a:
+        torch.testing.assert_close(a[k], b[k], atol=0, rtol=1e-5)
+
+
+def test_batch_server_on_card(cuda, gen):
+    """The server's answers equal Predictor.__call__'s, in order; every
+    dispatched batch launches the epilogue kernel 5 times; host arrays come
+    back in pinned memory; the staging buffers are pinned."""
+    from octave_tpu_torch.ops.kernels import launch_counts
+    from octave_tpu_torch.serve import BatchServer, Predictor
+
+    pred = Predictor.initialize(image_hw=(64, 64), device=cuda)
+    imgs = [gen.integers(0, 256, (64, 64, 3), dtype=np.uint8) for _ in range(21)]
+    padded = np.zeros((24, 64, 64, 3), np.uint8)
+    padded[:21] = np.stack(imgs)
+    want = np.concatenate([pred(padded[i:i + 4]) for i in range(0, 24, 4)])[:21]
+    ks = []
+    dispatch = pred.predict_many_device
+    pred.predict_many_device = lambda stack: (ks.append(stack.shape[0]), dispatch(stack))[1]
+    with BatchServer(pred, batch=4, image_hw=(64, 64), ks=(1, 2, 4)) as srv:
+        assert torch.from_numpy(srv._staging.queue[0]).is_pinned()
+        ks.clear()
+        launch_counts(reset=True)
+        got = list(srv.map(iter(imgs)))
+    torch.cuda.synchronize()
+    assert launch_counts() == {"aag": 0, "decoder_epilogue": 5 * sum(ks)}
+    assert sum(ks) * 4 >= 21 and len(got) == 21
+    assert torch.from_numpy(got[0]).is_pinned()
+    np.testing.assert_allclose(np.stack(got), want, atol=2**-7, rtol=0)

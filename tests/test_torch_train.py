@@ -87,7 +87,7 @@ def _batch():
     XLA's uint8 -> [0, 1] scaling can round an image value 1 ulp away)."""
     host = next(tds.batch_iterator(tds.SyntheticOcta((HW, HW), n=4, seed=5), B, seed=2))
     batch = tpre.prepare_batch(host["image"], host["scribble"], host["mask"], size=(HW, HW),
-                               num_classes=2, depth=DEPTH, in_channels=3)
+                               num_classes=2, depth=DEPTH, in_channels=3, device="cpu")
     return {k: tuple(t.numpy() for t in v) if isinstance(v, tuple) else v.numpy()
             for k, v in batch.items()}
 
@@ -288,7 +288,7 @@ def test_prepare_batch_matches_jax(src, size):
     want = jpre.prepare_batch(*(jnp.asarray(host[k]) for k in ("image", "scribble", "mask")),
                               size=size, num_classes=2, depth=3, in_channels=3)
     got = tpre.prepare_batch(host["image"], host["scribble"], host["mask"], size=size,
-                             num_classes=2, depth=3, in_channels=3)
+                             num_classes=2, depth=3, in_channels=3, device="cpu")
     assert got["image"].shape == (2, *size, 3) and got["image"].is_contiguous()
     np.testing.assert_allclose(got["image"].numpy(), np.asarray(want["image"]), atol=2e-6)
     for k in ("scribble_onehot", "mask_onehot"):

@@ -72,17 +72,17 @@ def test_weak_only_and_depth_clamp():
 @pytest.mark.parametrize("override,item", [
     ({"model.architecture": "parallel_head"}, "A.4"),
     ({"model.encoder_gating": "true"}, "A.4"),
-    ({"model.pretrain": "true"}, "A.1"),
-    ({"data.dataset": "rose"}, "A.3"),
-    ({"data.augment": "true"}, "A.3"),
+    ({"model.architecture": "parallel_head_gate"}, "A.4"),
+    ({"train.n_devices": "2"}, "A.5"),
+    ({"train.remat": "block:012"}, "A.7"),
     ({"optim.moment_dtype": "bfloat16"}, "A.7"),
     ({"train.data_parallel": "true"}, "A.5"),
     ({"train.remat": "block"}, "A.7"),
     ({"train.dense_groups": "decoder"}, "A.7"),
     ({"train.einsum_groups": "decoder"}, "A.7"),
     ({"train.steps_per_call": "2"}, "A.7"),
-    ({"train.checkpoint_dir": "/nonexistent/ckpt"}, "A.1"),
-    ({"train.profile_dir": "/nonexistent/prof"}, "A.1"),
+    ({"train.remat": "conv"}, "A.7"),
+    ({"train.dense_groups": "all"}, "A.7"),
     ({"train.compute_dtype": "float16"}, None),
 ])
 def test_unported_options_raise(override, item):
@@ -90,6 +90,19 @@ def test_unported_options_raise(override, item):
         Trainer(_cfg(**override), device="cpu")
     if item is not None:
         assert f"ROADMAP {item}" in str(e.value)
+
+
+@pytest.mark.parametrize("override", [
+    {"model.pretrain": "true"},
+    {"data.dataset": "rose"},
+    {"data.dataset": "octa500"},
+    {"data.augment": "true", "data.augment_intensity": "0.1"},
+    {"train.checkpoint_dir": "/nonexistent/ckpt"},
+    {"train.profile_dir": "/nonexistent/prof"},
+])
+def test_ported_options_are_accepted(override):
+    """What the deployment slice ported no longer raises at construction."""
+    Trainer(_cfg(**override), device="cpu")
 
 
 def test_default_device_needs_cuda():
