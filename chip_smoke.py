@@ -48,7 +48,21 @@ Phases, each printing its own lines:
                of the dispatched k, k > 1 under flood and k = 1 for a lone
                request, recovery from an injected out-of-memory at k = 4,
                img/s, latency, device idle share and peak memory; checkpoint
-               and augmentation times.
+               and augmentation times;
+  7. family  - the rest of the model family: the dual decoders' goldens
+               (phg112 through the AAG kernel and the fused epilogue, 6
+               launches each; ph112) in float32; `cli train
+               model.architecture=parallel_head_gate` on a ROSE tree with
+               thick_gt and thin_gt (304², B = 8, bf16, augmentation, critics
+               main depth 4 and c depth 1, 4 steps, 7 AAG launches per step
+               and eval batch), restore exact, every kind of state moved,
+               `cli eval --checkpoint` printing the live metrics; one float32
+               dual-critic step on the card against the CPU (112², B = 2);
+               the fused dual-decoder eval forward (7 epilogue launches)
+               against the unfused one in bf16; `octa_scribble_net` with
+               encoder gating (5 AAG launches, 5 gates of 16 channels); step
+               time, img/s and peak memory of parallel_head_gate beside unet,
+               float32 and bf16, with a profile of one bf16 step.
 Exits non-zero, before printing any result, without CUDA or outside a
 checkout of the repository; any failed check
 raises. The last three lines are the kernels JSON, the card's name and power
@@ -228,6 +242,37 @@ def profile_groups(torch, fn, group):
             groups[group(ev.name)] = groups.get(group(ev.name), 0.0) + ms
             names[ev.name] = names.get(ev.name, 0.0) + ms
     return wall, groups, names
+
+
+def run_cli(argv):
+    """octave_tpu_torch.cli.main(argv) in process -> (its stdout, the
+    package's log messages)."""
+    from octave_tpu_torch import cli
+
+    out = io.StringIO()
+    with package_log() as records, contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    check(rc == 0, f"cli {argv[0]} returned {rc}")
+    return out.getvalue(), records
+
+
+def printed_metrics(text):
+    """The metrics dict a `cli train` / `cli eval` printed last."""
+    import ast
+
+    return ast.literal_eval([line for line in text.splitlines() if line.startswith("{")][-1])
+
+
+def leaves(obj, path=""):
+    """(path, leaf) of every tensor and scalar in a nested state."""
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            yield from leaves(v, f"{path}/{k}")
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            yield from leaves(v, f"{path}/{i}")
+    else:
+        yield path, obj
 
 
 def phantoms(n, hw, seed):
@@ -472,6 +517,11 @@ def main() -> int:
                           f"__call__ {SERVE_B / t_call:.1f} img/s, predict_many k=4 "
                           f"{4 * SERVE_B / t_many:.1f} img/s")
     for name, paths in deploy.items():
+        by_path[name].update(paths)
+
+    # -- 7. the rest of the model family -------------------------------------
+    torch.cuda.empty_cache()
+    for name, paths in phase_family(torch, smi).items():
         by_path[name].update(paths)
 
     line = {"kernels": [
@@ -722,7 +772,6 @@ def _deploy(torch, smi, serve, weights, direct_rates, tmp):
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
-    from octave_tpu_torch import cli
     from octave_tpu_torch.data import augment
     from octave_tpu_torch.data import datasets as ds
     from octave_tpu_torch.ops.kernels import launch_counts
@@ -751,19 +800,6 @@ def _deploy(torch, smi, serve, weights, direct_rates, tmp):
             if n:
                 paths[name][label] = n
         return result
-
-    def run_cli(argv):
-        """cli.main(argv) in process -> (its stdout, the package's log messages)."""
-        out = io.StringIO()
-        with package_log() as records, contextlib.redirect_stdout(out):
-            rc = cli.main(argv)
-        check(rc == 0, f"cli {argv[0]} returned {rc}")
-        return out.getvalue(), records
-
-    def printed_metrics(text):
-        import ast
-
-        return ast.literal_eval([l for l in text.splitlines() if l.startswith("{")][-1])
 
     # 6.1 phantoms as PNGs in a ROSE tree, read back through rose()
     t0 = time.time()
@@ -831,16 +867,6 @@ def _deploy(torch, smi, serve, weights, direct_rates, tmp):
     check(any(r == "resumed from step 4" for r in records), f"no resume logged: {records[:5]}")
     check(live.step == 6 and CheckpointManager(ckpt_dir).all_steps() == [4, 6],
           f"resumed run ended at step {live.step}")
-
-    def leaves(obj, path=""):
-        if isinstance(obj, dict):
-            for k, v in obj.items():
-                yield from leaves(v, f"{path}/{k}")
-        elif isinstance(obj, (list, tuple)):
-            for i, v in enumerate(obj):
-                yield from leaves(v, f"{path}/{i}")
-        else:
-            yield path, obj
 
     # checkpoint times on the live state, and the exact restore
     timing_dir = os.path.join(tmp, "ckpt_timing")
@@ -1093,6 +1119,360 @@ def _deploy(torch, smi, serve, weights, direct_rates, tmp):
     agree = float((masks == want).mean())
     log(f"[deploy] BatchServer mask_u8, 70 images: {agree:.6f} of pixels equal to __call__")
     check(masks.dtype == np.uint8 and agree >= SERVER_MASK_FLOOR, "mask_u8 through the server")
+    return paths
+
+
+# phase 7: the rest of the model family. The card-vs-CPU step takes phase 5's
+# bounds, the critic bound for each critic; fused against unfused dual
+# decoders takes PATH_AGREEMENT_FLOOR.
+FAMILY_HW = 304
+FAMILY_STEP_HW, FAMILY_STEP_B = 112, 2
+
+
+def family_bound(name, hw, b, itemsize):
+    """Byte bound (ms) of the seven gated depths of the gated dual decoders
+    at gating level 4: the five decoder depths of `DEPTHS` scaled to `hw`,
+    and the `_c` branch's depths 1 and 0, which have the shapes of depths 1
+    and 0."""
+    shapes = [(b, hw // 2**d, hw // 2**d, c) for d, (_, _, c) in enumerate(DEPTHS)]
+    return sum(bound(name, shape, itemsize)[0] for shape in shapes + shapes[:2])
+
+
+def phase_family(torch, smi, device="cuda"):
+    """Phase 7. Returns {kernel: {path: launches}} of its runs."""
+    tmp = tempfile.mkdtemp(prefix="octave_family_")
+    try:
+        return _family(torch, smi, device, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _family(torch, smi, device, tmp):
+    import numpy as np
+
+    from goldens import fill_state_dict, input_array, load_fixture
+    from octave_tpu_torch.data import datasets as ds
+    from octave_tpu_torch.models.octa import octa_scribble_net
+    from octave_tpu_torch.models.segmentor import (
+        ResnestUnetParallelHead,
+        ResnestUnetParallelHeadAttentionGate,
+    )
+    from octave_tpu_torch.ops.kernels import launch_counts
+    from octave_tpu_torch.ops.norm import fold_batch_stats, folded_inference
+    from octave_tpu_torch.train.trainer import Trainer, build_dataset
+    from octave_tpu_torch.utils.checkpoint import CheckpointManager, state_to_dict
+    from octave_tpu_torch.utils.config import Config
+    from octave_tpu_torch.utils.convert import load_reference_state_dict
+    from octave_tpu_torch.utils.imageio import write_png_gray
+
+    hw = FAMILY_HW
+    paths = {"aag": {}, "decoder_epilogue": {}}
+
+    def counted(label, fn, want):
+        """fn() with the launch counts zeroed just before it and read just after."""
+        launch_counts(reset=True)
+        result = fn()
+        torch.cuda.synchronize()
+        got = launch_counts()
+        log(f"[family] {label}: launches {got} (expected {want})")
+        check(got == want, f"{label}: launch counts {got}, expected {want}")
+        for name, n in got.items():
+            if n:
+                paths[name][label] = n
+        return result
+
+    def max_err(a, b):
+        return float((a.detach().float().cpu() - torch.as_tensor(b)).abs().max())
+
+    # 7.1 the dual decoders' goldens in float32 on the card, through both kernels
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for name, variants in (("phg112", ((False, {"aag": 6, "decoder_epilogue": 0}),
+                                       (True, {"aag": 0, "decoder_epilogue": 6}))),
+                           ("ph112", ((False, {"aag": 0, "decoder_epilogue": 0}),))):
+        manifest, meta, golden = load_fixture(name)
+        sd = fill_state_dict(manifest)
+        x = torch.from_numpy(input_array(meta["seed"], (1, 3, meta["hw"], meta["hw"])))
+        x = x.permute(0, 2, 3, 1).contiguous().to(device)
+        for fused, want in variants:
+            if name == "ph112":
+                model = ResnestUnetParallelHead(2)
+            else:
+                model = ResnestUnetParallelHeadAttentionGate(2, meta["gating_level"],
+                                                             use_fused_decoder=fused)
+            load_reference_state_dict(model, sd)
+            model = model.to(device).to(memory_format=torch.channels_last).eval()
+            label = f"golden {name} fp32" + (", fused" if fused else "")
+            with torch.inference_mode():
+                out = counted(label, lambda: model(x), want)
+            agg = out if name == "ph112" else out[1]
+            errs = {"agg": max_err(agg.permute(0, 1, 4, 2, 3), golden["agg"])}
+            if name == "phg112":
+                (atts, atts_c), _ = out
+                check(len(atts) == meta["n_atts"] and len(atts_c) == meta["n_atts_c"],
+                      f"{label}: {len(atts)} + {len(atts_c)} attentions")
+                for prefix, pyr in (("att", atts), ("attc", atts_c)):
+                    for i, a in enumerate(pyr):
+                        errs[f"{prefix}{i}"] = max_err(a.permute(0, 3, 1, 2), golden[f"{prefix}{i}"])
+            log(f"[family] {label}: max|err| " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+            check(max(errs.values()) < 1e-3, f"{label}: golden parity failed {errs}")
+            del model, out
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    # 7.2 the main path: cli train parallel_head_gate on a dual ROSE tree
+    t0 = time.time()
+    n_train, n_test = 16, 8
+    root = os.path.join(tmp, "data")
+    phantoms_ds = ds.SyntheticOcta((hw, hw), n=n_train + n_test, seed=31)
+    for split, idx in (("train", range(n_train)), ("test", range(n_train, n_train + n_test))):
+        base = os.path.join(root, "ROSE-1", "SVC", split)
+        dirs = ("img", "gt", "thick_gt", "thin_gt") if split == "train" else ("img", "gt")
+        for d in dirs:
+            os.makedirs(os.path.join(base, d))
+        for i in idx:
+            s = phantoms_ds[i]
+            write_png_gray(os.path.join(base, "img", f"{i:03d}.png"), s.image)
+            write_png_gray(os.path.join(base, "gt", f"{i:03d}.png"), s.mask * 255)
+            if split == "train":
+                write_png_gray(os.path.join(base, "thick_gt", f"{i:03d}.png"), s.mask * 255)
+                write_png_gray(os.path.join(base, "thin_gt", f"{i:03d}.png"),
+                               (s.scribble == 2).astype(np.uint8) * 255)
+    dual = ds.rose(root, "ROSE-1/SVC", "train", dual=True)
+    for j in range(n_train):
+        got, want = dual[j], phantoms_ds[j]
+        check(np.array_equal(got.scribble, want.mask * 2)
+              and np.array_equal(got.scribble_c, np.where(want.scribble == 2, 2, 0)),
+              f"rose(dual=True) sample {j}: head targets differ from the files written")
+    log(f"[family] {n_train} + {n_test} phantoms ({hw}²) in a ROSE tree with thick_gt and "
+        f"thin_gt; rose(dual=True) reads head 0 from thick_gt, head 1 from thin_gt "
+        f"({time.time() - t0:.1f} s)")
+
+    ckpt_dir = os.path.join(tmp, "ckpt")
+    over = {"model.architecture": "parallel_head_gate", "data.dataset": "rose",
+            "data.root": root, "data.augment": "true", "data.augment_intensity": "0.1",
+            "data.batch_size": "8", "data.image_size": f"[{hw},{hw}]",
+            "train.compute_dtype": "bfloat16", "train.checkpoint_dir": ckpt_dir,
+            "train.checkpoint_every": "4", "train.eval_every": "0", "train.log_every": "1",
+            "train.steps": "4"}
+    argv = [f"{k}={v}" for k, v in over.items()]
+    eval_batches = n_test // 8
+    t0 = time.time()
+    text, records = counted("cli train parallel_head_gate, 4 steps + final evaluate",
+                            lambda: run_cli(["train"] + argv),
+                            {"aag": 7 * (4 + eval_batches), "decoder_epilogue": 0})
+    t_train = time.time() - t0
+    train_metrics = printed_metrics(text)
+    steps_logged = [r for r in records if r.startswith("step ")]
+    check(len(steps_logged) == 4 and all("loss_disc=" in r for r in steps_logged),
+          f"expected 4 logged steps with a critic loss, got {steps_logged}")
+    check(any("discriminator[c] depth clamped 4 -> 1" in r for r in records),
+          "no depth clamp logged for the c critic")
+    check(CheckpointManager(ckpt_dir).all_steps() == [4], "no complete checkpoint at step 4")
+    log(f"[family] cli train model.architecture=parallel_head_gate data.dataset=rose "
+        f"data.augment=true bf16 {hw}² B=8, critics main depth 4 and c depth 1, noise on, 4 "
+        f"steps ({t_train:.1f} s with init, data and eval): {steps_logged[-1]}; metrics "
+        f"{train_metrics}")
+
+    cfg = Config().apply_overrides(over)
+    tr = Trainer(cfg, device=device)
+    initial = tr.init_state()
+    restored = CheckpointManager(ckpt_dir).restore_latest(tr.init_state())
+    saved = torch.load(os.path.join(ckpt_dir, "step_00000004", "state.pt"), map_location="cpu",
+                       weights_only=True)
+    want, got = dict(leaves(saved)), dict(leaves(state_to_dict(restored)))
+    check(want.keys() == got.keys(), "restored state has other entries than the checkpoint")
+    n_tensors = 0
+    for k, v in want.items():
+        if torch.is_tensor(v):
+            n_tensors += 1
+            check(v.dtype == got[k].dtype and torch.equal(v, got[k].cpu()),
+                  f"restored {k} differs from the checkpoint")
+        else:
+            check(v == got[k], f"restored {k}: {got[k]} != {v}")
+    before, after = state_to_dict(initial), state_to_dict(restored)
+    kinds = {"segmentor parameters": ("segmentor", "fc_c.weight"),
+             "BN running stats": ("segmentor", "encoder_1.0.bn1.running_mean"),
+             "main critic parameters": ("critic", "main.out.0.weight"),
+             "c critic parameters": ("critic", "c.out.0.weight"),
+             "main critic u/v": ("critic", "main.spectral_dict.spectral_3.0.weight_u"),
+             "c critic u/v": ("critic", "c.spectral_dict.spectral_0.0.weight_v")}
+    moved = {k: not torch.equal(before[m][n].cpu(), after[m][n].cpu())
+             for k, (m, n) in kinds.items()}
+    for opt, n_params in (("seg_opt", len(list(restored.segmentor.parameters()))),
+                          ("critic_opt", len(list(restored.critic.parameters())))):
+        st = after[opt]["opt"]["state"]
+        moved[opt] = (len(st) == n_params and all(float(v["step"]) == 4 for v in st.values())
+                      and after[opt]["sched"]["last_epoch"] == 4)
+    log(f"[family] restore into a fresh state: equal to the checkpoint in all {n_tensors} "
+        f"tensors, counters, generator and step; moved from the initial state: {moved}")
+    check(all(moved.values()), f"state did not move: {moved}")
+    del initial, before, after, saved, want, got
+
+    live = counted("Trainer.evaluate, restored state", lambda: tr.evaluate(restored),
+                   {"aag": 7 * eval_batches, "decoder_epilogue": 0})
+    text, _ = counted("cli eval --checkpoint parallel_head_gate",
+                      lambda: run_cli(["eval", "--checkpoint", ckpt_dir] + argv),
+                      {"aag": 7 * eval_batches, "decoder_epilogue": 0})
+    cli_metrics = printed_metrics(text)
+    log(f"[family] cli eval --checkpoint prints {cli_metrics}; cli train printed "
+        f"{train_metrics}; restored evaluate " + ", ".join(f"{k} {v:.6f}" for k, v in live.items()))
+    check(cli_metrics == train_metrics, "cli eval --checkpoint differs from the live metrics")
+    for k, v in live.items():
+        check(abs(cli_metrics[k] - v) <= 5e-5 + 1e-6, f"cli eval {k}: {cli_metrics[k]} vs {v}")
+    seg_sd = {k: v.detach().clone() for k, v in restored.segmentor.state_dict().items()}
+    del tr, restored
+    torch.cuda.empty_cache()
+
+    # 7.3 the dual-critic step on the card against the same step on the CPU
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    step_over = {"model.architecture": "parallel_head_gate",
+                 "data.image_size": f"[{FAMILY_STEP_HW},{FAMILY_STEP_HW}]",
+                 "data.batch_size": str(FAMILY_STEP_B), "data.synthetic_n": str(FAMILY_STEP_B),
+                 "model.instance_noise": "false", "model.label_noise": "false",
+                 "train.eval_every": "0", "train.log_every": "0"}
+    step_cfg = Config().apply_overrides(step_over)
+    gpu, cpu = Trainer(step_cfg, device=device), Trainer(step_cfg, device="cpu")
+    s_gpu, s_cpu = gpu.init_state(), cpu.init_state()
+    host = next(ds.batch_iterator(build_dataset(step_cfg), FAMILY_STEP_B, seed=0))
+    l_gpu = counted(f"one fp32 dual-critic step, {FAMILY_STEP_HW}², B={FAMILY_STEP_B}",
+                    lambda: gpu.train_step(s_gpu, gpu.device_batch(host)),
+                    {"aag": 7, "decoder_epilogue": 0})
+    t0 = time.time()
+    l_cpu = cpu.train_step(s_cpu, cpu.device_batch(host))
+    t_cpu = time.time() - t0
+    loss_err = max(abs(float(l_gpu[k]) / float(l_cpu[k]) - 1) for k in l_cpu)
+
+    def rel_l2(a_mod, b_mod):
+        pairs = [(p.grad.double().cpu(), q.grad.double()) for p, q in
+                 zip(a_mod.parameters(), b_mod.parameters())]
+        return float(torch.sqrt(sum(((a - b) ** 2).sum() for a, b in pairs))
+                     / torch.sqrt(sum((b ** 2).sum() for _, b in pairs)))
+
+    grad_err = {"segmentor": rel_l2(s_gpu.segmentor, s_cpu.segmentor)}
+    for name in ("main", "c"):
+        grad_err[name] = rel_l2(s_gpu.critic[name], s_cpu.critic[name])
+    log(f"[family] fp32 dual-critic step {FAMILY_STEP_HW}², B={FAMILY_STEP_B}, TF32 off, noise "
+        f"off: card (AAG kernel) " + ", ".join(f"{k} {float(v):.6f}" for k, v in l_gpu.items())
+        + f"; CPU (plain AAG, {t_cpu:.1f} s) max loss rel err {loss_err:.2e} (bound "
+        f"{TRAIN_LOSS_RTOL}); gradient rel L2 err " + ", ".join(
+            f"{k} {v:.2e}" for k, v in grad_err.items())
+        + f" (bounds segmentor {TRAIN_GRAD_L2['segmentor']}, each critic "
+        f"{TRAIN_GRAD_L2['critic']})")
+    check(loss_err <= TRAIN_LOSS_RTOL, f"card vs CPU dual-critic losses differ by {loss_err}")
+    for name, err in grad_err.items():
+        bound_ = TRAIN_GRAD_L2["segmentor" if name == "segmentor" else "critic"]
+        check(err <= bound_, f"card vs CPU {name} gradients differ by {err}")
+    del gpu, cpu, s_gpu, s_cpu
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    # 7.4 the fused dual-decoder eval forward against the unfused one, bf16
+    images = torch.from_numpy(phantoms(8, hw, seed=13)).to(device)
+    x = (images.to(torch.bfloat16) / 255.0).contiguous()
+    folded = fold_batch_stats(seg_sd)
+    models = {}
+    for fused in (True, False):
+        m = ResnestUnetParallelHeadAttentionGate(2, 4, use_fused_decoder=fused)
+        load_reference_state_dict(m, folded)
+        folded_inference(m)
+        models[fused] = m.to(device, torch.bfloat16).to(memory_format=torch.channels_last).eval()
+    with torch.inference_mode():
+        (atts_f, atts_cf), agg_f = counted(f"fused dual-decoder eval forward, bf16 {hw}² B=8",
+                                           lambda: models[True](x),
+                                           {"aag": 0, "decoder_epilogue": 7})
+        (atts_u, atts_cu), agg_u = counted(f"unfused dual-decoder eval forward, bf16 {hw}² B=8",
+                                           lambda: models[False](x),
+                                           {"aag": 7, "decoder_epilogue": 0})
+    check(len(atts_f) == len(atts_u) == 5 and len(atts_cf) == len(atts_cu) == 2,
+          "the gated dual decoders at level 4 emit 5 + 2 attentions")
+    agree = [float((agg_f[h].argmax(-1) == agg_u[h].argmax(-1)).float().mean()) for h in (0, 1)]
+    prob_err = float((torch.softmax(agg_f.float(), -1) - torch.softmax(agg_u.float(), -1))
+                     .abs().max())
+
+    def wall_ms(fn, reps=5):
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    with torch.inference_mode():
+        t_fused = wall_ms(lambda: models[True](x))
+        t_unfused = wall_ms(lambda: models[False](x))
+        _, groups, names = profile_groups(torch, lambda: models[True](x), kernel_group)
+    epi_ms = names.get("decoder_epilogue_kernel", 0.0)
+    epi_bound = family_bound("decoder_epilogue", hw, 8, 2)
+    log(f"[family] fused vs unfused dual decoders, bf16 {hw}² B=8, on {smi}: argmax agreement "
+        f"head 0 {agree[0]:.6f}, head 1 {agree[1]:.6f} (floor {PATH_AGREEMENT_FLOOR}), max |prob "
+        f"diff| {prob_err:.3g}; forward {t_fused:.2f} ms fused, {t_unfused:.2f} ms unfused (host "
+        f"clock, median of 5); epilogue kernels {epi_ms:.4f} ms in 7 launches, bound "
+        f"{epi_bound:.4f} ms (bytes)")
+    check(bool(torch.isfinite(agg_f.float()).all()), "non-finite fused dual-decoder output")
+    check(min(agree) >= PATH_AGREEMENT_FLOOR, f"fused and unfused dual decoders disagree {agree}")
+    del models, x, images, agg_f, agg_u, atts_f, atts_u, atts_cf, atts_cu, folded, seg_sd
+    torch.cuda.empty_cache()
+
+    # 7.5 the facade with encoder gating: one combined forward with a pyramid
+    facade, _ = octa_scribble_net((2, 3, hw, hw), (2, 2, hw, hw), True, encoder_gating=True,
+                                  device=device)
+    gen = torch.Generator(device=device).manual_seed(3)
+    x = (torch.from_numpy(phantoms(2, hw, seed=14)).to(device).float() / 255.0).contiguous()
+    mask = torch.nn.functional.one_hot((torch.rand(2, hw, hw, generator=gen, device=device)
+                                        > 0.9).long(), 2).float()
+    pyr = [mask[:, ::2**i, ::2**i].contiguous() for i in range(5)]
+    with torch.no_grad():
+        out = counted(f"octa_scribble_net encoder_gating forward with a pyramid, {hw}² B=2",
+                      lambda: facade(x, pyr, generator=gen), {"aag": 5, "decoder_epilogue": 0})
+    gates = out["encoder_gates"]
+    check(len(gates) == 5 and all(g.shape[-1] == 16 for g in gates), "encoder gate shapes")
+    gate_err = max(float((g.sum(-1) - 1).abs().max()) for g in gates)
+    check(gate_err < 1e-5, f"encoder gates do not sum to 1 ({gate_err})")
+    check(out["y_fake"].shape == out["y_real"].shape == (2, 1)
+          and bool(torch.isfinite(out["y_fake"]).all() and torch.isfinite(out["y_real"]).all()),
+          "facade critic logits")
+    log(f"[family] facade: gates {[tuple(g.shape[1:]) for g in gates]} (|sum - 1| <= "
+        f"{gate_err:.1e}), attentions {[tuple(a.shape[1:3]) for a in out['attentions']]}, y_fake "
+        f"{out['y_fake'].flatten().tolist()}, y_real {out['y_real'].flatten().tolist()}")
+    del facade, out, x, mask, pyr
+    torch.cuda.empty_cache()
+
+    # 7.6 step time, throughput and memory beside unet; profile of one bf16 step
+    for arch in ("unet", "parallel_head_gate"):
+        for label, dt in (("fp32 (cuDNN TF32 on, torch's default)", None),
+                          ("bf16 autocast", "bfloat16")):
+            cfg = Config().apply_overrides({"model.architecture": arch, "data.synthetic_n": "8",
+                                            "data.image_size": f"[{hw},{hw}]",
+                                            **({"train.compute_dtype": dt} if dt else {})})
+            tr = Trainer(cfg, device=device)
+            state = tr.init_state()
+            batch = tr.device_batch(next(ds.batch_iterator(build_dataset(cfg), 8, seed=0)))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            step = wall_ms(lambda: tr.train_step(state, batch), reps=10) / 1e3
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            log(f"[family] {arch} {label} step, {hw}², B=8, critics on, on {smi}: median "
+                f"{step * 1e3:.1f} ms over 10 steps after 1 warm-up ({8 / step:.1f} img/s), "
+                f"peak memory {peak:.2f} GiB")
+            if arch == "parallel_head_gate" and dt:
+                wall, groups, names = profile_groups(torch, lambda: tr.train_step(state, batch),
+                                                     train_group)
+                busy = sum(groups.values())
+                check(busy > 0, "the profiler saw no device time in the dual-critic step")
+                log(f"[family] profile of one bf16 parallel_head_gate step (B=8): wall "
+                    f"{wall:.1f} ms, device busy {busy:.1f} ms, idle {1 - busy / wall:.1%}; "
+                    + ", ".join(f"{g} {v:.2f} ms" for g, v in sorted(groups.items(),
+                                                                      key=lambda x: -x[1]))
+                    + f"; AAG kernel {names.get('aag_fwd_kernel', 0.0):.4f} ms in 7 launches, "
+                    f"bound {family_bound('aag', hw, 8, 2):.4f} ms (bytes)")
+                top = sorted(names.items(), key=lambda x: -x[1])[:8]
+                log("[family] top kernels: " + "; ".join(f"{n[:60]} {v:.2f} ms" for n, v in top))
+            del tr, state, batch
+            torch.cuda.empty_cache()
     return paths
 
 

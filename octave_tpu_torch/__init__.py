@@ -11,6 +11,7 @@ Layout (JAX counterpart in brackets):
   * ops/kernels/aag.py               [octave_tpu/ops/pallas/aag.py]
   * ops/kernels/decoder_epilogue.py  [octave_tpu/ops/pallas/decoder_epilogue.py]
   * models/resnest.py, segmentor.py  [octave_tpu/models/resnest.py, segmentor.py]
+  * models/propagation.py, octa.py   [octave_tpu/models/propagation.py, octa.py]
   * models/discriminator.py          [octave_tpu/models/discriminator.py]
   * losses/gan.py, segmentor.py      [octave_tpu/losses/gan.py, segmentor.py]
   * data/datasets.py, preprocess.py  [octave_tpu/data/datasets.py (synthetic), preprocess.py]

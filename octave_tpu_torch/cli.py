@@ -8,8 +8,11 @@ Usage:
 
 The port of `octave_tpu/cli.py` (`train` :40-48, `eval` :51-66, `convert`
 :69-104, `predict` :107-170): the same config files and dotted overrides
-(utils/config.py). The device is CUDA unless --device says otherwise; without
-CUDA the commands exit with a message. `bench` is not ported.
+(utils/config.py). `train` and `eval` build the segmentor that
+`model.architecture` and `model.encoder_gating` name; `predict` serves
+ResnestUNet only, as the JAX Predictor does. The device is CUDA unless
+--device says otherwise; without CUDA the commands exit with a message.
+`bench` is not ported.
 """
 from __future__ import annotations
 
@@ -125,6 +128,11 @@ def cmd_predict(args) -> int:
         raise SystemExit("octave_tpu_torch predict: --int8 (post-training quantisation) "
                          "is not ported yet (ROADMAP A.6)")
     cfg = _load_cfg(args)
+    if cfg.model.architecture != "unet" or cfg.model.encoder_gating:
+        raise SystemExit(
+            f"octave_tpu_torch predict: serves ResnestUNet without encoder gating only (the "
+            f"Predictor's model, as in the JAX package); got model.architecture="
+            f"{cfg.model.architecture!r}, model.encoder_gating={cfg.model.encoder_gating}")
     device = _device(args)
     size = tuple(cfg.data.image_size)
     paths = _list_images(args.images)

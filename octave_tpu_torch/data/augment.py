@@ -79,11 +79,15 @@ def intensity_jitter(image: torch.Tensor, db: torch.Tensor, dc: torch.Tensor) ->
 
 
 def augment(draws: Draws, image: torch.Tensor, scribble_onehot: torch.Tensor,
-            mask_onehot: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+            mask_onehot: torch.Tensor,
+            extra_labels: Tuple[torch.Tensor, ...] = ()) -> Tuple[torch.Tensor, ...]:
     """One augmentation of a prepared (pre-pyramid) batch: the dihedral part
-    on all three tensors, the jitter (when drawn) on the image only."""
-    image, scribble_onehot, mask_onehot = random_dihedral(
-        draws.flip_h, draws.flip_v, draws.rot, image, scribble_onehot, mask_onehot)
+    on the image, both label maps and every extra label map (e.g. the dual
+    decoders' second-head scribbles), the jitter (when drawn) on the image
+    only. Returns (image, scribble_onehot, mask_onehot, *extra_labels)."""
+    out = random_dihedral(draws.flip_h, draws.flip_v, draws.rot,
+                          image, scribble_onehot, mask_onehot, *extra_labels)
+    image = out[0]
     if draws.db is not None:
         image = intensity_jitter(image, draws.db, draws.dc)
-    return image, scribble_onehot, mask_onehot
+    return (image,) + out[1:]

@@ -7,12 +7,15 @@ ROSE, e.g. ROSE-1 SVC:
     <root>/ROSE-1/SVC/{train,test}/img/*.png
     <root>/ROSE-1/SVC/{train,test}/gt/*.png     (full vessel ground truth)
     <root>/ROSE-1/SVC/train/thin_gt             (centerline scribbles)
+    <root>/ROSE-1/SVC/train/thick_gt            (pixel-level scribbles, head 0
+                                                 of the dual decoders)
 OCTA-500 (3M/6M projections):
     <root>/OCTA_3M/{train,test}/{img,gt}/*.bmp
 
 through `utils.imageio.read_image` (PNG, BMP, PGM; TIFF waits with the
 threaded loader, ROADMAP A.1). `skeletonize_to_scribble` (:116-139),
-`SyntheticOcta` (:215-258) and `batch_iterator` (:261-294) give, with the
+`SyntheticOcta` (:215-258) and `batch_iterator` (:261-294, which stacks
+`scribble_c` when every sample has one) give, with the
 same seed, byte-identical arrays to the JAX package's: the random draws come
 in the same order and every pixel of a vessel disc is decided by the same
 float64 arithmetic; only the disc test is confined to the disc's bounding
@@ -64,6 +67,8 @@ class Sample:
     image: np.ndarray  # (h, w) uint8
     scribble: np.ndarray  # (h, w) uint8 label map (0=unlabeled, 1=bg, 2=vessel)
     mask: np.ndarray  # (h, w) uint8 dense label (0=bg, 1=vessel)
+    # the dual decoders' second-head target: the ROSE thin-branch scribbles
+    scribble_c: Optional[np.ndarray] = None
 
 
 def skeletonize_to_scribble(mask: np.ndarray, rng: np.random.Generator,
@@ -95,46 +100,55 @@ def _binarize(a: np.ndarray) -> np.ndarray:
 
 
 class ImageFolderOcta:
-    """Generic {img, gt[, scribble]} folder dataset. Without a scribble
-    directory the scribbles are derived from the mask's skeleton."""
+    """Generic {img, gt[, scribble[, scribble_c]]} folder dataset. Without a
+    scribble directory the scribbles are derived from the mask's skeleton;
+    `scribble_c_dir` gives each sample a second-head target."""
 
     def __init__(self, img_dir: str, gt_dir: str, scribble_dir: Optional[str] = None,
                  seed: int = 0, scribble_c_dir: Optional[str] = None):
-        if scribble_c_dir is not None:
-            raise NotImplementedError("scribble_c (the dual-head thin-branch targets) is "
-                                      "not ported yet (ROADMAP A.4)")
         self.images = _list_images(img_dir)
         self.gts = _list_images(gt_dir)
         if len(self.images) != len(self.gts) or not self.images:
             raise ValueError(f"mismatched/empty dataset: {img_dir} ({len(self.images)}) vs "
                              f"{gt_dir} ({len(self.gts)})")
         self.scribbles = _list_images(scribble_dir) if scribble_dir else []
+        self.scribbles_c = _list_images(scribble_c_dir) if scribble_c_dir else []
         self._rng = np.random.default_rng(seed)
 
     def __len__(self) -> int:
         return len(self.images)
 
+    @staticmethod
+    def _to_scribble(path: str, mask: np.ndarray) -> np.ndarray:
+        """A binary annotation file -> scribble map (vessel pixels class 2)."""
+        scrib = np.zeros_like(mask, dtype=np.uint8)
+        scrib[_binarize(_load_image(path)).astype(bool)] = 2
+        return scrib
+
     def __getitem__(self, i: int) -> Sample:
         img = _load_image(self.images[i])
         mask = _binarize(_load_image(self.gts[i]))
         if self.scribbles:
-            scrib = np.zeros_like(mask, dtype=np.uint8)
-            scrib[_binarize(_load_image(self.scribbles[i])).astype(bool)] = 2
+            scrib = self._to_scribble(self.scribbles[i], mask)
         else:
             scrib = skeletonize_to_scribble(mask, self._rng)
-        return Sample(img, scrib, mask)
+        scrib_c = self._to_scribble(self.scribbles_c[i], mask) if self.scribbles_c else None
+        return Sample(img, scrib, mask, scribble_c=scrib_c)
 
 
 def rose(root: str, subset: str = "ROSE-1/SVC", split: str = "train",
          dual: bool = False) -> ImageFolderOcta:
     """ROSE layout: the centerline (`thin_gt`) annotations are the weak
-    scribbles, as in the paper's weakly-supervised setup. `dual=True` (the
-    ParallelHead variants' thick/thin targets) is not ported yet."""
-    if dual:
-        raise NotImplementedError("rose(dual=True), the dual-head thick/thin targets, is "
-                                  "not ported yet (ROADMAP A.4)")
+    scribbles, as in the paper's weakly-supervised setup. With `dual=True`
+    (the dual decoders' per-head targets) head 0 takes the pixel-level
+    `thick_gt` and head 1 (`scribble_c`) the centerline `thin_gt`."""
     base = os.path.join(root, subset, split)
     thin = os.path.join(base, "thin_gt")
+    if dual:
+        thick = os.path.join(base, "thick_gt")
+        return ImageFolderOcta(os.path.join(base, "img"), os.path.join(base, "gt"),
+                               thick if os.path.isdir(thick) else None,
+                               scribble_c_dir=thin if os.path.isdir(thin) else None)
     return ImageFolderOcta(os.path.join(base, "img"), os.path.join(base, "gt"),
                            thin if os.path.isdir(thin) else None)
 
@@ -216,9 +230,12 @@ def batch_iterator(
         stop = n - (n % batch_size) if drop_last else n
         for s in range(0, stop, batch_size):
             samples = [dataset[int(i)] for i in order[s: s + batch_size]]
-            yield {
+            batch = {
                 "image": np.stack([x.image for x in samples]),
                 "scribble": np.stack([x.scribble for x in samples]),
                 "mask": np.stack([x.mask for x in samples]),
             }
+            if all(x.scribble_c is not None for x in samples):
+                batch["scribble_c"] = np.stack([x.scribble_c for x in samples])
+            yield batch
         epoch += 1

@@ -108,29 +108,40 @@ def prepare_batch(
     depth: int = 4,
     in_channels: int = 3,
     augment_draws: Optional[Draws] = None,
+    scribble_c: Optional[np.ndarray] = None,
     *,
     device: torch.device | str,
 ) -> Dict[str, object]:
     """Raw host batch -> dict(image (b,h,w,in_channels), scribble_onehot,
-    mask_onehot (b,h,w,num_classes), mask_pyramid) on `device`. Label maps
-    resize with nearest, never bilinear. With `augment_draws`
-    (`augment.draw`), image, scribbles and mask get one D4 transform per
-    sample and the image its jitter before the pyramid is built: train time
-    only."""
+    mask_onehot (b,h,w,num_classes), mask_pyramid[, scribble_onehot_c]) on
+    `device`. Label maps resize with nearest, never bilinear. `scribble_c`,
+    the dual decoders' second-head scribbles, takes the scribbles' path and
+    comes back as scribble_onehot_c. With `augment_draws` (`augment.draw`),
+    image, scribbles and mask get one D4 transform per sample, the same for
+    all of them, and the image its jitter, before the pyramid is built:
+    train time only."""
     device = torch.device(device)
     image, scribble, full_mask = (to_device(a, device) for a in (image, scribble, full_mask))
+
+    def label_map(a: torch.Tensor) -> torch.Tensor:
+        if tuple(a.shape[1:3]) != tuple(size):
+            a = nearest_resize(a[..., None], size)[..., 0]
+        return a
+
     img = grayscale_to_channels(resize_or_pad(normalize_image(image), size), in_channels)
-    if tuple(scribble.shape[1:3]) != tuple(size):
-        scribble = nearest_resize(scribble[..., None], size)[..., 0]
-    if tuple(full_mask.shape[1:3]) != tuple(size):
-        full_mask = nearest_resize(full_mask[..., None], size)[..., 0]
-    scrib = scribble_to_onehot(scribble, num_classes)
-    dense = mask_to_onehot(full_mask, num_classes)
+    scrib = scribble_to_onehot(label_map(scribble), num_classes)
+    dense = mask_to_onehot(label_map(full_mask), num_classes)
+    extras = ()
+    if scribble_c is not None:
+        extras = (scribble_to_onehot(label_map(to_device(scribble_c, device)), num_classes),)
     if augment_draws is not None:
-        img, scrib, dense = augment(augment_draws, img, scrib, dense)
-    return {
+        img, scrib, dense, *extras = augment(augment_draws, img, scrib, dense, tuple(extras))
+    batch = {
         "image": img,
         "scribble_onehot": scrib,
         "mask_onehot": dense,
         "mask_pyramid": mask_pyramid(dense, depth),
     }
+    if extras:
+        batch["scribble_onehot_c"] = extras[0]
+    return batch

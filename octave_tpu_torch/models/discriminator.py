@@ -154,7 +154,17 @@ class DiscriminatorBlock(nn.Module):
             s = torch.sigmoid(self.squeeze_dict[f"squeeze_{i}"][0](s))
             s = torch.cat((s, _nchw(y[i + 1]).to(s.dtype)), dim=1)
             s = torch.tanh(self.spectral_dict[f"spectral_{i}"][0](s, update))
-        logits = self.out[0](s).reshape(s.shape[0], -1)
+        out = self.out[0]
+        if tuple(s.shape[2:]) == out.kernel_size:
+            # the kernel spans the whole map: one dot product per sample, run
+            # as a GEMM. cuDNN's implicit GEMM for the depth-1 critic's 76x76
+            # kernel (304², B = 8, bf16) took 23.8 ms forward + backward, the
+            # GEMM 0.57 ms; at depth 4 (9x9) both ~1.1 ms (H100 80GB HBM3,
+            # 700 W; scripts/critic_out_conv.py)
+            logits = F.linear(s.permute(0, 2, 3, 1).reshape(s.shape[0], -1),
+                              out.weight.permute(0, 2, 3, 1).reshape(1, -1), out.bias)
+        else:
+            logits = out(s).reshape(s.shape[0], -1)
         if self.label_noise is not None:
             logits = self.label_noise(logits, generator)
         return logits

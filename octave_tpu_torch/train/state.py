@@ -6,6 +6,11 @@ one immutable pytree; here the two modules hold their parameters and
 buffers (BN running stats, spectral u/v), the two optimizers hold their
 moments and schedules, and one torch.Generator on the device feeds the
 critic's noise layers. The step mutates them in place.
+
+`critic` is one DiscriminatorBlock, or, for the dual decoders' two
+pyramids, an `nn.ModuleDict` {"main", "c"} of them under one optimizer (the
+JAX state's dict of critics). The single critic stays flat, so its
+checkpoints keep their keys.
 """
 from __future__ import annotations
 

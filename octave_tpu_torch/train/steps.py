@@ -1,25 +1,33 @@
 """The weakly-supervised adversarial train step and the streaming eval step.
 
-The port of `octave_tpu/train/steps.py` (StepConfig :76-139, make_train_step
-:150-419 for one segmentor and one critic, make_eval_accumulate_step
-:483-503). One step:
+The port of `octave_tpu/train/steps.py` (adapt_segmentor_output :45-73,
+StepConfig :76-139, make_train_step :150-419, _eval_forward :457-465,
+make_eval_accumulate_step :483-503), for every segmentor of the family and
+one critic or the dual decoders' pair of critics. One step:
 
-    atts, agg, _ = segmentor(x)                       (BN stats update once)
-    L_seg = WPCE(softmax(agg), scribble) + l_ild ILD(atts) + l_adv G(D(atts))
+    pyramids, agg maps = segmentor(x)                 (BN stats update once)
+    L_seg = sum over heads WPCE(softmax(agg_h), scribble_h)
+            + l_ild sum over pyramids ILD(pyramid) + l_adv sum over critics G(D(pyramid))
     segmentor optimizer steps
-    L_D = LSGAN(D(real pyramid), D(detached atts))    (critic's pre-step weights)
-    critic optimizer steps
+    L_D = sum over critics LSGAN(D(real pyramid), D(detached pyramid))
+    critic optimizer steps (one optimizer over every critic, one global clip)
+
+Head 0 takes `scribble_onehot`, later heads `scribble_onehot_c` when the
+batch carries it. The critic is a DiscriminatorBlock judging pyramid 0, or
+an `nn.ModuleDict` {"main", "c"} whose critics judge pyramids 0 and 1 at
+depths discriminator_depth and discriminator_depth_c.
 
 What `stop_gradient` and the discarded `mutable` collections do in the JAX
 step, the port does explicitly:
-  * the generator phase runs the critic with its parameters frozen
+  * the generator phase runs each critic with its parameters frozen
     (requires_grad off), so L_seg leaves no gradient on them, and with
     `update=False`, so its power iterations are thrown away;
-  * the critic phase sees the attention pyramid detached and, from the
-    step's original u/v, iterates D(fake) then D(real), storing both.
+  * the critic phase sees the attention pyramids detached and, for each
+    critic in order, from the step's original u/v, iterates D(fake) then
+    D(real), storing both.
 With compute_dtype='bfloat16' both forwards run under torch.autocast (master
 weights stay float32) and every loss is taken on float32 casts of the
-pyramids and the agg map, as the JAX step casts them.
+pyramids and the agg maps, as the JAX step casts them.
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn as nn
 
 from octave_tpu_torch.losses.gan import ls_discriminator_loss, ls_generator_loss
 from octave_tpu_torch.losses.segmentor import (
@@ -50,14 +59,36 @@ def compute_dtype(name: Optional[str]) -> Optional[torch.dtype]:
 
 
 def adapt_segmentor_output(out) -> Tuple[tuple, tuple]:
-    """A segmentor forward's output -> (pyramids, agg_maps). The port's
-    ResnestUNet returns (attentions, agg_map, x_4); the encoder-gating and
-    ParallelHead outputs of the JAX package wait for their port."""
-    if isinstance(out, tuple) and len(out) == 3:
-        attentions, agg_map, _ = out
+    """Any family forward's output -> (pyramids, agg_maps), tuples of
+    attention pyramids (possibly empty) and per-head agg maps:
+      * ResnestUNet                           (atts, agg, x_4)
+      * ResnestUNet(encoder_gating=True)      (gates, atts, agg, x_4); the
+        gates feed the classification path, not the losses
+      * ResnestUnetParallelHead               agg maps stacked (2, b, h, w, c)
+      * ResnestUnetParallelHeadAttentionGate  ((atts, atts_c), stacked)"""
+    if torch.is_tensor(out):
+        return (), tuple(out.unbind(0))
+    if len(out) == 2:
+        (atts, atts_c), stacked = out
+        return (tuple(atts), tuple(atts_c)), tuple(stacked.unbind(0))
+    if len(out) == 4:
+        _, attentions, agg_map, _ = out
         return (tuple(attentions),), (agg_map,)
-    raise NotImplementedError("only ResnestUNet's (attentions, agg_map, x_4) output is "
-                              "ported; encoder gating and ParallelHead wait (ROADMAP A.4)")
+    attentions, agg_map, _ = out
+    return (tuple(attentions),), (agg_map,)
+
+
+# the pyramid each critic judges
+_CRITIC_PYRAMID = {"main": 0, "c": 1}
+
+
+def _critics(critic) -> list:
+    """[(name, DiscriminatorBlock)] of a state's critic: one block is "main"."""
+    if critic is None:
+        return []
+    if isinstance(critic, nn.ModuleDict):
+        return list(critic.items())
+    return [("main", critic)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +104,10 @@ class StepConfig:
     ild_divergence: str = "KLD"  # KLD runs the pooled form (no full-res posteriors)
     use_discriminator: bool = True
     discriminator_depth: int = 4
+    # depth of the "c" critic, on the dual decoders' second pyramid (at most
+    # 2 levels: the `_c` branch gates depths 1 and 0)
+    discriminator_depth_c: int = 1
+    supervise_attention0: bool = False  # the supervised loss on atts[0] too
     compute_dtype: Optional[str] = None  # None | 'bfloat16'
 
 
@@ -93,23 +128,27 @@ def _ild(cfg: StepConfig, pyramid) -> torch.Tensor:
 
 def make_train_step(cfg: StepConfig) -> Callable[[TrainState, Dict[str, Any]],
                                                  Dict[str, torch.Tensor]]:
-    """The fused GAN step. batch: image (b,h,w,3), scribble_onehot (b,h,w,c)
-    and, with a critic, mask_pyramid (finest first). Returns the losses as
-    detached device tensors (reading them is the caller's only host sync)."""
+    """The fused GAN step. batch: image (b,h,w,3), scribble_onehot (b,h,w,c),
+    optional scribble_onehot_c (later heads' target) and, with a critic,
+    mask_pyramid (finest first). Returns the losses as detached device
+    tensors (reading them is the caller's only host sync)."""
     cdtype = compute_dtype(cfg.compute_dtype)
+    depth_of = {"main": cfg.discriminator_depth, "c": cfg.discriminator_depth_c}
 
     def loss_dtype(t: torch.Tensor) -> torch.Tensor:
         # losses in float32 under autocast; otherwise in the model's dtype
         return t.float() if cdtype is not None else t
 
     def train_step(state: TrainState, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        seg, critic = state.segmentor, state.critic
-        use_d = cfg.use_discriminator and critic is not None
-        depth = cfg.discriminator_depth
+        seg = state.segmentor
+        critics = _critics(state.critic) if cfg.use_discriminator else []
 
         def amp():
             return torch.autocast(batch["image"].device.type, dtype=cdtype or torch.bfloat16,
                                   enabled=cdtype is not None)
+
+        def judged(pyramids, name):
+            return list(pyramids[_CRITIC_PYRAMID[name]][: depth_of[name] + 1])
 
         seg.train()
         state.seg_opt.zero_grad()
@@ -117,40 +156,49 @@ def make_train_step(cfg: StepConfig) -> Callable[[TrainState, Dict[str, Any]],
             out = seg(batch["image"])
         pyramids_native, agg_maps = adapt_segmentor_output(out)
         pyramids = tuple(tuple(loss_dtype(a) for a in p) for p in pyramids_native)
+        target_c = batch.get("scribble_onehot_c", batch["scribble_onehot"])
         l_sup = sum(_supervised(cfg, torch.softmax(loss_dtype(a), dim=-1),
-                                batch["scribble_onehot"]) for a in agg_maps)
+                                batch["scribble_onehot"] if head == 0 else target_c)
+                    for head, a in enumerate(agg_maps))
+        if cfg.supervise_attention0 and pyramids:
+            l_sup = l_sup + _supervised(cfg, pyramids[0][0], batch["scribble_onehot"])
         losses = {"loss_sup": l_sup}
         total = l_sup
         if cfg.lambda_ild > 0 and any(len(p) > 1 for p in pyramids):
             l_ild = sum(_ild(cfg, p) for p in pyramids if len(p) > 1)
             losses["loss_ild"] = l_ild
             total = total + cfg.lambda_ild * l_ild
-        if use_d:
-            # generator phase: the critic judges the live pyramid with its
+        if critics:
+            # generator phase: each critic judges its live pyramid with its
             # parameters frozen and its power iterations discarded
-            critic.train()
-            critic.requires_grad_(False)
-            try:
-                with amp():
-                    y_fake = critic(list(pyramids_native[0][: depth + 1]), state.generator,
-                                    update=False)
-            finally:
-                critic.requires_grad_(True)
-            l_adv = ls_generator_loss(loss_dtype(y_fake))
+            l_adv = 0
+            for name, critic in critics:
+                critic.train()
+                critic.requires_grad_(False)
+                try:
+                    with amp():
+                        y_fake = critic(judged(pyramids_native, name), state.generator,
+                                        update=False)
+                finally:
+                    critic.requires_grad_(True)
+                l_adv = l_adv + ls_generator_loss(loss_dtype(y_fake))
             losses["loss_adv"] = l_adv
             total = total + cfg.lambda_adv * l_adv
         losses["loss_seg_total"] = total
         total.backward()
         state.seg_opt.step()
 
-        if use_d:
-            fake = [a.detach() for a in pyramids_native[0][: depth + 1]]
-            real = [p.to(cdtype) if cdtype else p for p in batch["mask_pyramid"][: depth + 1]]
+        if critics:
             state.critic_opt.zero_grad()
-            with amp():
-                y_fake = critic(fake, state.generator, update=True)
-                y_real = critic(real, state.generator, update=True)
-            l_d = ls_discriminator_loss(loss_dtype(y_real), loss_dtype(y_fake))
+            l_d = 0
+            for name, critic in critics:
+                fake = [a.detach() for a in judged(pyramids_native, name)]
+                real = [p.to(cdtype) if cdtype else p
+                        for p in batch["mask_pyramid"][: depth_of[name] + 1]]
+                with amp():
+                    y_fake = critic(fake, state.generator, update=True)
+                    y_real = critic(real, state.generator, update=True)
+                l_d = l_d + ls_discriminator_loss(loss_dtype(y_real), loss_dtype(y_fake))
             l_d.backward()
             state.critic_opt.step()
             losses["loss_disc"] = l_d
@@ -163,7 +211,8 @@ def make_train_step(cfg: StepConfig) -> Callable[[TrainState, Dict[str, Any]],
 def make_eval_accumulate_step(num_classes: int = 2, threshold: float = 0.5):
     """Streaming eval: eval_step(segmentor, batch) -> (softmax prediction,
     confusion counts, ROC histograms) of one batch, for dataset-level
-    Dice/AUC. The segmentor runs its eval forward in float32; a per-sample
+    Dice/AUC. The segmentor runs its eval forward in float32; the dual
+    decoders are scored on head 0 (the deep, full-vessel one); a per-sample
     `sample_weight` of 0 drops a padding sample from the counts."""
 
     @torch.inference_mode()
@@ -178,7 +227,7 @@ def make_eval_accumulate_step(num_classes: int = 2, threshold: float = 0.5):
         ch = 1 if num_classes > 1 else 0
         vessel_prob, target = pred[..., ch], batch["mask_onehot"][..., ch]
         weight = batch.get("sample_weight")
-        conf = ConfusionAccumulator.empty(pred.device).update(
+        conf = ConfusionAccumulator.empty(device=pred.device).update(
             (vessel_prob >= threshold).long(), target, weight)
         auc = AucAccumulator.empty(device=pred.device).update(vessel_prob, target, weight)
         return pred, conf, auc

@@ -2,10 +2,12 @@
 
 The port of `octave_tpu/train/trainer.py` (build_dataset :89-100,
 Trainer.__init__ :107-214, init_state :217-276, load_pretrained_backbone
-:278-300, fit :369-498, evaluate :501-549) for the `unet` architecture with
-one critic, on the synthetic phantoms or a ROSE / OCTA-500 folder, with
-train-time augmentation, checkpoint and resume, a final save on SIGTERM and
-an optional profiler trace. The host never waits for a step unless it is
+:278-300, fit :369-498, evaluate :501-549) for every architecture of the
+family (`unet`, with or without encoder gating; `parallel_head`;
+`parallel_head_gate` with its pair of critics), on the synthetic phantoms or
+a ROSE / OCTA-500 folder (ROSE with per-head targets for the dual decoders),
+with train-time augmentation, checkpoint and resume, a final save on SIGTERM
+and an optional profiler trace. The host never waits for a step unless it is
 `dispatch_ahead` steps ahead of the device, or logs. Options whose port is
 still to come raise NotImplementedError naming their ROADMAP item; none is
 ignored.
@@ -20,12 +22,13 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from octave_tpu_torch.data import augment
 from octave_tpu_torch.data import datasets as ds
 from octave_tpu_torch.data.preprocess import prepare_batch
 from octave_tpu_torch.models.discriminator import DiscriminatorBlock
-from octave_tpu_torch.models.segmentor import ResnestUNet
+from octave_tpu_torch.models.segmentor import ARCHITECTURES, build_segmentor
 from octave_tpu_torch.serve import resolve_device
 from octave_tpu_torch.train.schedule import make_optimizer, polynomial_decay
 from octave_tpu_torch.train.state import TrainState
@@ -44,8 +47,6 @@ def _unported(cfg: Config) -> list:
     """(setting, ROADMAP item) of every option set that the port lacks."""
     m, d, o, t = cfg.model, cfg.data, cfg.optim, cfg.train
     checks = [
-        (m.architecture != "unet", f"model.architecture={m.architecture!r}", "A.4"),
-        (m.encoder_gating, "model.encoder_gating", "A.4"),
         (o.moment_dtype is not None, "optim.moment_dtype", "A.7"),
         (t.data_parallel or t.n_devices is not None, "train.data_parallel / n_devices", "A.5"),
         (t.remat not in (False, None), "train.remat", "A.7"),
@@ -56,13 +57,31 @@ def _unported(cfg: Config) -> list:
     return [(name, item) for bad, name, item in checks if bad]
 
 
+def is_dual(cfg: Config) -> bool:
+    """Whether the configured segmentor has two decoders (two heads)."""
+    return cfg.model.architecture in ("parallel_head", "parallel_head_gate")
+
+
+def pyramid_levels(architecture: str, gating_level: int) -> Dict[str, int]:
+    """{critic name: levels of the attention pyramid it judges}: ResnestUNet
+    gates depths gating_level..0; the gated dual decoders' main pyramid has 5
+    levels when gating_level > 3, else gating_level + 1, and their "c"
+    pyramid min(gating_level, 1) + 1; `parallel_head` has no pyramid."""
+    if architecture == "unet":
+        return {"main": min(gating_level, 4) + 1}
+    if architecture == "parallel_head_gate":
+        return {"main": 5 if gating_level > 3 else max(gating_level, 0) + 1,
+                "c": min(gating_level, 1) + 1}
+    return {}
+
+
 def build_dataset(cfg: Config, split: str = "train"):
     d = cfg.data
     if d.dataset == "synthetic":
         return ds.SyntheticOcta(size=tuple(d.image_size), n=d.synthetic_n,
                                 seed=cfg.train.seed + (0 if split == "train" else 1))
     if d.dataset == "rose":
-        return ds.rose(d.root, d.subset, split)
+        return ds.rose(d.root, d.subset, split, dual=is_dual(cfg))
     if d.dataset == "octa500":
         return ds.octa500(d.root, d.subset, split)
     raise ValueError(f"unknown dataset: {d.dataset}")
@@ -70,7 +89,7 @@ def build_dataset(cfg: Config, split: str = "train"):
 
 class Trainer:
     """Weak supervision (WPCE + ILD) and, with model.discriminator_depth > 0,
-    the LS-GAN critic over the attention pyramid, on `device` (CUDA unless
+    the LS-GAN critic over each attention pyramid, on `device` (CUDA unless
     the caller passes "cpu")."""
 
     def __init__(self, cfg: Config, device: str | torch.device = "cuda"):
@@ -78,17 +97,28 @@ class Trainer:
         if unported:
             raise NotImplementedError("not ported yet: " + "; ".join(
                 f"{name} (ROADMAP {item})" for name, item in unported))
+        m = cfg.model
+        if m.architecture not in ARCHITECTURES:
+            raise ValueError(f"unknown model.architecture {m.architecture!r}; expected "
+                             f"{' | '.join(repr(a) for a in ARCHITECTURES)}")
         self.cfg = cfg
         self.device = resolve_device(device)
-        m = cfg.model
         self.gating_level = m.segmentor_gating_level
-        # the critic judges depth + 1 pyramid levels: at most as many as the
-        # model gates (depths gating_level..0)
-        levels = min(self.gating_level, 4) + 1
-        self.disc_depth = min(m.discriminator_depth, levels - 1)
-        if 0 < self.disc_depth < m.discriminator_depth:
-            log.info("discriminator depth clamped %d -> %d (the pyramid has %d levels)",
-                     m.discriminator_depth, self.disc_depth, levels)
+        # one critic per attention pyramid, its depth clamped to the levels
+        # the model emits; a single pyramid keeps the one flat critic
+        self.disc_depths: Dict[str, int] = {}
+        levels = pyramid_levels(m.architecture, self.gating_level)
+        if m.discriminator_depth > 0 and not levels:
+            log.info("architecture %r emits no attention pyramid: training without the "
+                     "adversarial branch", m.architecture)
+        for name, n in levels.items():
+            depth = min(m.discriminator_depth, n - 1)
+            if 0 < depth < m.discriminator_depth:
+                log.info("discriminator[%s] depth clamped %d -> %d (the %s pyramid has %d "
+                         "levels)", name, m.discriminator_depth, depth, name, n)
+            if m.discriminator_depth > 0 and depth > 0:
+                self.disc_depths[name] = depth
+        self.disc_depth = self.disc_depths.get("main", 0)
         self.step_cfg = StepConfig(
             num_classes=m.num_classes,
             weakly_supervise=m.weakly_supervise,
@@ -97,8 +127,9 @@ class Trainer:
             ild_weights=cfg.loss.ild_weights,
             ild_stop_gradient=cfg.loss.ild_stop_gradient,
             ild_divergence=cfg.loss.ild_divergence,
-            use_discriminator=m.discriminator_depth > 0 and self.disc_depth > 0,
-            discriminator_depth=self.disc_depth,
+            use_discriminator=bool(self.disc_depths),
+            discriminator_depth=self.disc_depths.get("main", m.discriminator_depth),
+            discriminator_depth_c=self.disc_depths.get("c", 1),
             compute_dtype=cfg.train.compute_dtype,
         )
         self.train_step = make_train_step(self.step_cfg)
@@ -106,26 +137,31 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def init_state(self) -> TrainState:
-        """Fresh modules from train.seed (torch's reference initialisers),
-        their optimizers, and the noise generator on the device."""
-        cfg, o = self.cfg, self.cfg.optim
+        """Fresh modules from train.seed (torch's reference initialisers,
+        the segmentor first, then the critics in name order), their
+        optimizers, and the noise generator on the device. The dual
+        decoders' two critics are an `nn.ModuleDict` {"main", "c"} stepped by
+        one optimizer."""
+        cfg, m, o = self.cfg, self.cfg.model, self.cfg.optim
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.train.seed)
-            segmentor = ResnestUNet(cfg.model.num_classes, gating_level=self.gating_level)
-            critic = None
-            if self.step_cfg.use_discriminator:
-                critic = DiscriminatorBlock(
-                    tuple(cfg.data.image_size), depth=self.disc_depth,
-                    num_filters=cfg.model.num_filters,
-                    instance_noise=cfg.model.instance_noise,
-                    label_noise=cfg.model.label_noise, num_classes=cfg.model.num_classes)
+            segmentor = build_segmentor(m.architecture, m.num_classes, self.gating_level,
+                                        encoder_gating=m.encoder_gating)
+            critics = {}
+            for name, depth in sorted(self.disc_depths.items()):
+                critics[name] = DiscriminatorBlock(
+                    tuple(cfg.data.image_size), depth=depth, num_filters=m.num_filters,
+                    instance_noise=m.instance_noise, label_noise=m.label_noise,
+                    num_classes=m.num_classes)
         segmentor = segmentor.to(self.device).to(memory_format=torch.channels_last).train()
         seg_opt = make_optimizer(
             segmentor.parameters(),
             schedule=polynomial_decay(o.seg_lr, o.end_lr, o.decay_steps, o.power),
             weight_decay=o.weight_decay, grad_clip=o.grad_clip)
-        critic_opt = None
-        if critic is not None:
+        critic = critic_opt = None
+        if critics:
+            critic = critics["main"] if set(critics) == {"main"} else nn.ModuleDict(
+                {name: critics[name] for name in self.disc_depths})
             critic = critic.to(self.device).to(memory_format=torch.channels_last).train()
             critic_opt = make_optimizer(
                 critic.parameters(),
@@ -134,8 +170,8 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(cfg.train.seed + 1)
         state = TrainState(segmentor=segmentor, seg_opt=seg_opt, critic=critic,
                            critic_opt=critic_opt, generator=gen)
-        if cfg.model.pretrain:
-            self.load_pretrained_backbone(state, cfg.model.weight_path)
+        if m.pretrain:
+            self.load_pretrained_backbone(state, m.weight_path)
         return state
 
     def load_pretrained_backbone(self, state: TrainState, path: str) -> TrainState:
@@ -145,7 +181,8 @@ class Trainer:
         tree = convert.convert_resnest50(convert.load_torch_state_dict(path), with_fc=False)
         sd = convert.backbone_to_unet_keys(tree)
         encoder = {k for k in state.segmentor.state_dict()
-                   if k.startswith("encoder_") and not k.endswith("num_batches_tracked")}
+                   if k.startswith("encoder_") and "_gate." not in k
+                   and not k.endswith("num_batches_tracked")}
         if set(sd) != encoder:
             raise ValueError(f"pretrained backbone does not cover the encoder: "
                              f"{sorted(encoder ^ set(sd))[:20]}")
@@ -155,13 +192,15 @@ class Trainer:
 
     def device_batch(self, host_batch: Dict[str, np.ndarray],
                      augment_draws: Optional[augment.Draws] = None) -> Dict[str, object]:
-        """A host batch of `batch_iterator` -> model-ready tensors on the device."""
+        """A host batch of `batch_iterator` -> model-ready tensors on the
+        device, the second-head scribbles included when the batch has them."""
         cfg = self.cfg
         return prepare_batch(
             host_batch["image"], host_batch["scribble"], host_batch["mask"],
             size=tuple(cfg.data.image_size), num_classes=cfg.model.num_classes,
             depth=max(cfg.model.discriminator_depth, 1), in_channels=cfg.data.in_channels,
-            augment_draws=augment_draws, device=self.device)
+            augment_draws=augment_draws, scribble_c=host_batch.get("scribble_c"),
+            device=self.device)
 
     # ------------------------------------------------------------------
     def fit(self, state: Optional[TrainState] = None) -> TrainState:

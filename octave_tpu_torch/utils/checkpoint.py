@@ -4,8 +4,9 @@ The port of `octave_tpu/utils/checkpoint.py`:
 
   * `CheckpointManager` (:19-58) on `torch.save` instead of orbax. One
     checkpoint is the whole `TrainState`: both modules' `state_dict()`
-    (parameters, BN running stats, spectral u/v), both optimizers' moments
-    and schedule counters, the noise generator's state and the step. `save`
+    (parameters, BN running stats, spectral u/v; a pair of critics under
+    `main.` and `c.`), both optimizers' moments and schedule counters, the
+    noise generator's state and the step. `save`
     copies the state to host memory before it returns (the next train step
     mutates the parameters in place) and writes the file on a background
     thread; a step's directory gets its final name only when its file is

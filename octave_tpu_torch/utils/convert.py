@@ -1,22 +1,26 @@
 """Weight bridge: the JAX package's variable trees -> reference torch state dicts.
 
 The inverse of `octave_tpu/utils/torch_convert.py::convert_resnest_unet`
-(:52-278) for the ResnestUNet: HWIO conv kernels back to OIHW, Dense kernels
-transposed back, ConvTranspose kernels (in, out, 2, 2) as they are, BN
-scale/bias/mean/var back to weight/bias/running_mean/running_var, and the
-backbone renamed to the UNet's encoder_0_1_2 / encoder_1..4 keys. The result
-loads into `octave_tpu_torch.models.segmentor.ResnestUNet` with
-`load_reference_state_dict`. Folded stats (octave_tpu's fold_batch_stats)
-load the same way; mark the model with `ops.norm.folded_inference` then.
-A tree with the classification heads (`linear_head_emb`, `head_dec_*`,
-`linear_head_dec`) maps them to their reference keys, which the loader skips
-on purpose (HEAD_PREFIXES): the port does not build the heads yet.
+(:237-278) for the whole segmentor family: HWIO conv kernels back to OIHW,
+Dense kernels transposed back, ConvTranspose kernels (in, out, 2, 2) as they
+are, BN scale/bias/mean/var back to weight/bias/running_mean/running_var, and
+the backbone renamed to the U-Nets' encoder_0_1_2 / encoder_1..4 keys. The
+dual decoders' `_c` branch, the encoder gates (`encoder_{i}_gate.0`) and the
+classification heads (`linear_head_emb.1`, `linear_head_dec.{1,3,4,6,8}`)
+map when the tree has them; so does a propagation block's `base` trunk. The
+result loads into the matching module of `models/segmentor.py` (or
+`models/propagation.py`) with `load_reference_state_dict`, which drops the
+heads for a ResnestUNet built without them. Folded stats (octave_tpu's
+fold_batch_stats) load the same way; mark the model with
+`ops.norm.folded_inference` then.
 
 `from_jax_discriminator` is the inverse of `convert_discriminator`
 (:281-293): the critic's params and its `spectral` u, v go to the
-reference-named state dict of `models.discriminator.DiscriminatorBlock`.
+reference-named state dict of `models.discriminator.DiscriminatorBlock`;
+`from_jax_critics` does it for the JAX trainer's {"main", "c"} pair of
+critics, under the keys of the port's `nn.ModuleDict` of them.
 
-`convert_resnest50` is the counterpart of `convert_resnest50` (:125-178) for
+`convert_resnest50` is the counterpart of `convert_resnest50` (:196-210) for
 the pretrained `resnest50-*.pth`: the port's `models.resnest.ResNeSt` already
 carries the file's key names, so conversion is a strict key and shape check
 that files the tensors under `backbone.`; `backbone_to_unet_keys` renames
@@ -32,7 +36,8 @@ import torch.nn as nn
 
 Path = Tuple[str, ...]
 
-# reference keys the port's ResnestUNet does not build (classification heads)
+# reference keys of the classification heads, which a ResnestUNet built
+# without heads (the default) drops on load
 HEAD_PREFIXES = ("linear_head_emb.", "linear_head_dec.")
 
 
@@ -128,9 +133,20 @@ class _Inverter:
 
 
 def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """{"params", "batch_stats"} of octave_tpu's ResnestUNet (nested dicts of
-    arrays) -> the reference-named torch state dict. Every leaf must map."""
+    """{"params", "batch_stats"} of octave_tpu's ResnestUNet (with encoder
+    gates and heads or without), ResnestUnetParallelHead,
+    ResnestUnetParallelHeadAttentionGate, or of a propagation block
+    (BasePC / BaseC / BaseMulti), as nested dicts of arrays -> the
+    reference-named torch state dict. Every leaf must map."""
     inv = _Inverter(variables)
+    if "base" in variables["params"]:
+        inv.conv("base.conv1", ("base", "conv1", "conv"))
+        inv.bn("base.bn1", ("base", "bn1"))
+        inv.conv("base.conv4", ("base", "conv4", "conv"))
+        inv.bn("base.bn4", ("base", "bn4"))
+        inv.conv("base.conv7", ("base", "conv7", "conv"))
+        inv.bn("base.bn7", ("base", "bn7"))
+        return inv.finish()
     bb = ("backbone",)
     inv.conv("encoder_0_1_2.0.0", bb + ("stem_conv1", "conv"))
     inv.bn("encoder_0_1_2.0.1", bb + ("stem_bn1",))
@@ -144,13 +160,21 @@ def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                       + ("conv1", "conv", "kernel")):
             inv.bottleneck(f"encoder_{layer}.{block}", bb + (f"layer{layer}_{block}",))
             block += 1
-    for i in range(5):
-        inv.conv_transpose(f"upsampling_{i}.up", (f"upsampling_{i}",))
-        inv.decoder(f"decoder_{i}", (f"decoder_{i}",))
-        if inv.has("params", (f"aag_{i}", "conv1", "conv", "kernel")):
-            inv.conv(f"aag_{i}.conv1", (f"aag_{i}", "conv1", "conv"))
+    # the main decoder, and the dual decoders' shallow `_c` branch
+    decoders = [(i, "") for i in range(5)]
+    if inv.has("params", ("fc_c", "conv", "kernel")):
+        decoders += [(1, "_c"), (0, "_c")]
+        inv.conv("fc_c", ("fc_c", "conv"))
+    for i, c in decoders:
+        inv.conv_transpose(f"upsampling_{i}{c}.up", (f"upsampling_{i}{c}",))
+        inv.decoder(f"decoder_{i}{c}", (f"decoder_{i}{c}",))
+        if inv.has("params", (f"aag_{i}{c}", "conv1", "conv", "kernel")):
+            inv.conv(f"aag_{i}{c}.conv1", (f"aag_{i}{c}", "conv1", "conv"))
     inv.conv("fc", ("fc", "conv"))
-    # classification heads, when the tree has them (not built by the port)
+    for i in range(5):
+        if inv.has("params", (f"encoder_{i}_gate", "conv", "conv", "kernel")):
+            inv.conv(f"encoder_{i}_gate.0", (f"encoder_{i}_gate", "conv", "conv"))
+    # classification heads, when the tree has them
     if inv.has("params", ("linear_head_emb", "kernel")):
         inv.dense("linear_head_emb.1", ("linear_head_emb",))
     if inv.has("params", ("head_dec_conv1", "conv", "kernel")):
@@ -179,15 +203,30 @@ def from_jax_discriminator(variables: Mapping[str, Any],
     return inv.finish()
 
 
+def from_jax_critics(params: Mapping[str, Any], spectral: Mapping[str, Any],
+                     instance_noise: bool = True) -> Dict[str, torch.Tensor]:
+    """The JAX trainer's pair of critics, `disc_params` and `spectral` as
+    {"main": ..., "c": ...} dicts -> the state dict of the port's
+    `nn.ModuleDict` of DiscriminatorBlocks (keys `main.<key>`, `c.<key>`)."""
+    if set(params) != set(spectral):
+        raise ValueError(f"critics {sorted(params)} and spectral {sorted(spectral)} differ")
+    return {f"{name}.{k}": v for name in params for k, v in from_jax_discriminator(
+        {"params": params[name], "spectral": spectral[name]}, instance_noise).items()}
+
+
 def load_reference_state_dict(model: nn.Module, state_dict: Mapping[str, Any]) -> nn.Module:
     """Load a reference-named state dict (torch tensors or numpy arrays) into
-    `model`. The classification heads are skipped; every other key must map,
-    and every parameter and buffer of `model` except num_batches_tracked must
-    be given."""
+    `model`. The classification heads are dropped when the model was built
+    without them; every other key must map, and every parameter and buffer
+    of `model` must be given, except BN step counters and the gates of
+    depths the model does not gate (`idle_prefixes`)."""
+    has_heads = any(k.startswith(HEAD_PREFIXES) for k in model.state_dict())
     sd = {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v) else v
-          for k, v in state_dict.items() if not k.startswith(HEAD_PREFIXES)}
+          for k, v in state_dict.items() if has_heads or not k.startswith(HEAD_PREFIXES)}
     missing, unexpected = model.load_state_dict(sd, strict=False)
-    missing = [k for k in missing if not k.endswith("num_batches_tracked")]
+    idle = model.idle_prefixes() if hasattr(model, "idle_prefixes") else ()
+    missing = [k for k in missing if not k.endswith("num_batches_tracked")
+               and not k.startswith(idle)]
     if missing or unexpected:
         raise ValueError(f"state dict does not match the model: missing {missing[:20]}, "
                          f"unexpected {unexpected[:20]}")

@@ -29,7 +29,8 @@ class ConfusionAccumulator(NamedTuple):
     tn: object
 
     @classmethod
-    def empty(cls, device="cpu") -> "ConfusionAccumulator":
+    def empty(cls, *, device: torch.device | str) -> "ConfusionAccumulator":
+        """Zero counts on `device` (a required keyword: no default device)."""
         z = torch.zeros((), dtype=torch.int64, device=device)
         return cls(z, z, z, z)
 
@@ -81,7 +82,8 @@ class AucAccumulator(NamedTuple):
     neg_hist: object
 
     @classmethod
-    def empty(cls, bins: int = 4096, device="cpu") -> "AucAccumulator":
+    def empty(cls, bins: int = 4096, *, device: torch.device | str) -> "AucAccumulator":
+        """Empty histograms on `device` (a required keyword: no default device)."""
         z = torch.zeros((bins,), dtype=torch.int64, device=device)
         return cls(z, z)
 
@@ -128,7 +130,7 @@ def eval_step_metrics(probs: torch.Tensor, target: torch.Tensor,
                       threshold: float = 0.5) -> Dict[str, torch.Tensor]:
     """One batch's metrics: probs (b,h,w) vessel probability, target (b,h,w)
     binary ground truth."""
-    acc = ConfusionAccumulator.empty(probs.device).update((probs >= threshold).long(), target)
+    acc = ConfusionAccumulator.empty(device=probs.device).update((probs >= threshold).long(), target)
     auc = AucAccumulator.empty(device=probs.device).update(probs, target)
     return {
         "dice": acc.dice(),

@@ -1,5 +1,6 @@
-"""The port's Triton kernels against their plain PyTorch versions, and its
-deployment path (augmentation, checkpoints, the pipelined server), on a GPU.
+"""The port's Triton kernels against their plain PyTorch versions, its
+deployment path (augmentation, checkpoints, the pipelined server) and the
+gated dual decoders with their two critics, on a GPU.
 
 Every case skips without CUDA. The file imports neither JAX nor the JAX
 package, so on a GPU host without JAX it runs on its own:
@@ -269,3 +270,50 @@ def test_batch_server_on_card(cuda, gen):
     assert sum(ks) * 4 >= 21 and len(got) == 21
     assert torch.from_numpy(got[0]).is_pinned()
     np.testing.assert_allclose(np.stack(got), want, atol=2**-7, rtol=0)
+
+
+# -- the rest of the model family on the card ----------------------------------
+@pytest.mark.parametrize("fused", [False, True], ids=["aag", "fused"])
+def test_gated_dual_decoders_on_card(cuda, gen, fused):
+    """Seven gates at gating level 4: seven launches of the kernel in use per
+    eval forward, and the float32 outputs (TF32 off) of the CPU forward."""
+    from octave_tpu_torch.models.segmentor import ResnestUnetParallelHeadAttentionGate
+    from octave_tpu_torch.ops.kernels import launch_counts
+
+    torch.manual_seed(0)
+    model = ResnestUnetParallelHeadAttentionGate(2, 4, use_fused_decoder=fused).eval()
+    x = torch.from_numpy(gen.uniform(0, 1, (2, 64, 64, 3)).astype(np.float32))
+    with torch.no_grad():
+        (_, _), want = model.to(memory_format=torch.channels_last)(x)
+        model = model.to(cuda)
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            launch_counts(reset=True)
+            (atts, atts_c), got = model(x.to(cuda))
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.allow_tf32 = True
+    kernel = "decoder_epilogue" if fused else "aag"
+    assert launch_counts() == {"aag": 0, "decoder_epilogue": 0, kernel: 7}
+    assert len(atts) == 5 and len(atts_c) == 2
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+def test_dual_critic_step_on_card(cuda):
+    """One parallel_head_gate train step with both critics: 7 AAG launches,
+    finite losses, both critics' u/v stored."""
+    from octave_tpu_torch.data import datasets as ds
+    from octave_tpu_torch.ops.kernels import launch_counts
+    from octave_tpu_torch.train.trainer import build_dataset
+
+    tr = _small_trainer(cuda, **{"model.architecture": "parallel_head_gate"})
+    state = tr.init_state()
+    u = {n: c.spectral_dict["spectral_0"][0].weight_u.clone() for n, c in state.critic.items()}
+    batch = tr.device_batch(next(ds.batch_iterator(build_dataset(tr.cfg), 2, seed=0)))
+    launch_counts(reset=True)
+    losses = tr.train_step(state, batch)
+    torch.cuda.synchronize()
+    assert launch_counts() == {"aag": 7, "decoder_epilogue": 0}
+    assert all(bool(torch.isfinite(v)) for v in losses.values())
+    for n, c in state.critic.items():
+        assert not torch.equal(u[n], c.spectral_dict["spectral_0"][0].weight_u), n

@@ -50,19 +50,25 @@ def _vessel_like(rng, hw):
     return img, mask * 255, thin * 255
 
 
-def _build_rose(tmp_path, n_train=4, n_test=2, hw=40, thin=True):
+def _build_rose(tmp_path, n_train=4, n_test=2, hw=40, thin=True, thick=False):
+    """A ROSE-1/SVC tree; the train split gets thin_gt (and with `thick`,
+    thick_gt: the vessels with every other band of 4 rows cut out)."""
     rng = np.random.default_rng(7)
     base = tmp_path / "ROSE-1" / "SVC"
     for split, n in (("train", n_train), ("test", n_test)):
-        dirs = ["img", "gt"] + (["thin_gt"] if split == "train" and thin else [])
+        dirs = ["img", "gt"] + (["thin_gt"] if split == "train" and thin else []) + (
+            ["thick_gt"] if split == "train" and thick else [])
         for d in dirs:
             (base / split / d).mkdir(parents=True, exist_ok=True)
         for i in range(n):
-            img, thick, thin_gt = _vessel_like(rng, hw)
+            img, gt, thin_gt = _vessel_like(rng, hw)
             _write_png_gray(str(base / split / "img" / f"{i:02d}.png"), img)
-            _write_png_gray(str(base / split / "gt" / f"{i:02d}.png"), thick)
+            _write_png_gray(str(base / split / "gt" / f"{i:02d}.png"), gt)
             if "thin_gt" in dirs:
                 _write_png_gray(str(base / split / "thin_gt" / f"{i:02d}.png"), thin_gt)
+            if "thick_gt" in dirs:
+                bands = (np.arange(hw) // 4 % 2 == 0)[:, None]
+                _write_png_gray(str(base / split / "thick_gt" / f"{i:02d}.png"), gt * bands)
     return str(tmp_path)
 
 
@@ -84,6 +90,9 @@ def _assert_same_samples(got_ds, want_ds):
         got, want = got_ds[i], want_ds[i]
         for f in dataclasses.fields(got):
             a, b = getattr(got, f.name), getattr(want, f.name)
+            if f.name == "scribble_c":
+                assert a is None and b is None  # the single-head layouts carry none
+                continue
             assert a.dtype == b.dtype == np.uint8 and a.shape == b.shape, f.name
             np.testing.assert_array_equal(a, b, err_msg=f"sample {i} {f.name}")
         assert want.scribble_c is None  # the single-head layouts carry no second target
@@ -122,13 +131,24 @@ def test_batches_equal_jax(tmp_path):
 
 
 def test_dual_targets_and_bad_trees_raise(tmp_path):
-    root = _build_rose(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        tds.rose(root, dual=True)
+    """The dual decoders' targets load: rose(dual=True) and an explicit
+    scribble_c_dir give every sample a second-head scribble equal to the JAX
+    dataset's; bad trees still raise."""
+    root = _build_rose(tmp_path, thick=True)
     base = tmp_path / "ROSE-1" / "SVC" / "train"
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        tds.ImageFolderOcta(str(base / "img"), str(base / "gt"),
-                            scribble_c_dir=str(base / "thin_gt"))
+    pairs = [(tds.rose(root, dual=True), jds.rose(root, dual=True)),
+             (tds.ImageFolderOcta(str(base / "img"), str(base / "gt"),
+                                  scribble_c_dir=str(base / "thin_gt")),
+              jds.ImageFolderOcta(str(base / "img"), str(base / "gt"),
+                                  scribble_c_dir=str(base / "thin_gt")))]
+    for got, want in pairs:
+        assert len(got) == len(want) == 4
+        for i in range(4):  # one read each: derived scribbles draw from the dataset's rng
+            a, b = got[i], want[i]
+            for f in ("image", "scribble", "mask", "scribble_c"):
+                np.testing.assert_array_equal(getattr(a, f), getattr(b, f),
+                                              err_msg=f"sample {i} {f}")
+            assert set(np.unique(a.scribble_c)) <= {0, 2}
     with pytest.raises(ValueError, match="mismatched/empty"):
         tds.ImageFolderOcta(str(base / "img"), str(tmp_path / "nowhere"))
     cfg = Config.from_dict({"data": {"dataset": "nosuch"}})

@@ -191,3 +191,38 @@ def test_noise_is_drawn_from_the_passed_generator():
     b = tm(ys, torch.Generator().manual_seed(5), update=False)
     c = tm(ys, torch.Generator().manual_seed(6), update=False)
     assert torch.equal(a, b) and not torch.equal(a, c)
+
+
+
+def _critic_map(tm, maps):
+    """The (B, C, h, w) map a critic's output conv receives."""
+    s = torch.nn.functional.leaky_relu(tm.stack_0[-2](maps[0].permute(0, 3, 1, 2)), 0.2)
+    for i in range(tm.depth):
+        s = torch.sigmoid(tm.squeeze_dict[f"squeeze_{i}"][0](s))
+        s = torch.cat((s, maps[i + 1].permute(0, 3, 1, 2)), dim=1)
+        s = torch.tanh(tm.spectral_dict[f"spectral_{i}"][0](s))
+    return s
+
+
+def test_output_conv_as_gemm_and_on_larger_maps():
+    """Where the output conv's kernel spans the whole map the critic takes it
+    as a GEMM: logits and weight gradient as the conv's (1e-5). A pyramid
+    larger than input_hw runs the conv itself and gives the JAX critic's
+    several logits per sample."""
+    rng = np.random.default_rng(5)
+    jm, variables, tm = _pair((32, 32), 1, 8)
+    tm.eval()  # stored u/v: every forward below sees the same weights
+    maps = _t(_pyramid(rng, (32, 32), 1))
+    conv = tm.out[0]
+    got = tm(maps)
+    ref = torch.nn.functional.conv2d(_critic_map(tm, maps), conv.weight, conv.bias)
+    assert conv.kernel_size == (8, 8) and ref.shape == (2, 1, 1, 1)
+    torch.testing.assert_close(got, ref.reshape(2, -1), atol=1e-5, rtol=0)
+    g_gemm = torch.autograd.grad(got.sum(), conv.weight)[0]
+    g_conv = torch.autograd.grad(ref.sum(), conv.weight)[0]
+    torch.testing.assert_close(g_gemm, g_conv, atol=1e-5, rtol=0)
+    big = _pyramid(rng, (64, 64), 1)
+    j_logits = np.asarray(jm.apply(variables, [jnp.asarray(m) for m in big], False))
+    t_logits = tm(_t(big)).detach().numpy()
+    assert t_logits.shape == j_logits.shape == (2, 81)
+    np.testing.assert_allclose(t_logits, j_logits, atol=1e-5)

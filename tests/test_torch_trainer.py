@@ -2,7 +2,7 @@
 
 A 2-step `Trainer.fit` plus `evaluate` at 32² on the synthetic phantoms,
 the `train` command line, the options the port does not have yet (each
-must raise, naming its ROADMAP item), the CUDA default, the bf16 step under
+must raise, naming its ROADMAP item) and those it has, the CUDA default, the bf16 step under
 CPU autocast, and the metric accumulators against the JAX package's.
 """
 import json
@@ -70,9 +70,6 @@ def test_weak_only_and_depth_clamp():
 
 
 @pytest.mark.parametrize("override,item", [
-    ({"model.architecture": "parallel_head"}, "A.4"),
-    ({"model.encoder_gating": "true"}, "A.4"),
-    ({"model.architecture": "parallel_head_gate"}, "A.4"),
     ({"train.n_devices": "2"}, "A.5"),
     ({"train.remat": "block:012"}, "A.7"),
     ({"optim.moment_dtype": "bfloat16"}, "A.7"),
@@ -99,9 +96,13 @@ def test_unported_options_raise(override, item):
     {"data.augment": "true", "data.augment_intensity": "0.1"},
     {"train.checkpoint_dir": "/nonexistent/ckpt"},
     {"train.profile_dir": "/nonexistent/prof"},
+    {"model.architecture": "parallel_head"},
+    {"model.encoder_gating": "true"},
+    {"model.architecture": "parallel_head_gate"},
 ])
 def test_ported_options_are_accepted(override):
-    """What the deployment slice ported no longer raises at construction."""
+    """What the deployment and model-family slices ported no longer raises
+    at construction."""
     Trainer(_cfg(**override), device="cpu")
 
 
@@ -157,13 +158,13 @@ def test_metrics_match_jax():
     pred = (probs >= 0.5).astype(np.float32)
     jc = jmetrics.ConfusionAccumulator.empty().update(jnp.asarray(pred), jnp.asarray(target),
                                                       jnp.asarray(weight))
-    tc = tmetrics.ConfusionAccumulator.empty().update(torch.from_numpy(pred),
+    tc = tmetrics.ConfusionAccumulator.empty(device="cpu").update(torch.from_numpy(pred),
                                                       torch.from_numpy(target),
                                                       torch.from_numpy(weight))
     assert [int(x) for x in tc.astype64()] == [int(x) for x in jc]
     ja = jmetrics.AucAccumulator.empty().update(jnp.asarray(probs), jnp.asarray(target),
                                                 jnp.asarray(weight))
-    ta = tmetrics.AucAccumulator.empty().update(torch.from_numpy(probs),
+    ta = tmetrics.AucAccumulator.empty(device="cpu").update(torch.from_numpy(probs),
                                                 torch.from_numpy(target),
                                                 torch.from_numpy(weight))
     for a, b in zip(ta.astype64(), ja.astype64()):
