@@ -62,7 +62,27 @@ Phases, each printing its own lines:
                against the unfused one in bf16; `octa_scribble_net` with
                encoder gating (5 AAG launches, 5 gates of 16 channels); step
                time, img/s and peak memory of parallel_head_gate beside unet,
-               float32 and bf16, with a profile of one bf16 step.
+               float32 and bf16, with a profile of one bf16 step;
+  8. parallel - the native loader and data parallelism: the C++ loader built
+               from this checkout into build/native (emptied first) and
+               timed; the committed TIFF fixtures against their expected
+               arrays; a 304² image as PNG with each row filter, BMP and PGM
+               through the loader and the numpy reader (identical), as TIFF
+               uncompressed and LZW; host ms per image, native against numpy
+               and a threaded batch of 32, beside the host CPU's name; a ROSE
+               tree of TIFFs (16 + 13 phantoms at 304²) and `cli train
+               train.data_parallel=true train.n_devices=1` on it as one rank
+               of a torchrun-style group (NCCL; B = 8, float32 TF32 off,
+               noise off, 3 steps and evaluate, 5 AAG launches per step and
+               eval batch) against the same run on one device, beside a
+               witness (one device from weights one float32 rounding away);
+               one step of that rank against one device's (losses,
+               gradient, the witness's gradient); bf16 step
+               time, img/s and peak memory of both in turns, with a profile of
+               the data-parallel step; two ranks on the one card over gloo
+               (CUDA tensors): one float32 step at global B = 8 against the
+               full batch on one device (losses, gradient, BN stats) and
+               `evaluate` with a ragged tail against one device's metrics.
 Exits non-zero, before printing any result, without CUDA or outside a
 checkout of the repository; any failed check
 raises. The last three lines are the kernels JSON, the card's name and power
@@ -182,6 +202,8 @@ def train_group(name):
         return "AAG kernel (Triton)"
     if name.startswith(("Memcpy", "Memset")):
         return "copies and memsets"
+    if "nccl" in n:
+        return "NCCL all-reduce"
     if "adam" in n or "multi_tensor" in n:
         return "optimizer (fused Adam)"
     if "batch_norm" in n or "welford" in n or n.startswith("bn_"):
@@ -522,6 +544,11 @@ def main() -> int:
     # -- 7. the rest of the model family -------------------------------------
     torch.cuda.empty_cache()
     for name, paths in phase_family(torch, smi).items():
+        by_path[name].update(paths)
+
+    # -- 8. the native loader and data parallelism ----------------------------
+    torch.cuda.empty_cache()
+    for name, paths in phase_parallel(torch, smi).items():
         by_path[name].update(paths)
 
     line = {"kernels": [
@@ -1474,6 +1501,569 @@ def _family(torch, smi, device, tmp):
             del tr, state, batch
             torch.cuda.empty_cache()
     return paths
+
+
+# phase 8: the native loader and data parallelism. Data-parallel bounds, one
+# rank or two against one device on the full batch, float32 with TF32 off:
+# the losses of a step as tests/test_parallel.py:221 (loss_sup 1e-5) and
+# the card's float32 step (1e-4 relative); the step's segmentor gradient,
+# to which an SGD update is proportional, by relative L2 as the update of
+# tests/test_parallel.py:239 (0.10); BN running stats rtol 3e-3 atol 1e-3.
+# Adam's first update is lr * sign(g) wherever |g| >> eps, so after it two
+# runs whose gradients differ by float32 noise differ by 2 lr wherever a
+# gradient sits at that noise. The 3-step `cli train` runs are therefore held
+# to wider bounds, set from the card's readings and from a witness: one
+# device against itself from weights one float32 rounding away (`nudge_`).
+# Six runs of this phase on an H100 80GB HBM3 at 700 W read the update
+# 0.1089-0.1091 apart by relative L2, the losses of steps 2-3 at most 9.4e-3
+# apart (loss_adv), and the witness 0.080 and 4.0e-3 (PERF.md, section 6).
+DP_HW, DP_B = 304, 8
+DP_LOSS_ATOL, DP_LOSS_RTOL, DP_GRAD_L2, DP_BN_RTOL, DP_BN_ATOL = 1e-5, 1e-4, 0.10, 3e-3, 1e-3
+DP_UPDATE3_L2, DP_LATER_LOSS_RTOL = 0.25, 5e-2
+# eval metrics of 2 ranks (shards of 4 and a padded tail of 3) against one
+# device's batches of 8: cuDNN may pick other algorithms per batch size, so a
+# probability at the 0.5 cut may land on the other side
+DP_EVAL_ATOL = 1e-4
+N_TRAIN_TIFF, N_TEST_TIFF = 16, 13  # test batches of 8 and 5: a ragged tail
+
+
+def png_bytes(arr, ftype):
+    """An 8-bit grey PNG of (h, w) uint8 whose rows all use filter `ftype`
+    (0-4), or cycle through the five with ftype 5."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    a = arr.astype(np.int32)
+    left = np.pad(a, ((0, 0), (1, 0)))[:, :-1]
+    up = np.pad(a, ((1, 0), (0, 0)))[:-1]
+    upleft = np.pad(a, ((1, 0), (1, 0)))[:-1, :-1]
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    preds = [np.zeros_like(a), left, up, (left + up) // 2,
+             np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))]
+    rows = []
+    for y in range(a.shape[0]):
+        f = y % 5 if ftype == 5 else ftype
+        rows.append(bytes([f]) + ((a[y] - preds[f][y]) % 256).astype(np.uint8).tobytes())
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data)))
+
+    h, w = arr.shape
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(b"".join(rows), 6)) + chunk(b"IEND", b""))
+
+
+def bmp_bytes(arr):
+    """An 8-bit palette BMP (grey palette, bottom-up rows)."""
+    import struct
+
+    h, w = arr.shape
+    stride = (w + 3) & ~3
+    palette = b"".join(bytes((i, i, i, 0)) for i in range(256))
+    rows = b"".join(arr[y].tobytes() + bytes(stride - w) for y in range(h - 1, -1, -1))
+    off = 14 + 40 + len(palette)
+    return (b"BM" + struct.pack("<IHHI", off + len(rows), 0, 0, off)
+            + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 8, 0, len(rows), 0, 0, 256, 0)
+            + palette + rows)
+
+
+def lzw_bytes(data):
+    """TIFF LZW: MSB-first codes from 9 to 12 bits, Clear first, the width
+    growing one code early, as libtiff writes them."""
+    out, acc, nacc = bytearray(), 0, 0
+    table, nxt, nbits = {}, 258, 9
+
+    def put(code):
+        nonlocal acc, nacc
+        acc, nacc = (acc << nbits) | code, nacc + nbits
+        while nacc >= 8:
+            nacc -= 8
+            out.append((acc >> nacc) & 0xFF)
+        acc &= (1 << nacc) - 1
+
+    put(256)
+    w = None
+    for b in data:
+        if w is None:
+            w = b
+            continue
+        k = (w, b)
+        if k in table:
+            w = table[k]
+            continue
+        put(w)
+        if nxt == 4094:  # table full: clear it
+            put(256)
+            table, nxt, nbits = {}, 258, 9
+        else:
+            table[k] = nxt
+            nxt += 1
+            if nxt == 1 << nbits:
+                nbits += 1
+        w = b
+    if w is not None:
+        put(w)
+        nxt += 1  # the reader adds an entry on this code too
+        if nxt == 1 << nbits and nbits < 12:
+            nbits += 1
+    put(257)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 0xFF)
+    return bytes(out)
+
+
+def tiff_bytes(arr, lzw=False):
+    """A little-endian 8-bit grey TIFF of (h, w) uint8 in one strip,
+    uncompressed or LZW."""
+    import struct
+
+    h, w = arr.shape
+    strip = lzw_bytes(arr.tobytes()) if lzw else arr.tobytes()
+    ifd_at = 8 + len(strip) + (len(strip) & 1)
+    entries = [(256, 3, w), (257, 3, h), (258, 3, 8), (259, 3, 5 if lzw else 1), (262, 3, 1),
+               (273, 4, 8), (277, 3, 1), (278, 3, h), (279, 4, len(strip))]
+    out = b"II*\0" + struct.pack("<I", ifd_at) + strip + bytes(ifd_at - 8 - len(strip))
+    out += struct.pack("<H", len(entries))
+    for tag, typ, value in entries:
+        out += struct.pack("<HHI", tag, typ, 1) + (struct.pack("<HH", value, 0) if typ == 3
+                                                   else struct.pack("<I", value))
+    return out + bytes(4)
+
+
+def host_cpu():
+    """The host CPU's model name as /proc/cpuinfo gives it, for host times."""
+    import platform
+
+    name = None
+    try:
+        with open("/proc/cpuinfo") as f:
+            name = next((line.split(":", 1)[1].strip() for line in f
+                         if line.startswith("model name")), None)
+    except OSError:
+        pass
+    return f"{name or 'CPU of unknown model'} ({platform.machine()}), {os.cpu_count()} cores"
+
+
+def write_rose_tiffs(root, n_train, n_test):
+    """A ROSE-1/SVC tree of uncompressed TIFFs (img, gt, thin_gt) of
+    SyntheticOcta phantoms at DP_HW², read back through `rose()` and the
+    native loader and checked pixel for pixel."""
+    import numpy as np
+
+    from octave_tpu_torch.data import datasets as ds
+
+    phantoms_ds = ds.SyntheticOcta((DP_HW, DP_HW), n=n_train + n_test, seed=31)
+    split_of = {"train": range(n_train), "test": range(n_train, n_train + n_test)}
+    for split, idx in split_of.items():
+        base = os.path.join(root, "ROSE-1", "SVC", split)
+        for d in ("img", "gt", "thin_gt"):
+            os.makedirs(os.path.join(base, d))
+        for i in idx:
+            s = phantoms_ds[i]
+            for d, arr in (("img", s.image), ("gt", s.mask * 255),
+                           ("thin_gt", (s.scribble == 2).astype(np.uint8) * 255)):
+                with open(os.path.join(base, d, f"{i:03d}.tif"), "wb") as f:
+                    f.write(tiff_bytes(np.ascontiguousarray(arr, dtype=np.uint8)))
+    for split, idx in split_of.items():
+        folder = ds.rose(root, "ROSE-1/SVC", split)
+        for j, i in enumerate(idx):
+            got, want = folder[j], phantoms_ds[i]
+            check(np.array_equal(got.image, want.image) and np.array_equal(got.mask, want.mask),
+                  f"rose TIFF {split} sample {j} differs from the phantom written")
+
+
+def _dp_overrides(root, **extra):
+    """The phase's training config: ROSE TIFF tree, 304², B = 8, float32,
+    noise off, no augmentation."""
+    return {"data.dataset": "rose", "data.root": root, "data.batch_size": str(DP_B),
+            "model.instance_noise": "false", "model.label_noise": "false",
+            "train.eval_every": "0", "train.log_every": "1", **extra}
+
+
+def _two_rank_worker(device, overrides, out_dir):
+    """One rank of phase 8.4: evaluate the fresh state, then one float32
+    step on this rank's rows of the first global batch. Rank 0 saves the
+    step's mean segmentor gradient and BN running stats to out_dir."""
+    import torch
+
+    from octave_tpu_torch.data import datasets as ds
+    from octave_tpu_torch.ops.kernels import launch_counts
+    from octave_tpu_torch.parallel import ddp
+    from octave_tpu_torch.train.trainer import Trainer, build_dataset
+    from octave_tpu_torch.utils.config import Config
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Config().apply_overrides(overrides)
+    tr = Trainer(cfg, device=device)
+    state = tr.init_state()
+    host = next(ds.batch_iterator(build_dataset(cfg), cfg.data.batch_size, seed=0))
+    launch_counts(reset=True)
+    metrics = tr.evaluate(state)
+    torch.cuda.synchronize()
+    eval_launches = launch_counts(reset=True)["aag"]
+    losses = tr.train_step(state, tr.device_batch(*tr.shard(host)))
+    torch.cuda.synchronize()
+    step_launches = launch_counts(reset=True)["aag"]
+    if ddp.rank() == 0:
+        seg = state.segmentor
+        torch.save({"grad": {k: p.grad.cpu() for k, p in seg.named_parameters()},
+                    "bn": {k: v.cpu() for k, v in seg.state_dict().items()
+                           if k.endswith(("running_mean", "running_var"))}},
+                   os.path.join(out_dir, "rank0.pt"))
+    return {"rank": ddp.rank(), "losses": {k: float(v) for k, v in losses.items()},
+            "metrics": metrics, "eval_launches": eval_launches, "step_launches": step_launches}
+
+
+def phase_parallel(torch, smi):
+    """Phase 8. Returns {kernel: {path: launches}} of its runs."""
+    tmp = tempfile.mkdtemp(prefix="octave_parallel_")
+    try:
+        return _parallel(torch, smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _parallel(torch, smi, tmp):
+    import ctypes
+    import json as _json
+
+    import numpy as np
+
+    from octave_tpu_torch.data import datasets as ds
+    from octave_tpu_torch.data import native
+    from octave_tpu_torch.ops.kernels import launch_counts
+    from octave_tpu_torch.parallel import ddp
+    from octave_tpu_torch.train.trainer import Trainer, build_dataset
+    from octave_tpu_torch.utils.config import Config
+    from octave_tpu_torch.utils.imageio import read_image
+
+    paths = {"aag": {}, "decoder_epilogue": {}}
+    cpu = host_cpu()
+
+    # 8.1 the loader, built from this checkout's source
+    shutil.rmtree(native.BUILD_DIR, ignore_errors=True)
+    t0 = time.time()
+    lib_path = native.build()  # raises with the compiler's output
+    t_build = time.time() - t0
+    ctypes.CDLL(str(lib_path))
+    check(native.available(), f"native loader unavailable: {native.build_error()}")
+    log(f"[parallel] native loader built from {native.SOURCE.relative_to(HERE)} into "
+        f"{lib_path.relative_to(HERE)} in {t_build:.1f} s")
+
+    # 8.2 decoding: the committed TIFF fixtures; PNG filters, BMP, PGM
+    fixtures = os.path.join(HERE, "tests", "torch_fixtures")
+    with np.load(os.path.join(fixtures, "expected.npz")) as z:
+        expected = {k: z[k] for k in z.files}
+    for name, want in expected.items():
+        got = native.decode_image(os.path.join(fixtures, f"{name}.tif"))
+        check(np.array_equal(got, want), f"TIFF fixture {name} decodes to other pixels")
+    batch = native.load_batch([os.path.join(fixtures, f"{n}.tif") for n in expected], (64, 64))
+    check(all(np.array_equal(batch[i], w) for i, w in enumerate(expected.values())),
+          "TIFF fixtures through load_batch")
+    rng = np.random.default_rng(8)
+    yy, xx = np.mgrid[0:DP_HW, 0:DP_HW]
+    natural = np.clip(np.sin(xx / 9.0) * 50 + np.cos(yy / 13.0) * 50 + 128
+                      + rng.normal(0, 12, (DP_HW, DP_HW)), 0, 255).astype(np.uint8)
+    files = {}
+    for ftype in range(6):
+        files[f"png filter {ftype if ftype < 5 else 'cycling'}"] = ("png", png_bytes(natural,
+                                                                                   ftype))
+    files["bmp"] = ("bmp", bmp_bytes(natural))
+    files["pgm"] = ("pgm", f"P5 {DP_HW} {DP_HW} 255\n".encode() + natural.tobytes())
+    files["tiff"] = ("tif", tiff_bytes(natural))
+    files["tiff lzw"] = ("tif", tiff_bytes(natural, lzw=True))
+    written = {}
+    for label, (ext, data) in files.items():
+        p = os.path.join(tmp, label.replace(" ", "_") + "." + ext)
+        with open(p, "wb") as f:
+            f.write(data)
+        written[label] = p
+        got = native.decode_image(p)
+        check(np.array_equal(got, natural), f"native {label}: other pixels")
+        if ext != "tif":
+            check(np.array_equal(read_image(p), got), f"{label}: native and numpy disagree")
+    log(f"[parallel] decoding: {len(expected)} committed TIFF fixtures equal their expected "
+        f"arrays (single files and load_batch); a {DP_HW}² image as PNG with each row filter, "
+        f"BMP, PGM: native == numpy reader, byte for byte; as TIFF, uncompressed and LZW: "
+        f"native exact")
+
+    def host_ms(fn, reps=5):
+        fn()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times) * 1e3
+
+    paeth, lzw = written["png filter 4"], written["tiff lzw"]
+    rates = {
+        "Paeth PNG native": host_ms(lambda: native.decode_image(paeth)),
+        "Paeth PNG numpy": host_ms(lambda: read_image(paeth), reps=3),
+        "Paeth PNG load_batch of 32": host_ms(lambda: native.load_batch([paeth] * 32,
+                                                                        (DP_HW, DP_HW))) / 32,
+        "LZW TIFF native": host_ms(lambda: native.decode_image(lzw)),
+        "LZW TIFF load_batch of 32": host_ms(lambda: native.load_batch([lzw] * 32,
+                                                                       (DP_HW, DP_HW))) / 32,
+    }
+    log(f"[parallel] host ms per {DP_HW}² image on {cpu} (host times, not the card's): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in rates.items())
+        + f"; numpy/native on Paeth {rates['Paeth PNG numpy'] / rates['Paeth PNG native']:.0f}x")
+
+    # 8.3 the slice's path: cli train on a ROSE tree of TIFFs, data-parallel
+    t0 = time.time()
+    root = os.path.join(tmp, "data")
+    write_rose_tiffs(root, N_TRAIN_TIFF, N_TEST_TIFF)
+    log(f"[parallel] {N_TRAIN_TIFF} + {N_TEST_TIFF} phantoms ({DP_HW}²) written as TIFFs into "
+        f"a ROSE tree and read back through rose() and the native loader: pixels equal "
+        f"({time.time() - t0:.1f} s)")
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    eval_batches = -(-N_TEST_TIFF // DP_B)
+    runs = {}
+    for label, dp in (("data_parallel, 1 rank", True), ("one device", False)):
+        ckpt, logs = os.path.join(tmp, f"ckpt_{dp}"), os.path.join(tmp, f"log_{dp}")
+        over = _dp_overrides(root, **{"train.steps": "3", "train.checkpoint_dir": ckpt,
+                                      "train.log_dir": logs})
+        if dp:
+            over.update({"train.data_parallel": "true", "train.n_devices": "1"})
+        env = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": str(free_port())} if dp else {}
+        os.environ.update(env)
+        try:
+            launch_counts(reset=True)
+            t0 = time.time()
+            text, _ = run_cli(["train"] + [f"{k}={v}" for k, v in over.items()])
+            torch.cuda.synchronize()
+            got = launch_counts()
+        finally:
+            for k in env:
+                del os.environ[k]
+        want = {"aag": 5 * (3 + eval_batches), "decoder_epilogue": 0}
+        log(f"[parallel] cli train data.dataset=rose (TIFF) {label}, {DP_HW}², B={DP_B}, fp32 "
+            f"TF32 off, noise off, 3 steps + evaluate: launches {got} (expected {want}), "
+            f"{time.time() - t0:.1f} s; metrics {printed_metrics(text)}")
+        check(got == want, f"cli train {label}: launch counts {got}, expected {want}")
+        check(not torch.distributed.is_initialized(), "the cli left its process group")
+        if dp:
+            paths["aag"][f"cli train data_parallel (1 rank, NCCL), 3 steps + evaluate"] = got["aag"]
+        with open(os.path.join(logs, "metrics.jsonl")) as f:
+            records = [_json.loads(line) for line in f]
+        final = torch.load(os.path.join(ckpt, "step_00000003", "state.pt"), map_location="cpu",
+                           weights_only=True)["segmentor"]
+        runs[dp] = (records, final, printed_metrics(text))
+    # the witness: one device again, the same 3 steps (Trainer.fit, what
+    # `cli train` calls), from weights one float32 rounding away
+    w_logs = os.path.join(tmp, "log_witness")
+    tr_w = Trainer(Config().apply_overrides(_dp_overrides(
+        root, **{"train.steps": "3", "train.log_dir": w_logs})), device="cuda")
+    s_w = tr_w.init_state()
+    nudge_(torch, s_w.segmentor)
+    seg0_w = {k: v.cpu().clone() for k, v in s_w.segmentor.state_dict().items()}
+    tr_w.fit(s_w)
+    seg_w = {k: v.cpu() for k, v in s_w.segmentor.state_dict().items()}
+    with open(os.path.join(w_logs, "metrics.jsonl")) as f:
+        rec_w = [_json.loads(line) for line in f]
+    del tr_w, s_w
+    torch.cuda.empty_cache()
+
+    (rec_dp, seg_dp, met_dp), (rec_1, seg_1, met_1) = runs[True], runs[False]
+    check([r["step"] for r in rec_dp] == [r["step"] for r in rec_1] == [r["step"] for r in rec_w]
+          == [1, 2, 3], "logged steps")
+    loss_keys = [k for k in rec_1[0] if k.startswith("train/loss")]
+    rel = [{k: abs(a[k] - b[k]) / abs(b[k]) for k in loss_keys} for a, b in zip(rec_dp, rec_1)]
+    rel_w = [{k: abs(a[k] - b[k]) / abs(b[k]) for k in loss_keys} for a, b in zip(rec_w, rec_1)]
+    seg0 = Trainer(Config().apply_overrides(_dp_overrides(root)), device="cpu") \
+        .init_state().segmentor.state_dict()
+    update3 = update_rel_l2(torch, seg_dp, seg_1, seg0, seg0)
+    update3_w = update_rel_l2(torch, seg_w, seg_1, seg0_w, seg0)
+    later, later_w = (max(v for r in rr[1:] for v in r.values()) for rr in (rel, rel_w))
+
+    def per_step(rr):
+        return "; ".join(f"step {i + 1} " + ", ".join(f"{k[11:]} {v:.1e}" for k, v in r.items())
+                         for i, r in enumerate(rr))
+
+    log(f"[parallel] cli data_parallel vs one device, per step loss rel diff: {per_step(rel)}; "
+        f"segmentor update after 3 Adam steps, rel L2 {update3:.4e} (bound {DP_UPDATE3_L2}); "
+        f"eval metrics max |diff| {max(abs(met_dp[k] - met_1[k]) for k in met_1):.2e}")
+    log(f"[parallel] witness, one device from weights one float32 rounding away vs one device: "
+        f"{per_step(rel_w)}; update rel L2 {update3_w:.4e}. Data parallel / witness: steps 2-3 "
+        f"losses max {later:.1e} / {later_w:.1e} (bound {DP_LATER_LOSS_RTOL}), update "
+        f"{update3:.4e} / {update3_w:.4e}")
+    check(max(rel[0].values()) <= DP_LOSS_RTOL, f"first-step losses differ: {rel[0]}")
+    check(abs(rec_dp[0]["train/loss_sup"] - rec_1[0]["train/loss_sup"]) < DP_LOSS_ATOL,
+          "first-step loss_sup differs")
+    check(later <= DP_LATER_LOSS_RTOL, f"steps 2-3 losses differ by {later}")
+    check(update3 <= DP_UPDATE3_L2, f"the 3-step update differs by {update3}")
+
+    # the step of one rank against one device on the same batch: gradient
+    quiet = _dp_overrides(root)
+    dp_cfg = Config().apply_overrides({**quiet, "train.data_parallel": "true"})
+    one_cfg = Config().apply_overrides(quiet)
+    host = next(ds.batch_iterator(build_dataset(one_cfg), DP_B, seed=0))
+    ddp.init_distributed("nccl", f"tcp://127.0.0.1:{free_port()}", 0, 1)
+    try:
+        tr_dp, tr_1 = Trainer(dp_cfg, device="cuda"), Trainer(one_cfg, device="cuda")
+        s_dp, s_1, s_w = tr_dp.init_state(), tr_1.init_state(), tr_1.init_state()
+        nudge_(torch, s_w.segmentor)
+        l_dp = tr_dp.train_step(s_dp, tr_dp.device_batch(*tr_dp.shard(host)))
+        l_1 = tr_1.train_step(s_1, tr_1.device_batch(host))
+        tr_1.train_step(s_w, tr_1.device_batch(host))
+        grad_l2, grad_w = (rel_l2_pairs(torch, [(p.grad, q.grad) for p, q in
+                                                zip(s.segmentor.parameters(),
+                                                    s_1.segmentor.parameters())])
+                           for s in (s_dp, s_w))
+        loss_rel = max(abs(float(l_dp[k]) / float(l_1[k]) - 1) for k in l_1)
+        log(f"[parallel] one fp32 step, 1 rank (synchronised BN, all-reduces) vs one device, "
+            f"same batch: losses max rel diff {loss_rel:.2e} (bound {DP_LOSS_RTOL}); segmentor "
+            f"gradient rel L2 {grad_l2:.2e} (bound {DP_GRAD_L2}); witness (one device from "
+            f"weights one float32 rounding away): gradient rel L2 {grad_w:.2e}")
+        check(loss_rel <= DP_LOSS_RTOL, f"1-rank step losses differ by {loss_rel}")
+        check(grad_l2 <= DP_GRAD_L2, f"1-rank step gradient differs by {grad_l2}")
+        del tr_dp, tr_1, s_dp, s_1, s_w, l_dp, l_1
+        torch.cuda.empty_cache()
+        torch.backends.cudnn.allow_tf32 = True
+
+        # the same in bf16: the cost of the all-reduces and the synchronised BN
+        timed = {}
+        b16 = {"train.compute_dtype": "bfloat16"}
+        trainers = {"one device": Trainer(Config().apply_overrides({**quiet, **b16}), "cuda"),
+                    "data_parallel, 1 rank": Trainer(Config().apply_overrides(
+                        {**quiet, **b16, "train.data_parallel": "true"}), "cuda")}
+        for label in ("one device", "data_parallel, 1 rank", "data_parallel, 1 rank",
+                      "one device"):
+            tr = trainers[label]
+            state = tr.init_state()
+            batch = tr.device_batch(host)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(2):
+                tr.train_step(state, batch)
+            times = []
+            for _ in range(10):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.train_step(state, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            timed.setdefault(label, []).append((statistics.median(times), peak))
+            if label == "data_parallel, 1 rank" and len(timed[label]) == 1:
+                wall, groups, names = profile_groups(torch, lambda: tr.train_step(state, batch),
+                                                     train_group)
+                busy = sum(groups.values())
+                nccl = sum(v for n, v in names.items() if "nccl" in n.lower())
+                log(f"[parallel] profile of one bf16 data-parallel step (1 rank, B={DP_B}): wall "
+                    f"{wall:.1f} ms, device busy {busy:.1f} ms, idle {1 - busy / wall:.1%}; "
+                    f"NCCL all-reduce kernels {nccl:.3f} ms; "
+                    + ", ".join(f"{g} {v:.2f} ms" for g, v in sorted(groups.items(),
+                                                                      key=lambda x: -x[1])))
+            del state, batch
+            torch.cuda.empty_cache()
+        (t_1a, m_1), (t_1b, _) = timed["one device"]
+        (t_da, m_d), (t_db, _) = timed["data_parallel, 1 rank"]
+        t_1, t_d = (t_1a + t_1b) / 2, (t_da + t_db) / 2
+        log(f"[parallel] bf16 step, {DP_HW}², B={DP_B}, critic on, noise off, on {smi}, in turns "
+            f"(one, dp, dp, one): one device {t_1a * 1e3:.1f} / {t_1b * 1e3:.1f} ms "
+            f"({DP_B / t_1:.1f} img/s), peak {m_1:.2f} GiB; data_parallel 1 rank "
+            f"{t_da * 1e3:.1f} / {t_db * 1e3:.1f} ms ({DP_B / t_d:.1f} img/s), peak {m_d:.2f} GiB; "
+            f"cost {(t_d / t_1 - 1):+.1%} time, {(m_d / m_1 - 1):+.1%} memory")
+        del trainers
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # 8.4 two ranks on the one card over gloo, CUDA tensors
+    torch.backends.cudnn.allow_tf32 = False
+    over = _dp_overrides(root, **{"train.data_parallel": "true"})
+    t0 = time.time()
+    ranks = ddp.launch(_two_rank_worker, 2, "gloo", ["cuda:0", "cuda:0"],
+                       args=(over, tmp), timeout=600)
+    t_two = time.time() - t0
+    one = Trainer(Config().apply_overrides(_dp_overrides(root)), device="cuda")
+    state = one.init_state()
+    met_1 = one.evaluate(state)
+    host = next(ds.batch_iterator(build_dataset(one.cfg), DP_B, seed=0))
+    l_1 = one.train_step(state, one.device_batch(host))
+    r0 = torch.load(os.path.join(tmp, "rank0.pt"), weights_only=True)
+    grad_l2 = rel_l2_pairs(torch, [(r0["grad"][k], p.grad.cpu()) for k, p in
+                                   state.segmentor.named_parameters()])
+    bn = state.segmentor.state_dict()
+    bn_ok = all(bool(((r0["bn"][k] - bn[k].cpu()).abs()
+                      <= DP_BN_ATOL + DP_BN_RTOL * bn[k].cpu().abs()).all()) for k in r0["bn"])
+    losses = ranks[0]["losses"]
+    loss_rel = max(abs(losses[k] / float(l_1[k]) - 1) for k in l_1)
+    eval_diff = max(abs(ranks[r]["metrics"][k] - met_1[k]) for r in range(2) for k in met_1)
+    counts = [(r["step_launches"], r["eval_launches"]) for r in ranks]
+    log(f"[parallel] 2 ranks on one card over gloo (CUDA tensors), fp32 TF32 off, global "
+        f"B={DP_B} (4 per rank), {DP_HW}², {t_two:.1f} s with spawn: losses "
+        + ", ".join(f"{k} {v:.6f}" for k, v in losses.items())
+        + f"; vs the full batch on one device: losses max rel diff {loss_rel:.2e} (bound "
+        f"{DP_LOSS_RTOL}), loss_sup abs diff {abs(losses['loss_sup'] - float(l_1['loss_sup'])):.2e}"
+        f" (bound {DP_LOSS_ATOL}), segmentor gradient rel L2 {grad_l2:.2e} (bound {DP_GRAD_L2}),"
+        f" BN stats within rtol {DP_BN_RTOL} atol {DP_BN_ATOL}: {bn_ok}; evaluate of "
+        f"{N_TEST_TIFF} (8 + a tail of 5 padded to 6) vs one device: max |metric diff| "
+        f"{eval_diff:.2e} (bound {DP_EVAL_ATOL}); AAG launches per rank (step, eval) {counts}")
+    check(ranks[0]["losses"] == ranks[1]["losses"], "the ranks report other losses")
+    check(loss_rel <= DP_LOSS_RTOL and abs(losses["loss_sup"] - float(l_1["loss_sup"]))
+          < DP_LOSS_ATOL, f"2-rank losses differ: {loss_rel}")
+    check(grad_l2 <= DP_GRAD_L2, f"2-rank gradient differs by {grad_l2}")
+    check(bn_ok, "2-rank BN running stats differ")
+    check(eval_diff <= DP_EVAL_ATOL, f"2-rank evaluate differs by {eval_diff}")
+    check(all(c == (5, 5 * eval_batches) for c in counts), f"2-rank launches {counts}")
+    paths["aag"]["2 ranks on one card (gloo), per rank: one step"] = counts[0][0]
+    paths["aag"]["2 ranks on one card (gloo), per rank: evaluate"] = counts[0][1]
+    torch.backends.cudnn.allow_tf32 = True
+    del one, state
+    torch.cuda.empty_cache()
+    return paths
+
+
+def nudge_(torch, module, seed=0):
+    """Multiply each floating parameter element of `module` by 1 + 2^-23 or
+    1 - 2^-23 (signs from `seed`): a float32 rounding step, the witness of
+    how far float32 noise alone moves a run."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            if p.is_floating_point():
+                up = torch.rand(p.shape, generator=gen) < 0.5
+                p.mul_(torch.where(up, 1 + 2.0 ** -23, 1 - 2.0 ** -23).to(p))
+
+
+def update_rel_l2(torch, got, want, got0, want0):
+    """Relative L2 of the update got - got0 from the update want - want0
+    over the floating tensors of segmentor state dicts (BN running stats
+    left out)."""
+    num = den = 0.0
+    for k, v in want.items():
+        if v.is_floating_point() and not k.endswith(("running_mean", "running_var")):
+            u = (v - want0[k]).double()
+            num += float((((got[k] - got0[k]).double() - u) ** 2).sum())
+            den += float((u ** 2).sum())
+    return (num / den) ** 0.5
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rel_l2_pairs(torch, pairs):
+    """Relative L2 distance of the first tensors from the second, over all
+    pairs as one vector."""
+    num = sum(float(((a.double().cpu() - b.double().cpu()) ** 2).sum()) for a, b in pairs)
+    den = sum(float((b.double().cpu() ** 2).sum()) for _, b in pairs)
+    return (num / den) ** 0.5
 
 
 if __name__ == "__main__":

@@ -7,22 +7,27 @@ is PyTorch; the two Pallas TPU kernels are Triton kernels here
 version instead.
 
 Layout (JAX counterpart in brackets):
-  * ops/common.py, ops/norm.py       [octave_tpu/ops/common.py, norm.py]
+  * ops/common.py, ops/norm.py       [octave_tpu/ops/common.py, norm.py; norm.py
+                                      also the cross-replica statistics]
   * ops/kernels/aag.py               [octave_tpu/ops/pallas/aag.py]
   * ops/kernels/decoder_epilogue.py  [octave_tpu/ops/pallas/decoder_epilogue.py]
   * models/resnest.py, segmentor.py  [octave_tpu/models/resnest.py, segmentor.py]
   * models/propagation.py, octa.py   [octave_tpu/models/propagation.py, octa.py]
   * models/discriminator.py          [octave_tpu/models/discriminator.py]
   * losses/gan.py, segmentor.py      [octave_tpu/losses/gan.py, segmentor.py]
-  * data/datasets.py, preprocess.py  [octave_tpu/data/datasets.py (synthetic), preprocess.py]
+  * data/datasets.py, preprocess.py, [octave_tpu/data/datasets.py, preprocess.py,
+    augment.py                        augment.py]
+  * data/native.py, data/_native/    [octave_tpu/data/native.py, _native/loader.cpp;
+    loader.cpp                        the port's own copy, with TIFF]
+  * parallel/ddp.py                  [octave_tpu/parallel/mesh.py, on torch.distributed]
   * train/schedule.py, state.py,     [octave_tpu/train/...]
     steps.py, trainer.py
   * utils/config.py, metrics.py,     [octave_tpu/utils/config.py, metrics.py,
     logging.py                        logging.py + profiling.py::StepTimer]
   * utils/checkpoint.py              [octave_tpu/utils/checkpoint.py, npz part]
   * utils/convert.py                 [inverse of octave_tpu/utils/torch_convert.py]
-  * serve.py                         [octave_tpu/serve.py::Predictor]
-  * cli.py                           [octave_tpu/cli.py, train]
+  * serve.py                         [octave_tpu/serve.py::Predictor, BatchServer]
+  * cli.py                           [octave_tpu/cli.py: train, eval, predict, convert]
 """
 
 __version__ = "0.1.0"

@@ -13,6 +13,13 @@ The port of `octave_tpu/cli.py` (`train` :40-48, `eval` :51-66, `convert`
 ResnestUNet only, as the JAX Predictor does. The device is CUDA unless
 --device says otherwise; without CUDA the commands exit with a message.
 `bench` is not ported.
+
+`train` and `eval` with `train.data_parallel=true [train.n_devices=N]` run
+one rank per device: under torchrun (WORLD_SIZE set) this process joins the
+group torchrun describes and takes cuda:LOCAL_RANK; otherwise it spawns N
+ranks itself, one per visible GPU by default (with --device cpu, N must be
+given and the ranks share the CPU). NCCL joins CUDA ranks, gloo CPU ranks.
+Rank 0 prints the metrics.
 """
 from __future__ import annotations
 
@@ -63,24 +70,80 @@ def _restored_state(trainer, checkpoint: str):
     return state
 
 
-def cmd_train(args) -> int:
-    from octave_tpu_torch.train.trainer import Trainer
-
-    trainer = Trainer(_load_cfg(args), device=_device(args))
-    state = trainer.fit()
-    metrics = trainer.evaluate(state)
-    print({k: round(v, 4) for k, v in metrics.items()})
-    return 0
+def _train(trainer, args) -> Dict[str, float]:
+    return trainer.evaluate(trainer.fit())
 
 
-def cmd_eval(args) -> int:
-    from octave_tpu_torch.train.trainer import Trainer
-
-    trainer = Trainer(_load_cfg(args), device=_device(args))
+def _evaluate(trainer, args) -> Dict[str, float]:
     state = (_restored_state(trainer, args.checkpoint) if args.checkpoint
              else trainer.init_state())
-    metrics = trainer.evaluate(state)
-    print({k: round(v, 4) for k, v in metrics.items()})
+    return trainer.evaluate(state)
+
+
+_COMMANDS = {"train": _train, "eval": _evaluate}
+
+
+def _rank_main(device, args, cfg) -> Dict[str, float]:
+    """One rank of `train` / `eval` under data parallelism (a spawned
+    process: it configures its own logging)."""
+    from octave_tpu_torch.train.trainer import Trainer
+
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s",
+                        stream=sys.stderr)
+    return _COMMANDS[args.cmd](Trainer(cfg, device=device), args)
+
+
+def _data_parallel(args, cfg):
+    """Run the command on every rank; rank 0's metrics, or None on the
+    other ranks of a torchrun group."""
+    import torch
+
+    from octave_tpu_torch.parallel import ddp
+
+    cpu = torch.device(args.device).type == "cpu"
+    backend = "gloo" if cpu else "nccl"
+    if "WORLD_SIZE" in os.environ:  # one rank of a torchrun group
+        device = torch.device("cpu") if cpu else torch.device("cuda", ddp.local_rank())
+        if not cpu:
+            _device(args)  # exits without CUDA
+            torch.cuda.set_device(device)
+        ddp.init_distributed(backend)
+        rank = ddp.rank()
+        try:
+            metrics = _rank_main(device, args, cfg)
+            ddp.barrier()
+        finally:
+            torch.distributed.destroy_process_group()
+        return metrics if rank == 0 else None
+    n = cfg.train.n_devices
+    if cpu:
+        if n is None:
+            raise SystemExit(f"octave_tpu_torch {args.cmd}: train.data_parallel with --device cpu "
+                             "needs train.n_devices=N")
+        devices = ["cpu"] * int(n)
+    else:
+        _device(args)
+        visible = torch.cuda.device_count()
+        n = visible if n is None else int(n)
+        if n > visible:
+            raise SystemExit(f"octave_tpu_torch {args.cmd}: train.n_devices={n} but only "
+                             f"{visible} CUDA devices are visible")
+        devices = [f"cuda:{r}" for r in range(n)]
+    cfg = cfg.apply_overrides({"train.n_devices": str(len(devices))})
+    return ddp.launch(_rank_main, len(devices), backend, devices, args=(args, cfg),
+                      timeout=None)[0]
+
+
+def cmd_train_or_eval(args) -> int:
+    cfg = _load_cfg(args)
+    if cfg.train.data_parallel:
+        metrics = _data_parallel(args, cfg)
+    else:
+        from octave_tpu_torch.train.trainer import Trainer
+
+        metrics = _COMMANDS[args.cmd](Trainer(cfg, device=_device(args)), args)
+    if metrics is not None:
+        print({k: round(v, 4) for k, v in metrics.items()})
     return 0
 
 
@@ -181,12 +244,12 @@ def main(argv=None) -> int:
 
     sp = sub.add_parser("train")
     common(sp)
-    sp.set_defaults(fn=cmd_train)
+    sp.set_defaults(fn=cmd_train_or_eval)
 
     sp = sub.add_parser("eval")
     sp.add_argument("--checkpoint", default=None)
     common(sp)
-    sp.set_defaults(fn=cmd_eval)
+    sp.set_defaults(fn=cmd_train_or_eval)
 
     sp = sub.add_parser("convert")
     sp.add_argument("--pth", required=True)

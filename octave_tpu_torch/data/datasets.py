@@ -12,8 +12,11 @@ ROSE, e.g. ROSE-1 SVC:
 OCTA-500 (3M/6M projections):
     <root>/OCTA_3M/{train,test}/{img,gt}/*.bmp
 
-through `utils.imageio.read_image` (PNG, BMP, PGM; TIFF waits with the
-threaded loader, ROADMAP A.1). `skeletonize_to_scribble` (:116-139),
+through the port's C++ loader (`data/native.py`: PNG, BMP, PGM and TIFF,
+threaded for a batch) where it builds, else through the numpy reader
+`utils.imageio.read_image` (PNG, BMP, PGM; the two agree byte for byte),
+as the JAX package falls back to its Python readers (:32-89); a TIFF
+without the native loader raises IOError. `skeletonize_to_scribble` (:116-139),
 `SyntheticOcta` (:215-258) and `batch_iterator` (:261-294, which stacks
 `scribble_c` when every sample has one) give, with the
 same seed, byte-identical arrays to the JAX package's: the random draws come
@@ -29,21 +32,28 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from octave_tpu_torch.data import native
 from octave_tpu_torch.utils.imageio import read_image
 
 _IMG_EXTS = (".png", ".tif", ".tiff", ".bmp", ".jpg", ".jpeg", ".gif")
 
 
 def _load_image(path: str) -> np.ndarray:
-    """Read an image file to a (h, w) uint8 grayscale array."""
+    """Read an image file to a (h, w) uint8 grayscale array: the native
+    loader when it builds, else the numpy reader."""
+    if native.available():
+        return native.decode_image(path)
     return read_image(path)
 
 
 def load_image_batch(paths, size) -> np.ndarray:
     """Decode a batch of files to (n, h, w) uint8 grayscale at `size`:
     ITU-R 601 luma for colour files, nearest resize with
-    src = floor(dst * in / out)."""
+    src = floor(dst * in / out); on the native loader's thread pool when it
+    builds, else file by file in numpy."""
     paths = list(paths)
+    if native.available():
+        return native.load_batch(paths, size)
     h, w = size
     out = np.empty((len(paths), h, w), np.uint8)
     for i, p in enumerate(paths):

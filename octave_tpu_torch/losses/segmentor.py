@@ -9,7 +9,9 @@ The port of `octave_tpu/losses/segmentor.py`: weighted partial cross-entropy
     and truncates an over-long weight list to len(attentions);
   * KLD 'mean' is taken against the weighted-average log posterior, not the
     log of the mean posterior.
-The global (multi-device) class count of WPCE waits for the multi-GPU port.
+Under data parallelism (`global_counts`) the WPCE class counts are summed
+over every rank (:48-53), so each rank weighs its shard by the counts of the
+global batch and the mean gradient equals the full batch's.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from octave_tpu_torch.ops.common import nearest_resize
+from octave_tpu_torch.parallel import ddp
 
 _EPS = 1e-12
 
@@ -30,13 +33,15 @@ def weighted_partial_ce(
     ignore_bg: bool = False,
     reduction: str = "mean",
     full: bool = False,
+    global_counts: bool = False,
 ) -> torch.Tensor:
     """WPCE over scribble pixels. y_hat (b,h,w,c): probabilities (manual) or
     logits (the torch-CE fallback); ys (b,h,w,c) scribble one-hot.
 
     Class weights w_c = n_tot / (n_c + 1e-12), n_c counting scribble pixels
-    per class including the background channel. Unless full, y_hat is
-    masked to the annotated pixels."""
+    per class including the background channel, over every rank of the
+    process group with `global_counts`. Unless full, y_hat is masked to the
+    annotated pixels."""
     if y_hat.shape[-1] != ys.shape[-1]:
         raise ValueError("Number of class mismatch.")
     if ignore_bg:
@@ -44,6 +49,8 @@ def weighted_partial_ce(
     if not full:
         y_hat = y_hat * ys
     ni = ys.sum(dim=(0, 1, 2))
+    if global_counts:
+        ni = ddp.all_reduce_sum(ni)
     weights = ni.sum() / (ni + _EPS)
 
     if num_classes == 1:  # BCE-with-logits fallback

@@ -1,10 +1,25 @@
-"""Eval batch norm in the reference's two serving forms.
+"""Batch norm: the reference's two serving forms and cross-replica training.
 
 `BatchNorm2d` is torch's BatchNorm2d (the reference's only norm layer) with
-one extra eval mode: once `folded_inference(model)` has marked it folded, its
-`weight`/`bias` hold the folded affine from `fold_batch_stats` and eval is
-y = x * weight + bias, as the JAX package's `folded_inference()` reads it
-(octave_tpu/ops/norm.py:58-105). Training uses torch's own forward.
+two extra modes:
+  * eval, folded: once `folded_inference(model)` has marked it, its
+    `weight`/`bias` hold the folded affine from `fold_batch_stats` and eval
+    is y = x * weight + bias, as the JAX package's `folded_inference()` reads
+    it (octave_tpu/ops/norm.py:58-105);
+  * training, synchronised: once `synchronize_batch_norm(model)` has marked
+    it (a model built for data parallelism, at any world size), the batch
+    statistics are those of the global batch, by the JAX formula
+    (octave_tpu/ops/norm.py:123-138): the per-channel mean and mean of
+    squares accumulated in at least float32 (a bf16 input is read as it
+    is, never copied to float32), summed over ranks and divided by the world
+    size (equal shards), var = max(mean2 - mean^2, 0), and the running
+    variance unbiased by the global count. Its backward is batch norm's
+    analytic gradient over the global batch, whose two per-channel sums are
+    all-reduced: what autograd through the formula and a differentiable
+    all-reduce computes, in about half the full-size passes.
+    `torch.nn.SyncBatchNorm` is not used: it refuses CPU tensors and its
+    Welford statistics are not this formula.
+Otherwise training uses torch's own forward.
 """
 from __future__ import annotations
 
@@ -13,6 +28,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from octave_tpu_torch.parallel import ddp
 
 EPS = 1e-5
 
@@ -38,21 +55,85 @@ def fold_batch_stats(state_dict: Dict[str, torch.Tensor],
     return out
 
 
+_DIMS = (0, 2, 3)
+_CHANNEL = (1, -1, 1, 1)
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Training batch norm of an NCHW shard over the global batch of every
+    rank: (x, weight, bias, eps) -> (y, batch mean, biased batch var), the
+    last two without gradient. Per-channel sums accumulate in
+    promote(x.dtype, float32); full-size passes run in x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        acc = torch.promote_types(x.dtype, torch.float32)
+        n = x.numel() // x.shape[1]
+        world = ddp.world()
+        if x.dtype == acc:
+            mean2 = (x * x).mean(_DIMS)
+        else:  # bf16: each square is exact in float32, and the norm reads x as it is
+            mean2 = torch.linalg.vector_norm(x, 2, _DIMS, dtype=acc).square_().div_(n)
+        stats = torch.stack([x.mean(_DIMS, dtype=acc), mean2])
+        if world > 1:
+            stats = ddp.all_reduce_sum(stats).div_(world)
+        mean, mean2 = stats
+        var = torch.addcmul(mean2, mean, mean, value=-1).clamp_(min=0.0)
+        invstd = (var + eps).rsqrt_()
+        scale = weight.to(acc) * invstd
+        shift = torch.addcmul(bias.to(acc), mean, scale, value=-1)
+        y = torch.addcmul(shift.to(x.dtype).view(_CHANNEL), x, scale.to(x.dtype).view(_CHANNEL))
+        ctx.save_for_backward(x, mean, invstd, scale)
+        ctx.n_global = n * world
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _mean, _var):
+        # y = (x - mean) * invstd * w + b over the global batch:
+        #   dx = w invstd (gy - sum(gy) / N - (x - mean) invstd^2 sum(gy (x - mean)) / N)
+        # with both sums global; dw and db take this rank's sums, which
+        # the gradient all-reduce then averages
+        x, mean, invstd, scale = ctx.saved_tensors
+        acc = mean.dtype
+        sums = torch.stack([gy.sum(_DIMS, dtype=acc), (gy * x).sum(_DIMS, dtype=acc)])
+        sums[1].addcmul_(mean, sums[0], value=-1)  # sum(gy (x - mean))
+        total = ddp.all_reduce_sum(sums) if ddp.world() > 1 else sums
+        b = scale * invstd * invstd * total[1] / -ctx.n_global
+        c = torch.addcmul(scale * total[0] / -ctx.n_global, mean, b, value=-1)
+        dt = x.dtype
+        dx = torch.addcmul(torch.addcmul(c.to(dt).view(_CHANNEL), gy, scale.to(dt).view(_CHANNEL)),
+                           x, b.to(dt).view(_CHANNEL))
+        return dx, sums[1] * invstd, sums[0], None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
-    """torch BatchNorm2d whose eval forward can read a folded affine."""
+    """torch BatchNorm2d whose eval forward can read a folded affine and
+    whose training statistics can span every rank."""
 
     def __init__(self, num_features: int, eps: float = EPS, momentum: float = 0.1):
         super().__init__(num_features, eps=eps, momentum=momentum)
         self.folded = False
+        self.synchronized = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            return super().forward(x)
+            return self._synchronized(x) if self.synchronized else super().forward(x)
         shape = (1, -1, 1, 1)
         if self.folded:
             return torch.addcmul(self.bias.view(shape), x, self.weight.view(shape))
         return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                             self.bias, False, 0.0, self.eps)
+
+    def _synchronized(self, x: torch.Tensor) -> torch.Tensor:
+        y, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias, self.eps)
+        n = x.numel() // x.shape[1] * ddp.world()
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype), m)
+            self.running_var.lerp_((var * (n / max(n - 1, 1))).to(self.running_var.dtype), m)
+            self.num_batches_tracked.add_(1)
+        return y
 
     def eval_affine(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The eval BN as a float32 per-channel (scale, bias), raw or folded."""
@@ -67,4 +148,13 @@ def folded_inference(model: nn.Module, enabled: bool = True) -> nn.Module:
     for m in model.modules():
         if isinstance(m, BatchNorm2d):
             m.folded = enabled
+    return model
+
+
+def synchronize_batch_norm(model: nn.Module, enabled: bool = True) -> nn.Module:
+    """Mark every BatchNorm2d of `model` to take its training statistics
+    over every rank of the default process group (or not)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.synchronized = enabled
     return model

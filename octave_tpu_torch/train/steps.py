@@ -28,6 +28,15 @@ step, the port does explicitly:
 With compute_dtype='bfloat16' both forwards run under torch.autocast (master
 weights stay float32) and every loss is taken on float32 casts of the
 pyramids and the agg maps, as the JAX step casts them.
+
+With `data_parallel` each rank runs the step on its shard of the global
+batch (:233-239, 344-346, 398-400): the WPCE class counts are global, each
+player's gradients are all-reduced to their mean between backward and its
+optimizer step (so a global clip sees the mean gradient, as optax does
+after `pmean`), and the losses are all-reduced to their mean. The segmentor
+is expected to be built with synchronised batch norm
+(`ops.norm.synchronize_batch_norm`) and each rank to draw its own noise.
+Spectral u/v need nothing: every rank iterates them from the same weights.
 """
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ from octave_tpu_torch.losses.segmentor import (
     interlayer_divergence_pooled,
     weighted_partial_ce,
 )
+from octave_tpu_torch.parallel import ddp
 from octave_tpu_torch.train.state import TrainState
 from octave_tpu_torch.utils.metrics import AucAccumulator, ConfusionAccumulator
 
@@ -109,11 +119,13 @@ class StepConfig:
     discriminator_depth_c: int = 1
     supervise_attention0: bool = False  # the supervised loss on atts[0] too
     compute_dtype: Optional[str] = None  # None | 'bfloat16'
+    data_parallel: bool = False  # one shard per rank of the default process group
 
 
 def _supervised(cfg: StepConfig, probs: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     if cfg.weakly_supervise:
-        return weighted_partial_ce(probs, target, cfg.num_classes, manual=True)
+        return weighted_partial_ce(probs, target, cfg.num_classes, manual=True,
+                                   global_counts=cfg.data_parallel)
     return dice_loss(probs, target)
 
 
@@ -186,6 +198,8 @@ def make_train_step(cfg: StepConfig) -> Callable[[TrainState, Dict[str, Any]],
             total = total + cfg.lambda_adv * l_adv
         losses["loss_seg_total"] = total
         total.backward()
+        if cfg.data_parallel:
+            ddp.all_reduce_mean_(p.grad for p in seg.parameters())
         state.seg_opt.step()
 
         if critics:
@@ -200,10 +214,17 @@ def make_train_step(cfg: StepConfig) -> Callable[[TrainState, Dict[str, Any]],
                     y_real = critic(real, state.generator, update=True)
                 l_d = l_d + ls_discriminator_loss(loss_dtype(y_real), loss_dtype(y_fake))
             l_d.backward()
+            if cfg.data_parallel:
+                ddp.all_reduce_mean_(p.grad for p in state.critic.parameters())
             state.critic_opt.step()
             losses["loss_disc"] = l_d
         state.step += 1
-        return {k: v.detach() for k, v in losses.items()}
+        losses = {k: v.detach() for k, v in losses.items()}
+        if cfg.data_parallel:
+            names = list(losses)
+            mean = ddp.all_reduce_sum(torch.stack([losses[k] for k in names])) / ddp.world()
+            losses = dict(zip(names, mean.unbind(0)))
+        return losses
 
     return train_step
 

@@ -1,4 +1,4 @@
-"""The adversarial scribble trainer on one device.
+"""The adversarial scribble trainer, on one device or data-parallel.
 
 The port of `octave_tpu/train/trainer.py` (build_dataset :89-100,
 Trainer.__init__ :107-214, init_state :217-276, load_pretrained_backbone
@@ -11,6 +11,16 @@ and an optional profiler trace. The host never waits for a step unless it is
 `dispatch_ahead` steps ahead of the device, or logs. Options whose port is
 still to come raise NotImplementedError naming their ROADMAP item; none is
 ignored.
+
+With `train.data_parallel` the trainer is one rank of a process group that
+already exists (`cli train` spawns one, or torchrun describes one): every
+rank reads the same global batches and augmentation draws, keeps its rows
+(`parallel.ddp.shard_rows`), runs the step with synchronised batch norm and
+all-reduced gradients, and so computes what the full batch computes on one
+device, as the JAX mesh does (:113, :314-365, :501-549). Rank 0 alone logs
+and writes checkpoints; a SIGTERM on any rank stops every rank at the same
+step; `evaluate` pads a ragged batch with zero-weight repeats and sums the
+exact counts over ranks.
 """
 from __future__ import annotations
 
@@ -29,6 +39,8 @@ from octave_tpu_torch.data import datasets as ds
 from octave_tpu_torch.data.preprocess import prepare_batch
 from octave_tpu_torch.models.discriminator import DiscriminatorBlock
 from octave_tpu_torch.models.segmentor import ARCHITECTURES, build_segmentor
+from octave_tpu_torch.ops.norm import synchronize_batch_norm
+from octave_tpu_torch.parallel import ddp
 from octave_tpu_torch.serve import resolve_device
 from octave_tpu_torch.train.schedule import make_optimizer, polynomial_decay
 from octave_tpu_torch.train.state import TrainState
@@ -48,7 +60,6 @@ def _unported(cfg: Config) -> list:
     m, d, o, t = cfg.model, cfg.data, cfg.optim, cfg.train
     checks = [
         (o.moment_dtype is not None, "optim.moment_dtype", "A.7"),
-        (t.data_parallel or t.n_devices is not None, "train.data_parallel / n_devices", "A.5"),
         (t.remat not in (False, None), "train.remat", "A.7"),
         (t.dense_groups is not None or t.einsum_groups is not None,
          "train.dense_groups / einsum_groups", "A.7"),
@@ -103,6 +114,22 @@ class Trainer:
                              f"{' | '.join(repr(a) for a in ARCHITECTURES)}")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.data_parallel = bool(cfg.train.data_parallel)
+        self.world, self.rank = 1, 0
+        if self.data_parallel:
+            if not ddp.is_distributed():
+                raise RuntimeError(
+                    "train.data_parallel needs a process group: run `python -m "
+                    "octave_tpu_torch.cli train train.data_parallel=true` (one process per "
+                    "device) or start each rank under torchrun")
+            self.world, self.rank = ddp.world(), ddp.rank()
+            n = cfg.train.n_devices
+            if n is not None and int(n) != self.world:
+                raise ValueError(f"train.n_devices={n} but the process group has "
+                                 f"{self.world} ranks")
+            ddp.shard_rows(cfg.data.batch_size, self.rank, self.world)  # n divides B
+        elif cfg.train.n_devices is not None:
+            raise ValueError("train.n_devices needs train.data_parallel=true")
         self.gating_level = m.segmentor_gating_level
         # one critic per attention pyramid, its depth clamped to the levels
         # the model emits; a single pyramid keeps the one flat critic
@@ -131,6 +158,7 @@ class Trainer:
             discriminator_depth=self.disc_depths.get("main", m.discriminator_depth),
             discriminator_depth_c=self.disc_depths.get("c", 1),
             compute_dtype=cfg.train.compute_dtype,
+            data_parallel=self.data_parallel,
         )
         self.train_step = make_train_step(self.step_cfg)
         self.eval_step = make_eval_accumulate_step(m.num_classes)
@@ -141,7 +169,9 @@ class Trainer:
         the segmentor first, then the critics in name order), their
         optimizers, and the noise generator on the device. The dual
         decoders' two critics are an `nn.ModuleDict` {"main", "c"} stepped by
-        one optimizer."""
+        one optimizer. Every rank builds the same modules; under data
+        parallelism the segmentor's batch norms are synchronised and each
+        rank draws its own noise (`noise_seed`)."""
         cfg, m, o = self.cfg, self.cfg.model, self.cfg.optim
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.train.seed)
@@ -154,6 +184,7 @@ class Trainer:
                     instance_noise=m.instance_noise, label_noise=m.label_noise,
                     num_classes=m.num_classes)
         segmentor = segmentor.to(self.device).to(memory_format=torch.channels_last).train()
+        synchronize_batch_norm(segmentor, self.data_parallel)
         seg_opt = make_optimizer(
             segmentor.parameters(),
             schedule=polynomial_decay(o.seg_lr, o.end_lr, o.decay_steps, o.power),
@@ -167,12 +198,23 @@ class Trainer:
                 critic.parameters(),
                 schedule=polynomial_decay(o.disc_lr, o.end_lr, o.decay_steps, o.power),
                 grad_clip=o.grad_clip)
-        gen = torch.Generator(device=self.device).manual_seed(cfg.train.seed + 1)
+        gen = torch.Generator(device=self.device).manual_seed(self.noise_seed(0))
         state = TrainState(segmentor=segmentor, seg_opt=seg_opt, critic=critic,
                            critic_opt=critic_opt, generator=gen)
         if m.pretrain:
             self.load_pretrained_backbone(state, m.weight_path)
         return state
+
+    def noise_seed(self, step: int) -> int:
+        """The seed of this rank's noise generator: rank 0 keeps the
+        single-device seed, so one rank draws what one device draws; rank
+        r > 0 folds r in and, when a run resumes at `step`, the step, since
+        a checkpoint keeps rank 0's generator only (JAX folds the axis index
+        into each step's keys, octave_tpu/train/steps.py:233-239)."""
+        seed = self.cfg.train.seed + 1
+        if self.rank == 0:
+            return seed
+        return (seed * 1_000_003 + self.rank) * 1_000_003 + step
 
     def load_pretrained_backbone(self, state: TrainState, path: str) -> TrainState:
         """Load a resnest50 classification .pth into the segmentor's encoder
@@ -190,6 +232,17 @@ class Trainer:
         log.info("loaded %d pretrained backbone tensors from %s", len(sd), path)
         return state
 
+    def shard(self, host_batch: Dict[str, np.ndarray],
+              augment_draws: Optional[augment.Draws] = None):
+        """This rank's rows of a global host batch and of its draws."""
+        if not self.data_parallel:
+            return host_batch, augment_draws
+        rows = ddp.shard_rows(host_batch["image"].shape[0], self.rank, self.world)
+        if augment_draws is not None:
+            augment_draws = augment.Draws(*(None if d is None else d[rows]
+                                            for d in augment_draws))
+        return {k: v[rows] for k, v in host_batch.items()}, augment_draws
+
     def device_batch(self, host_batch: Dict[str, np.ndarray],
                      augment_draws: Optional[augment.Draws] = None) -> Dict[str, object]:
         """A host batch of `batch_iterator` -> model-ready tensors on the
@@ -206,9 +259,12 @@ class Trainer:
     def fit(self, state: Optional[TrainState] = None) -> TrainState:
         cfg = self.cfg
         state = state if state is not None else self.init_state()
+        lead = self.rank == 0  # logs and writes; every rank steps
 
-        # preemption: a SIGTERM ends the loop at the next step boundary, and
-        # the final save below keeps what was trained
+        # preemption: a SIGTERM ends the loop at a step boundary, and the
+        # final save below keeps what was trained. Under data parallelism a
+        # rank's flag is all-reduced with each step and read where the host
+        # waits for that step anyway, so every rank stops at the same step
         preempted = {"flag": False}
 
         def on_sigterm(signum, frame):
@@ -224,26 +280,30 @@ class Trainer:
         if cfg.train.checkpoint_dir:
             ckpt = CheckpointManager(cfg.train.checkpoint_dir)
             if ckpt.restore_latest(state) is not None:
-                log.info("resumed from step %d", state.step)
+                if state.generator is not None and self.rank > 0:
+                    state.generator.manual_seed(self.noise_seed(state.step))
+                if lead:
+                    log.info("resumed from step %d", state.step)
 
         it = ds.batch_iterator(build_dataset(cfg, "train"), cfg.data.batch_size,
                                seed=cfg.train.seed)
         # the augmentation draws of step s come from a generator seeded with
         # (train.seed + 7919, s): a resumed run draws what an uninterrupted
-        # one would
+        # one would. They are drawn for the global batch on every rank.
         aug_gen = torch.Generator(device=self.device) if cfg.data.augment else None
-        mlog = MetricsLogger(cfg.train.log_dir) if cfg.train.log_dir else None
+        mlog = MetricsLogger(cfg.train.log_dir) if cfg.train.log_dir and lead else None
         timer = StepTimer()
         ahead = max(0, int(cfg.train.dispatch_ahead))
         inflight: deque = deque()
         window = []
+        stop = False
         t0 = time.perf_counter()
         try:
             with trace(cfg.train.profile_dir):
                 for host_batch in it:
                     if state.step >= cfg.train.steps:
                         break
-                    if preempted["flag"]:
+                    if stop or (preempted["flag"] and not self.data_parallel):
                         log.warning("SIGTERM received: saving and stopping at step %d",
                                     state.step)
                         break
@@ -252,31 +312,42 @@ class Trainer:
                         aug_gen.manual_seed((cfg.train.seed + 7919) * 1_000_003 + state.step)
                         draws = augment.draw(aug_gen, host_batch["image"].shape[0],
                                              cfg.data.augment_intensity)
-                    losses = self.train_step(state, self.device_batch(host_batch, draws))
+                    losses = self.train_step(state, self.device_batch(*self.shard(host_batch,
+                                                                                  draws)))
                     if cfg.train.debug_nans:
                         bad = [k for k, v in losses.items() if not bool(torch.isfinite(v))]
                         if bad:
                             raise FloatingPointError(f"non-finite {bad} at step {state.step}")
+                    flag = None
+                    if self.data_parallel:
+                        flag = ddp.all_reduce_max(torch.full(
+                            (1,), float(preempted["flag"]), device=self.device))
                     if self.device.type == "cuda":
                         # bound the host's run-ahead: wait for the oldest step
                         done = torch.cuda.Event()
                         done.record()
-                        inflight.append(done)
+                        inflight.append((done, flag))
                         while len(inflight) > ahead:
-                            inflight.popleft().synchronize()
+                            done, flag = inflight.popleft()
+                            done.synchronize()
+                            stop = stop or (flag is not None and bool(flag.item()))
+                    elif flag is not None:
+                        stop = stop or bool(flag.item())
                     timer.tick()
                     window.append(losses)
                     step = state.step
                     if cfg.train.log_every > 0 and step % cfg.train.log_every == 0:
-                        mean = {k: float(torch.stack([l[k] for l in window]).float().mean())
-                                for k in window[-1]}
-                        dt = time.perf_counter() - t0
-                        ips = cfg.data.batch_size * len(window) / dt
-                        log.info("step %d  %s  %.1f img/s", step,
-                                 "  ".join(f"{k}={v:.4f}" for k, v in mean.items()), ips)
-                        if mlog is not None:
-                            mlog.log(step, {**mean, "img_per_s_wall": ips,
-                                            **timer.stats(cfg.data.batch_size)}, prefix="train/")
+                        if lead:
+                            mean = {k: float(torch.stack([l[k] for l in window]).float().mean())
+                                    for k in window[-1]}
+                            dt = time.perf_counter() - t0
+                            ips = cfg.data.batch_size * len(window) / dt
+                            log.info("step %d  %s  %.1f img/s", step,
+                                     "  ".join(f"{k}={v:.4f}" for k, v in mean.items()), ips)
+                            if mlog is not None:
+                                mlog.log(step, {**mean, "img_per_s_wall": ips,
+                                                **timer.stats(cfg.data.batch_size)},
+                                         prefix="train/")
                         window, t0 = [], time.perf_counter()
                     if (ckpt is not None and cfg.train.checkpoint_every > 0
                             and step % cfg.train.checkpoint_every == 0):
@@ -297,13 +368,32 @@ class Trainer:
     def evaluate(self, state: TrainState) -> Dict[str, float]:
         """Dataset-level Dice / IoU / accuracy / sensitivity / specificity /
         AUC on the test split, from per-batch device counts summed on the
-        host in int64."""
+        host in int64. Under data parallelism each rank scores its rows of
+        every batch, a ragged batch padded to a multiple of the world with
+        repeats of its last sample at weight 0, and the counts are summed
+        over ranks: the result equals one device's exactly."""
         cfg = self.cfg
         conf = ConfusionAccumulator.empty_host()
         auc = AucAccumulator.empty_host()
         for host_batch in ds.batch_iterator(build_dataset(cfg, "test"), cfg.data.batch_size,
                                             shuffle=False, epochs=1, drop_last=False):
-            _, c, a = self.eval_step(state.segmentor, self.device_batch(host_batch))
+            b = host_batch["image"].shape[0]
+            pad = (-b) % self.world
+            weight = None
+            if pad:
+                host_batch = {k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
+                              for k, v in host_batch.items()}
+                weight = np.r_[np.ones(b, np.float32), np.zeros(pad, np.float32)]
+            host_batch, _ = self.shard(host_batch)
+            batch = self.device_batch(host_batch)
+            if weight is not None:
+                rows = ddp.shard_rows(b + pad, self.rank, self.world)
+                batch["sample_weight"] = torch.as_tensor(weight[rows], device=self.device)
+            _, c, a = self.eval_step(state.segmentor, batch)
+            if self.data_parallel:
+                packed = ddp.all_reduce_sum(torch.cat([torch.stack(list(c)), *a]))
+                c = ConfusionAccumulator(*packed[:4])
+                a = AucAccumulator(*packed[4:].chunk(2))
             conf = ConfusionAccumulator(*(x + y for x, y in zip(conf, c.astype64())))
             auc = AucAccumulator(*(x + y for x, y in zip(auc, a.astype64())))
         agg = {
@@ -314,5 +404,6 @@ class Trainer:
             "specificity": float(conf.specificity()),
             "auc": float(auc.auc()),
         }
-        log.info("eval  %s", "  ".join(f"{k}={v:.4f}" for k, v in agg.items()))
+        if self.rank == 0:
+            log.info("eval  %s", "  ".join(f"{k}={v:.4f}" for k, v in agg.items()))
         return agg

@@ -10,7 +10,11 @@ The port of `octave_tpu/utils/checkpoint.py`:
     copies the state to host memory before it returns (the next train step
     mutates the parameters in place) and writes the file on a background
     thread; a step's directory gets its final name only when its file is
-    complete, so `restore_latest` never reads half a checkpoint.
+    complete, so `restore_latest` never reads half a checkpoint. Under a
+    process group only rank 0 writes, every rank restores from the same
+    directory, and the ranks meet after each save and when closing; the
+    state dict is the same with or without data parallelism, so a
+    checkpoint of a data-parallel run resumes on one device and back.
   * `save_pytree` / `load_pytree` (:61-76) for a nested dict of tensors,
     e.g. converted pretrained weights.
   * `export_weights_npz` / `load_weights_npz` (:108-188), the compact
@@ -32,6 +36,8 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+
+from octave_tpu_torch.parallel import ddp
 
 _BF16_PREFIX = "bf16:"
 _RAW_PREFIX = "raw:"
@@ -123,11 +129,18 @@ class CheckpointManager:
 
     def save(self, step: int, state: Any) -> bool:
         """Snapshot `state` to host memory now and write it in the
-        background. Returns False when nothing is written: the step is off
-        the save interval or already has a checkpoint."""
+        background (rank 0 only; every rank of a process group calls this,
+        and they meet before it returns). Returns False when nothing is
+        written: the step is off the save interval or already has a
+        checkpoint, or this rank does not write."""
         step = int(step)
         if step % self.save_interval_steps != 0:
             return False
+        written = ddp.rank() == 0 and self._save(step, state)
+        ddp.barrier()
+        return written
+
+    def _save(self, step: int, state: Any) -> bool:
         self.wait()  # one write at a time; also makes the step's presence final
         if os.path.isdir(self._step_path(step)):
             return False
@@ -171,7 +184,10 @@ class CheckpointManager:
             raise RuntimeError(f"checkpoint write failed: {err}") from err
 
     def close(self) -> None:
+        """Wait for the write in flight; under a process group every rank
+        then finds the checkpoint complete."""
         self.wait()
+        ddp.barrier()
 
 
 def save_pytree(path: str, tree: Dict[str, Any]) -> None:

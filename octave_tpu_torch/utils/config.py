@@ -4,8 +4,9 @@
 The port's own copy of `octave_tpu/utils/config.py` (:14-188): the same
 fields, defaults, JSON/YAML loading and dotted overrides, so one config file
 drives either package. Fields that name work the port has not done yet
-(multi-GPU, remat, the ParallelHead variants, ...) are kept so such files
-load; `train.trainer.Trainer` raises NotImplementedError on any of them set.
+(remat, the lowering switches, the optimizer's moment dtype, ...) are kept
+so such files load; `train.trainer.Trainer` raises NotImplementedError on
+any of them set.
 """
 from __future__ import annotations
 

@@ -13,10 +13,12 @@ the read side, of what `octave_tpu/data/_native/loader.cpp` decodes:
 `read_image` sniffs the format from the file's first bytes, never from its
 name, and returns (h, w) uint8. Colour becomes grey by the ITU-R 601 luma
 (299 R + 587 G + 114 B) // 1000, as `load_image_batch` documents for every
-format. The C++ loader does so for BMP only: for colour PNGs it leaves the
-weights to libpng's default (Rec. 709: 0.2127 R + 0.7152 G + 0.0722 B), so a
-colour PNG may read up to 33 grey levels apart between the two;
-grayscale files, which the OCTA datasets ship, read identically.
+format. The port's C++ loader (`data/native.py`) reads every file as this
+reader does, byte for byte, and also reads TIFF, which this reader refuses.
+The JAX package's C++ loader differs for colour PNG only: it leaves the
+weights to libpng's default (Rec. 709: 0.2127 R + 0.7152 G + 0.0722 B), up
+to 33 grey levels apart; grayscale files, which the OCTA datasets ship, read
+identically.
 Headers are untrusted: dimensions are capped before anything is allocated and
 every region is checked against the file's size; any malformed file raises
 IOError.
@@ -203,7 +205,7 @@ def _decode_pgm(buf: bytes) -> np.ndarray:
 def read_image(path: str) -> np.ndarray:
     """Decode a PNG, BMP or binary PGM file to (h, w) uint8 grayscale. The
     format is taken from the file's first bytes. Raises IOError for a missing,
-    truncated, malformed or unsupported file."""
+    truncated, malformed or unsupported file, a TIFF among them."""
     with open(path, "rb") as f:
         buf = f.read()
     try:
@@ -213,6 +215,8 @@ def read_image(path: str) -> np.ndarray:
             return _decode_bmp(buf)
         if buf[:2] == b"P5":
             return _decode_pgm(buf)
+        if buf[:4] in (b"II*\0", b"MM\0*"):
+            raise IOError("TIFF needs the native loader (octave_tpu_torch.data.native)")
     except (struct.error, ValueError, IndexError) as e:
         raise IOError(f"{path}: malformed image ({e})")
     except IOError as e:

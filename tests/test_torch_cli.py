@@ -121,6 +121,47 @@ def test_commands_need_cuda_by_default(tmp_path, cmd):
         main([cmd, *args, "--config", SMOKE, *SMALL])
 
 
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_data_parallel_train_spawns_ranks_and_eval_joins_torchrun(tmp_path, capsys,
+                                                                   monkeypatch):
+    """`train train.data_parallel=true train.n_devices=2 --device cpu`
+    spawns two gloo ranks, and rank 0's metrics are, exactly, those of a
+    single-device `eval` of the checkpoint rank 0 wrote and of a
+    data-parallel `eval` that joins a torchrun group as its one rank."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")  # the spawned ranks' PyTorch threads
+    common = ["--config", SMOKE, "--device", "cpu", *SMALL]
+    ckpt = str(tmp_path / "ckpt")
+    assert main(["train", *common, "train.steps=1", "train.data_parallel=true",
+                 "train.n_devices=2", f"train.checkpoint_dir={ckpt}"]) == 0
+    trained = _printed_metrics(capsys)
+    assert os.listdir(ckpt) == ["step_00000001"]
+    assert main(["eval", "--checkpoint", ckpt, *common]) == 0
+    assert _printed_metrics(capsys) == trained
+    torchrun = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+                "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port())}
+    for k, v in torchrun.items():
+        monkeypatch.setenv(k, v)
+    assert main(["eval", "--checkpoint", ckpt, *common, "train.data_parallel=true"]) == 0
+    assert _printed_metrics(capsys) == trained
+    assert not torch.distributed.is_initialized()
+    monkeypatch.delenv("WORLD_SIZE")
+    with pytest.raises(SystemExit, match="needs train.n_devices"):
+        main(["train", *common, "train.data_parallel=true"])
+    # more ranks than visible GPUs is refused before anything is spawned
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match="train.n_devices=2 but only 1 CUDA devices"):
+        main(["train", "--config", SMOKE, *SMALL, "train.data_parallel=true",
+              "train.n_devices=2"])
+
+
 # -- convert and the pretrained backbone ---------------------------------------
 @pytest.fixture(scope="module")
 def resnest_pth(tmp_path_factory):

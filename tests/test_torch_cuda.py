@@ -317,3 +317,68 @@ def test_dual_critic_step_on_card(cuda):
     assert all(bool(torch.isfinite(v)) for v in losses.values())
     for n, c in state.critic.items():
         assert not torch.equal(u[n], c.spectral_dict["spectral_0"][0].weight_u), n
+
+
+def test_native_loader_beside_a_cuda_step(cuda, tmp_path):
+    """A ROSE tree of the committed TIFF fixtures, read through the native
+    loader, feeds a train step on the card: 5 AAG launches, finite losses."""
+    import shutil
+    from pathlib import Path
+
+    from octave_tpu_torch.data import datasets as ds
+    from octave_tpu_torch.data import native
+    from octave_tpu_torch.ops.kernels import launch_counts
+    from octave_tpu_torch.train.trainer import build_dataset
+
+    assert native.available(), native.build_error()
+    fixtures = Path(__file__).resolve().parent / "torch_fixtures"
+    names = ["gray_none", "gray_lzw", "gray_packbits", "gray_deflate_pred2"]
+    for split in ("train", "test"):
+        for d in ("img", "gt", "thin_gt"):
+            (tmp_path / "ROSE-1" / "SVC" / split / d).mkdir(parents=True)
+            for n in names:
+                shutil.copy(fixtures / f"{n}.tif", tmp_path / "ROSE-1" / "SVC" / split / d)
+    tr = _small_trainer(cuda, **{"data.dataset": "rose", "data.root": str(tmp_path),
+                                 "data.image_size": "[64,64]"})
+    host = next(ds.batch_iterator(build_dataset(tr.cfg), 2, seed=0))
+    assert host["image"].shape == (2, 64, 64)
+    state = tr.init_state()
+    launch_counts(reset=True)
+    losses = tr.train_step(state, tr.device_batch(host))
+    torch.cuda.synchronize()
+    assert launch_counts()["aag"] == 5
+    assert all(bool(torch.isfinite(v)) for v in losses.values())
+
+
+def test_world_one_nccl_step_equals_one_device(cuda):
+    """A data-parallel step as the one rank of an NCCL group (synchronised
+    BN, all-reduced gradients and losses) against the same step without a
+    group, float32 with TF32 off, at 304², B = 8: losses within 1e-4
+    relative. (At 64², B = 2 the deepest BN normalises 8 values per channel
+    and float32 rounding alone moves loss_adv by 1e-3.)"""
+    import socket
+
+    from octave_tpu_torch.data import datasets as ds
+    from octave_tpu_torch.parallel import ddp
+    from octave_tpu_torch.train.trainer import build_dataset
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    ddp.init_distributed("nccl", f"tcp://127.0.0.1:{port}", 0, 1)
+    try:
+        quiet = {"model.instance_noise": "false", "model.label_noise": "false",
+                 "data.image_size": "[304,304]", "data.synthetic_n": "8",
+                 "data.batch_size": "8"}
+        one = _small_trainer(cuda, **quiet)
+        dp = _small_trainer(cuda, **quiet, **{"train.data_parallel": "true"})
+        host = next(ds.batch_iterator(build_dataset(one.cfg), 8, seed=0))
+        l_one = one.train_step(one.init_state(), one.device_batch(host))
+        l_dp = dp.train_step(dp.init_state(), dp.device_batch(*dp.shard(host)))
+        for k, v in l_one.items():
+            assert abs(float(l_dp[k]) / float(v) - 1) <= 1e-4, k
+    finally:
+        torch.distributed.destroy_process_group()
+        torch.backends.cudnn.allow_tf32 = tf32
