@@ -82,7 +82,20 @@ Phases, each printing its own lines:
                the data-parallel step; two ranks on the one card over gloo
                (CUDA tensors): one float32 step at global B = 8 against the
                full batch on one device (losses, gradient, BN stats) and
-               `evaluate` with a ragged tail against one device's metrics.
+               `evaluate` with a ragged tail against one device's metrics;
+  9. int8    - the int8 Predictor (post-training quantisation) on the
+               committed trained weights at 304², bf16, calibrated on 32
+               phantoms: masks against the bf16 Predictor's on the phase 4
+               phantoms (argmax agreement >= 0.99, the JAX package's gate;
+               scope all >= 0.98) through the fused epilogue (5 launches per
+               __call__, 5 x k in predict_many), at int8_scope="all", with
+               use_fused_decoder=False (5 AAG launches) and at B = 1 and 8,
+               each with its int8 GEMMs counted against its scales; `cli
+               predict --int8` on phase 6's PNG folder and checkpoint against
+               an int8 Predictor called directly (calibrated on the same first
+               batch); int8 and bf16 img/s in turns, the peak memory of one
+               call, the calibration time and a profile of one int8 call with
+               the device ms of its quantise, im2col and GEMM passes.
 Exits non-zero, before printing any result, without CUDA or outside a
 checkout of the repository; any failed check
 raises. The last three lines are the kernels JSON, the card's name and power
@@ -91,6 +104,7 @@ limit, and {"ok": true, "device": ...}.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import logging
@@ -535,21 +549,32 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path = {"aag": {"serve, use_fused_decoder=False": aag_launches["aag"]},
                "decoder_epilogue": {"serve, __call__": main_launches["decoder_epilogue"]}}
-    deploy = phase_deploy(torch, smi, serve, weights,
-                          f"__call__ {SERVE_B / t_call:.1f} img/s, predict_many k=4 "
-                          f"{4 * SERVE_B / t_many:.1f} img/s")
-    for name, paths in deploy.items():
-        by_path[name].update(paths)
+    deploy_tmp = tempfile.mkdtemp(prefix="octave_deploy_")  # phase 9 reads it too
+    try:
+        deploy, predict_args = phase_deploy(torch, smi, serve, weights,
+                                            f"__call__ {SERVE_B / t_call:.1f} img/s, "
+                                            f"predict_many k=4 {4 * SERVE_B / t_many:.1f} img/s",
+                                            deploy_tmp)
+        for name, paths in deploy.items():
+            by_path[name].update(paths)
 
-    # -- 7. the rest of the model family -------------------------------------
-    torch.cuda.empty_cache()
-    for name, paths in phase_family(torch, smi).items():
-        by_path[name].update(paths)
+        # -- 7. the rest of the model family ---------------------------------
+        torch.cuda.empty_cache()
+        for name, paths in phase_family(torch, smi).items():
+            by_path[name].update(paths)
 
-    # -- 8. the native loader and data parallelism ----------------------------
-    torch.cuda.empty_cache()
-    for name, paths in phase_parallel(torch, smi).items():
-        by_path[name].update(paths)
+        # -- 8. the native loader and data parallelism ------------------------
+        torch.cuda.empty_cache()
+        for name, paths in phase_parallel(torch, smi).items():
+            by_path[name].update(paths)
+
+        # -- 9. int8 post-training quantised serving --------------------------
+        torch.cuda.empty_cache()
+        for name, paths in phase_int8(torch, smi, serve, weights, images,
+                                      predict_args, deploy_tmp).items():
+            by_path[name].update(paths)
+    finally:
+        shutil.rmtree(deploy_tmp, ignore_errors=True)
 
     line = {"kernels": [
         {"name": name, "route": "triton", "source": kern["source"],
@@ -786,13 +811,11 @@ SERVER_MASK_FLOOR = 0.9999
 EXPORT_PROB_MEAN_ATOL = 0.02
 
 
-def phase_deploy(torch, smi, serve, weights, direct_rates):
-    """Phase 6. Returns {kernel: {path: launches}} of its main-path runs."""
-    tmp = tempfile.mkdtemp(prefix="octave_deploy_")
-    try:
-        return _deploy(torch, smi, serve, weights, direct_rates, tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+def phase_deploy(torch, smi, serve, weights, direct_rates, tmp):
+    """Phase 6, in `tmp`, which phase 9 reads after it. Returns
+    ({kernel: {path: launches}} of its main-path runs, the `cli predict`
+    arguments of its PNG folder and checkpoint)."""
+    return _deploy(torch, smi, serve, weights, direct_rates, tmp)
 
 
 def _deploy(torch, smi, serve, weights, direct_rates, tmp):
@@ -991,10 +1014,10 @@ def _deploy(torch, smi, serve, weights, direct_rates, tmp):
 
     test_dir = os.path.join(root, "ROSE-1", "SVC", "test", "img")
     out_dir = os.path.join(tmp, "pred")
+    predict_args = ["--images", test_dir, "--checkpoint", ckpt_dir] + argv("x")[1:]
     text, _ = counted(
         "cli predict, 16 images in 2 batches",
-        lambda: run_cli(["predict", "--images", test_dir, "--out", out_dir, "--checkpoint",
-                         ckpt_dir] + argv("x")[1:]),
+        lambda: run_cli(["predict", "--out", out_dir] + predict_args),
         {"aag": 0, "decoder_epilogue": 10})
     names = sorted(os.listdir(out_dir))
     check(len(names) == 2 * n_test and sum(n.endswith("_prob.npy") for n in names) == n_test
@@ -1146,7 +1169,7 @@ def _deploy(torch, smi, serve, weights, direct_rates, tmp):
     agree = float((masks == want).mean())
     log(f"[deploy] BatchServer mask_u8, 70 images: {agree:.6f} of pixels equal to __call__")
     check(masks.dtype == np.uint8 and agree >= SERVER_MASK_FLOOR, "mask_u8 through the server")
-    return paths
+    return paths, predict_args
 
 
 # phase 7: the rest of the model family. The card-vs-CPU step takes phase 5's
@@ -2022,6 +2045,243 @@ def _parallel(torch, smi, tmp):
     torch.backends.cudnn.allow_tf32 = True
     del one, state
     torch.cuda.empty_cache()
+    return paths
+
+
+# phase 9: int8 post-training quantisation. The floor is the JAX package's
+# own gate on int8 against bf16 masks (bench.py:136-145), for the decoder
+# scope it serves. Scope all moves the masks further in both packages (on
+# the CPU at 304²: port 0.98880, JAX 0.98863 of pixels;
+# tests/test_torch_quant.py::test_int8_scopes_shift_as_jax_at_304), so it is
+# held to 0.98.
+INT8_AGREEMENT_FLOOR = 0.99
+INT8_ALL_AGREEMENT_FLOOR = 0.98
+
+
+def int8_group(name):
+    """Coarse layer of a device kernel in the int8 serving profile."""
+    n = name.lower()
+    if any(s in n for s in ("s8", "i8", "int8", "imma")) and "gemm" in n:
+        return "int8 GEMMs (cuBLASLt)"
+    return kernel_group(name)
+
+
+def phase_int8(torch, smi, serve, weights, images, predict_args, deploy_tmp):
+    """Phase 9: the int8 Predictor on the committed trained weights at 304²,
+    bf16, calibrated on a phantom batch: masks against the bf16 Predictor's
+    on other phantoms (decoder scope through the fused epilogue, scope all,
+    the unfused AAG configuration, B = 1, 8 and 32), launch and int8 GEMM
+    counts, `cli predict --int8` on phase 6's PNG folder against a direct
+    int8 Predictor, img/s beside bf16, a profile of the int8 passes, the
+    calibration time and peak memory. Returns {kernel: {path: launches}}."""
+    import numpy as np
+
+    from octave_tpu_torch.data.datasets import load_image_batch
+    from octave_tpu_torch.ops import quant
+    from octave_tpu_torch.ops.kernels import launch_counts
+    from octave_tpu_torch.serve import Predictor
+    from octave_tpu_torch.train.trainer import Trainer
+    from octave_tpu_torch.utils.checkpoint import CheckpointManager
+    from octave_tpu_torch.utils.config import Config
+    from octave_tpu_torch.utils.imageio import read_image
+
+    paths = {"aag": {}, "decoder_epilogue": {}}
+    calib = phantoms(SERVE_B, 304, seed=31)  # other phantoms than the requests'
+    bf16_probs = serve(images)
+
+    def counted(label, fn, want, gemms):
+        """fn() with the kernel and int8 GEMM counts zeroed just before it
+        and read just after."""
+        launch_counts(reset=True)
+        quant.int8_mm.launches = 0
+        result = fn()
+        torch.cuda.synchronize()
+        got, n_gemm = launch_counts(), quant.int8_mm.launches
+        log(f"[int8] {label}: launches {got}, int8 GEMMs {n_gemm} (expected {want}, {gemms})")
+        check(got == want and n_gemm == gemms,
+              f"{label}: launches {got} and {n_gemm} int8 GEMMs, expected {want} and {gemms}")
+        for name, n in got.items():
+            if n:
+                paths[name][label] = n
+        return result
+
+    def agreement(label, probs, want, floor=INT8_AGREEMENT_FLOOR):
+        check(probs.shape == want.shape and bool(np.isfinite(probs).all()),
+              f"{label}: shape {probs.shape} or non-finite values")
+        agree = float((probs.argmax(-1) == want.argmax(-1)).mean())
+        log(f"[int8] {label}: argmax agreement with the bf16 Predictor {agree:.6f}, mean |dp| "
+            f"{float(np.abs(probs - want).mean()):.3g} (floor {floor})")
+        check(agree >= floor, f"{label}: int8 masks agree on {agree} of pixels")
+        return agree
+
+    # 9.1 calibrate and quantise: decoder scope, fused epilogue (the main path)
+    timed = {}
+    calibrate = quant.calibrate
+
+    def timed_calibrate(*args):
+        t0 = time.perf_counter()
+        out = calibrate(*args)
+        torch.cuda.synchronize()
+        timed["s"] = time.perf_counter() - t0
+        return out
+
+    quant.calibrate = timed_calibrate
+    try:
+        t0 = time.perf_counter()
+        int8 = Predictor(weights, int8_decoder=True, calibration_batches=[calib])
+        build_s = time.perf_counter() - t0
+        calib_s = timed["s"]
+        t0 = time.perf_counter()
+        int8_all = Predictor(weights, int8_decoder=True, calibration_batches=[calib],
+                             int8_scope="all")
+        int8_aag = Predictor(weights, int8_decoder=True, calibration_batches=[calib],
+                             use_fused_decoder=False)
+        torch.cuda.synchronize()
+    finally:
+        quant.calibrate = calibrate
+    n_sites = {k: len(p.int8_scales) for k, p in
+               (("decoder", int8), ("all", int8_all), ("aag", int8_aag))}
+    log(f"[int8] calibration on {SERVE_B} phantoms: {calib_s:.2f} s; whole int8 build "
+        f"{build_s:.2f} s; scales: decoder {n_sites['decoder']}, all {n_sites['all']}, "
+        f"unfused decoder {n_sites['aag']}; two more builds {time.perf_counter() - t0:.2f} s")
+    check(n_sites["decoder"] == n_sites["aag"] == 33 and n_sites["all"] > 100,
+          f"scale counts {n_sites}")
+
+    # 9.2 agreement with bf16 and the launch counts of each path
+    probs = counted("int8 __call__ (decoder, fused)", lambda: int8(images),
+                    {"aag": 0, "decoder_epilogue": 5}, n_sites["decoder"])
+    stack = np.stack([images, images[::-1]])
+    many = counted("int8 predict_many k=2", lambda: int8.predict_many(stack),
+                   {"aag": 0, "decoder_epilogue": 10}, 2 * n_sites["decoder"])
+    check(np.array_equal(many[0], probs), "int8 predict_many differs from __call__")
+    agreements = {"decoder": agreement(f"scope decoder, fused, B={SERVE_B}", probs, bf16_probs)}
+    probs_all = counted("int8 __call__ (scope all)", lambda: int8_all(images),
+                        {"aag": 0, "decoder_epilogue": 5}, n_sites["all"])
+    agreements["all"] = agreement(f"scope all, fused, B={SERVE_B}", probs_all, bf16_probs,
+                                  INT8_ALL_AGREEMENT_FLOOR)
+    probs_aag = counted("int8 __call__ (use_fused_decoder=False)", lambda: int8_aag(images),
+                        {"aag": 5, "decoder_epilogue": 0}, n_sites["aag"])
+    agreements["aag"] = agreement(f"scope decoder, AAG kernel, B={SERVE_B}", probs_aag,
+                                  bf16_probs)
+    for b in (1, 8):
+        small = counted(f"int8 __call__ B={b}", lambda: int8(images[:b]),
+                        {"aag": 0, "decoder_epilogue": 5}, n_sites["decoder"])
+        agreements[f"B={b}"] = agreement(f"scope decoder, fused, B={b}", small,
+                                         bf16_probs[:b])
+
+    # 9.3 cli predict --int8 on phase 6's PNG folder: calibrated on its first
+    # batch of 8, against a direct int8 Predictor calibrated on the same batch
+    out_dir = os.path.join(deploy_tmp, "pred_int8")
+    test_dir = predict_args[predict_args.index("--images") + 1]
+    files = sorted(os.path.join(test_dir, f) for f in os.listdir(test_dir))
+    counted("cli predict --int8, 16 images in 2 batches",
+            lambda: run_cli(["predict", "--out", out_dir, "--int8"] + predict_args),
+            {"aag": 0, "decoder_epilogue": 15}, 2 * n_sites["decoder"])
+    x = np.repeat((load_image_batch(files, (304, 304)).astype(np.float32) / 255.0)[..., None],
+                  3, axis=-1)
+    overrides = dict(a.split("=", 1) for a in predict_args[4:])
+    ckpt = predict_args[predict_args.index("--checkpoint") + 1]
+    state = CheckpointManager(ckpt).restore_latest(
+        Trainer(Config().apply_overrides(overrides)).init_state())
+    direct = Predictor(state.segmentor.state_dict(), int8_decoder=True,
+                       calibration_batches=[x[:8]])
+    del state
+    want = np.concatenate([direct(x[:8]), direct(x[8:])])[..., 1]
+    cli_probs = np.stack([np.load(os.path.join(out_dir, os.path.basename(f)[:-4] + "_prob.npy"))
+                          for f in files])
+    cli_masks = np.stack([read_image(os.path.join(out_dir, os.path.basename(f)[:-4]
+                                                  + "_mask.png")) for f in files])
+    prob_err = float(np.abs(cli_probs - want).max())
+    mask_agree = float((cli_masks == np.where(want >= 0.5, 255, 0)).mean())
+    log(f"[int8] cli predict --int8 wrote {len(files)} .npy and masks; against the int8 "
+        f"Predictor called directly: max |prob diff| {prob_err:.3g}, masks {mask_agree:.6f} "
+        f"equal")
+    check(prob_err <= SERVER_PROB_ATOL and mask_agree >= SERVER_MASK_FLOOR,
+          "cli predict --int8 differs from the int8 Predictor called directly")
+    del direct
+
+    # 9.4 throughput beside bf16 (in turns), peak memory, the int8 passes' device time
+    def wall(fn, reps=10):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    order = [("bf16", serve), ("int8", int8), ("int8", int8), ("bf16", serve)]
+    rates = {"bf16": [], "int8": []}
+    for label, pred in order:
+        rates[label].append(SERVE_B / wall(lambda: pred(images)))
+    peaks = {}
+    for label, pred in (("bf16", serve), ("int8", int8)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pred(images)
+        torch.cuda.synchronize()
+        peaks[label] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[int8] 304² trained weights, B={SERVE_B}, uint8 in, prob_f32 out, on {smi}: "
+        f"bf16 __call__ {', '.join(f'{r:.1f}' for r in rates['bf16'])} img/s, int8 (scope "
+        f"decoder, prepacked) {', '.join(f'{r:.1f}' for r in rates['int8'])} img/s; peak "
+        f"memory of one call bf16 {peaks['bf16']:.2f} GiB, int8 {peaks['int8']:.2f} GiB")
+
+    from torch.profiler import record_function
+
+    # the kernels conv_packed launches outside the three others: the float32
+    # dequantisation, bias, cast and layout of its output
+    stages = {"quantise": "quantize_activation", "im2col": "_im2col", "GEMM": "int8_mm",
+              "dequantise": "conv_packed"}
+    originals = {fn: getattr(quant, fn) for fn in stages.values()}
+
+    def labelled(label, fn):
+        @functools.wraps(fn)  # int8_mm's `launches` too, for its count_launch
+        def run(*a, **k):
+            with record_function(f"int8:{label}"):
+                return fn(*a, **k)
+        return run
+
+    for label, fn in stages.items():
+        setattr(quant, fn, labelled(label, originals[fn]))
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            int8(images)
+            torch.cuda.synchronize()
+            t_prof = (time.perf_counter() - t0) * 1e3
+    finally:
+        for fn, orig in originals.items():
+            setattr(quant, fn, orig)
+    stage_ms = {}
+    for ev in prof.key_averages():
+        if ev.key.startswith("int8:"):
+            stage_ms[ev.key[5:]] = getattr(ev, "device_time_total", 0.0) / 1e3
+    groups, busy = {}, 0.0
+    for ev in prof.events():
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not ev.name.startswith("Activity")
+                and not getattr(ev, "is_user_annotation", False)):
+            ms = ev.time_range.elapsed_us() / 1e3
+            groups[int8_group(ev.name)] = groups.get(int8_group(ev.name), 0.0) + ms
+            busy += ms
+    check(busy > 0, "the profiler saw no device time")
+    log(f"[int8] profile of one int8 __call__ (B={SERVE_B}): wall {t_prof:.1f} ms, device "
+        f"kernels {busy:.1f} ms; by group: "
+        + ", ".join(f"{g} {v:.2f} ms" for g, v in sorted(groups.items(), key=lambda x: -x[1]))
+        + "; the int8 convs' device ms by stage: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stage_ms.items()))
+    check(groups.get("int8 GEMMs (cuBLASLt)", 0.0) > 0 or stage_ms.get("GEMM", 0.0) > 0,
+          "the profile shows no int8 GEMM")
+    log(json.dumps({"int8": {
+        "device": smi, "batch": SERVE_B, "agreement": agreements,
+        "img_s": {k: v for k, v in rates.items()}, "peak_gib": peaks,
+        "calibration_s": calib_s, "int8_build_s": build_s, "scales": n_sites,
+        "profile_ms": {"wall": t_prof, "device_kernels": busy, "groups": groups,
+                       "stages": stage_ms}}}))
     return paths
 
 

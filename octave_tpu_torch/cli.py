@@ -7,8 +7,8 @@ Usage:
     python -m octave_tpu_torch.cli convert --pth resnest50-<hash>.pth --out backbone.pt [--sha256 HEX]
 
 The port of `octave_tpu/cli.py` (`train` :40-48, `eval` :51-66, `convert`
-:69-104, `predict` :107-170): the same config files and dotted overrides
-(utils/config.py). `train` and `eval` build the segmentor that
+:69-104, `predict` :107-170, --int8 included): the same config files and
+dotted overrides (utils/config.py). `train` and `eval` build the segmentor that
 `model.architecture` and `model.encoder_gating` name; `predict` serves
 ResnestUNet only, as the JAX Predictor does. The device is CUDA unless
 --device says otherwise; without CUDA the commands exit with a message.
@@ -187,9 +187,6 @@ def cmd_predict(args) -> int:
     from octave_tpu_torch.serve import Predictor
     from octave_tpu_torch.utils.imageio import write_png_gray
 
-    if args.int8:
-        raise SystemExit("octave_tpu_torch predict: --int8 (post-training quantisation) "
-                         "is not ported yet (ROADMAP A.6)")
     cfg = _load_cfg(args)
     if cfg.model.architecture != "unet" or cfg.model.encoder_gating:
         raise SystemExit(
@@ -210,6 +207,9 @@ def cmd_predict(args) -> int:
             yield np.repeat((imgs.astype(np.float32) / 255.0)[..., None], 3, axis=-1)
 
     kw = dict(num_classes=cfg.model.num_classes, device=device)
+    if args.int8:
+        # int8 PTQ of the decoder; the first batch doubles as the calibration set
+        kw.update(int8_decoder=True, calibration_batches=[next(batches())])
     if args.checkpoint:
         from octave_tpu_torch.train.trainer import Trainer
 
@@ -265,7 +265,9 @@ def main(argv=None) -> int:
     sp.add_argument("--images", required=True, help="directory of input images")
     sp.add_argument("--out", required=True, help="output directory")
     sp.add_argument("--checkpoint", default=None)
-    sp.add_argument("--int8", action="store_true", help="not ported yet")
+    sp.add_argument("--int8", action="store_true",
+                    help="int8 post-training quantisation of the decoder, calibrated on "
+                         "the first batch")
     common(sp)
     sp.set_defaults(fn=cmd_predict)
 

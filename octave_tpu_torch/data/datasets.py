@@ -225,20 +225,29 @@ def batch_iterator(
     seed: int = 0,
     drop_last: bool = True,
     epochs: Optional[int] = None,
+    start: int = 0,
 ) -> Iterator[dict]:
     """Host-side batching into contiguous numpy arrays (the device transform
-    is `data.preprocess.prepare_batch`)."""
+    is `data.preprocess.prepare_batch`).
+
+    `start` skips the first `start` batches of the sequence: the iterator
+    yields what an uninterrupted one yields from batch `start` on (a run
+    resumed at step s passes s). It draws each skipped epoch's permutation
+    and loads no skipped sample."""
     n = len(dataset)
     if drop_last and n < batch_size:
         # without this the epoch loop yields nothing and spins forever
         raise ValueError(f"batch_size {batch_size} > dataset size {n} with drop_last — "
                          "the iterator would never yield a batch")
     rng = np.random.default_rng(seed)
-    epoch = 0
+    stop = n - (n % batch_size) if drop_last else n
+    epoch, skip = divmod(start, max(-(-stop // batch_size), 1))
+    for _ in range(epoch if shuffle else 0):
+        rng.permutation(n)
     while epochs is None or epoch < epochs:
         order = rng.permutation(n) if shuffle else np.arange(n)
-        stop = n - (n % batch_size) if drop_last else n
-        for s in range(0, stop, batch_size):
+        first, skip = skip * batch_size, 0
+        for s in range(first, stop, batch_size):
             samples = [dataset[int(i)] for i in order[s: s + batch_size]]
             batch = {
                 "image": np.stack([x.image for x in samples]),

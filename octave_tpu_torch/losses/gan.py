@@ -17,3 +17,15 @@ def ls_discriminator_loss(y_real: torch.Tensor, y_fake: torch.Tensor) -> torch.T
 def ls_generator_loss(y_fake: torch.Tensor) -> torch.Tensor:
     """G = 0.5*mean((y_fake - 1)^2)."""
     return 0.5 * torch.mean(torch.square(y_fake - 1.0))
+
+
+class LSDiscriminatorialLoss:
+    """The reference's class (its name and spelling kept)."""
+
+    def __call__(self, y_real, y_fake):
+        return ls_discriminator_loss(y_real, y_fake)
+
+
+class LSGeneratorLoss:
+    def __call__(self, y_fake):
+        return ls_generator_loss(y_fake)

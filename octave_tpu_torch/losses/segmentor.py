@@ -166,3 +166,63 @@ def ce_loss(y_pred: torch.Tensor, y_true: torch.Tensor, weight: torch.Tensor) ->
     nll = -logp.gather(1, targets[:, None])[:, 0]
     wt = weight[targets]
     return torch.sum(wt * nll) / torch.sum(wt)
+
+
+# The reference's loss classes (losses.py), as octave_tpu/losses/segmentor.py
+# :224-278 wraps them: constructor arguments, then a call on tensors.
+
+
+class WeightedPartialCE:
+    """The reference's WeightedPartialCE (losses.py:11-24)."""
+
+    def __init__(self, num_classes: int, eps: float = _EPS, manual: bool = False):
+        self.num_classes = num_classes
+        self.eps = eps
+        self.manual = manual
+
+    def __call__(self, y_hat, ys, ignore_bg: bool = False, reduction="mean", **kwargs):
+        return weighted_partial_ce(y_hat, ys, self.num_classes, manual=self.manual,
+                                   ignore_bg=ignore_bg, reduction=reduction,
+                                   full=kwargs.get("full", False))
+
+
+class DiceLoss:
+    def __init__(self, eps: float = _EPS):
+        self.eps = eps
+
+    def __call__(self, inputs, targets):
+        return dice_loss(inputs, targets, self.eps)
+
+
+class ImageMseLoss:
+    def __call__(self, y_h, y):
+        return image_mse_loss(y_h, y)
+
+
+class InterlayerDivergence:
+    """The reference's InterlayerDivergence (losses.py:90-109); its 'sum'
+    mode raises NotImplementedError, as the reference does."""
+
+    def __init__(self, mode="mean", eps: float = _EPS, upscaling_mode="nn",
+                 stop_gradient: bool = False, divergence="KLD"):
+        if mode not in ("mean", "sum"):
+            raise ValueError(f"mode {mode} is not exists/implemented.")
+        if mode == "sum":
+            raise NotImplementedError("Not implemented yet.")
+        self.mode = mode
+        self.eps = eps
+        self.stop_gradient = stop_gradient
+        self.divergence = divergence
+
+    def __call__(self, attentions, weights=None):
+        return interlayer_divergence(attentions, weights=weights, mode=self.mode, eps=self.eps,
+                                     stop_gradient=self.stop_gradient,
+                                     divergence=self.divergence)
+
+
+class CELoss:
+    def __init__(self, weight):
+        self.weight = torch.as_tensor(weight)
+
+    def __call__(self, y_pred, y_true):
+        return ce_loss(y_pred, y_true, self.weight.to(y_pred.device))

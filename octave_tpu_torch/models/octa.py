@@ -23,7 +23,6 @@ from octave_tpu_torch.losses.gan import ls_discriminator_loss, ls_generator_loss
 from octave_tpu_torch.losses.segmentor import dice_loss, weighted_partial_ce
 from octave_tpu_torch.models.discriminator import DiscriminatorBlock
 from octave_tpu_torch.models.segmentor import ResnestUNet
-from octave_tpu_torch.serve import resolve_device
 
 
 def _shape_chw(shape: Sequence[int]) -> Tuple[int, int, int]:
@@ -45,6 +44,8 @@ class OctaScribbleNet(nn.Module):
                  segmentor_gating_level: int = 4, discriminator_depth: int = 4,
                  encoder_gating: bool = False, weakly_supervise: bool = True,
                  device: str | torch.device = "cuda"):
+        from octave_tpu_torch.serve import resolve_device  # serve imports this package
+
         super().__init__()
         device = resolve_device(device)
         self.raw_input_shape = tuple(raw_input_shape)

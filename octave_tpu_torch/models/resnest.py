@@ -6,13 +6,17 @@ so a reference state dict loads with `load_state_dict`; activations run
 channels_last. Counterparts:
   * SplAtConv2d     octave_tpu/models/resnest.py:361-451
   * Bottleneck      :478-566
+  * BasicBlock      :454-476
+  * ResNeStConfig   :570-588
   * ResNeSt         :589-741, resnest50 :744-758
   * ResNestDecoder  :761-855
   * Upsampling      :858-884
+  * BuildResNet     :887-912
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -97,14 +101,46 @@ class Bottleneck(nn.Module):
         return F.relu(out + residual)
 
 
-class ResNeSt(nn.Module):
-    """ResNeSt backbone with the deep stem (three 3x3 convs of width 32, 32,
-    64, then BN and ReLU as `bn1`/`relu`), the stem's MaxPool2d(3, 2, 1),
-    and four stages `layer1..4` of Bottlenecks. The segmentor taps the
-    stages; `forward` returns the last one."""
+@dataclasses.dataclass(frozen=True)
+class ResNeStConfig:
+    """The ResNet constructor's arguments (the JAX package's ResNeStConfig,
+    octave_tpu/models/resnest.py:570-588). The port builds resnest50's
+    block: `layers`, `stem_width` and `num_classes` (the classifier the
+    segmentor does not use) may vary; the other fields must keep these
+    values."""
 
-    def __init__(self, layers=(3, 4, 6, 3), stem_width: int = 32):
+    layers: Tuple[int, ...] = (3, 4, 6, 3)
+    radix: int = 2
+    groups: int = 1
+    bottleneck_width: int = 64
+    num_classes: int = 1000
+    deep_stem: bool = True
+    stem_width: int = 32
+    avg_down: bool = True
+    avd: bool = True
+    avd_first: bool = False
+    final_drop: float = 0.0
+    dilated: bool = False
+    dilation: int = 1
+
+
+_FIXED = {f.name: f.default for f in dataclasses.fields(ResNeStConfig)
+          if f.name not in ("layers", "stem_width", "num_classes")}
+
+
+class ResNeSt(nn.Module):
+    """ResNeSt backbone with the deep stem (three 3x3 convs of width
+    stem_width, stem_width, 2 stem_width, then BN and ReLU as `bn1`/`relu`),
+    the stem's MaxPool2d(3, 2, 1), and four stages `layer1..4` of
+    Bottlenecks. The segmentor taps the stages; `forward` returns the last
+    one."""
+
+    def __init__(self, config: ResNeStConfig = ResNeStConfig()):
         super().__init__()
+        other = {k: getattr(config, k) for k, v in _FIXED.items() if getattr(config, k) != v}
+        if other:
+            raise NotImplementedError(f"the port builds resnest50's blocks only; {other} differ")
+        stem_width = config.stem_width
         self.conv1 = nn.Sequential(
             nn.Conv2d(3, stem_width, 3, 2, 1, bias=False), BatchNorm2d(stem_width),
             nn.ReLU(inplace=True),
@@ -115,7 +151,7 @@ class ResNeSt(nn.Module):
         self.bn1 = BatchNorm2d(stem_width * 2)
         self.relu = nn.ReLU(inplace=True)
         inplanes = stem_width * 2
-        for li, (planes, blocks) in enumerate(zip((64, 128, 256, 512), layers)):
+        for li, (planes, blocks) in enumerate(zip((64, 128, 256, 512), config.layers)):
             stride = 1 if li == 0 else 2
             stage = [Bottleneck(inplanes, planes, stride, has_downsample=True)]
             stage += [Bottleneck(planes * 4, planes) for _ in range(blocks - 1)]
@@ -132,7 +168,57 @@ def resnest50() -> ResNeSt:
     """The resnest50 configuration: layers (3, 4, 6, 3), radix 2,
     cardinality 1, bottleneck width 64, deep stem of width 32, avd and
     avg_down."""
-    return ResNeSt((3, 4, 6, 3), stem_width=32)
+    return ResNeSt(ResNeStConfig())
+
+
+class BasicBlock(nn.Module):
+    """CE-Net's basic residual block (the reference's resnest.py:142-167):
+    3x3 conv (strided), BN, ReLU, 3x3 conv, BN, plus the shortcut (a strided
+    1x1 conv and BN when `has_downsample`), joined by ReLU(sum)."""
+
+    expansion = 1
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 has_downsample: bool = False):
+        super().__init__()
+        self.conv1 = nn.Conv2d(inplanes, planes, 3, stride, 1, bias=False)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.bn2 = BatchNorm2d(planes)
+        self.downsample: Optional[nn.Sequential] = None
+        if has_downsample:
+            self.downsample = nn.Sequential(nn.Conv2d(inplanes, planes, 1, stride, bias=False),
+                                            BatchNorm2d(planes))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.bn2(self.conv2(F.relu(self.bn1(self.conv1(x)))))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(out + residual)
+
+
+class BuildResNet(nn.Module):
+    """CE-Net's ResNet factory (the reference's resnest.py:462-511): a 7x7
+    stride-2 conv, BN, ReLU, MaxPool2d(3, 2, 1) and four stages
+    `layer1..4` of BasicBlocks of widths 64, 128, 256, 512; `forward` takes
+    NCHW and returns the layer4 map."""
+
+    def __init__(self, layers=(3, 4, 6, 3)):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.bn1 = BatchNorm2d(64)
+        inplanes = 64
+        for li, (planes, blocks) in enumerate(zip((64, 128, 256, 512), layers)):
+            stage = []
+            for bi in range(blocks):
+                s = (1 if li == 0 else 2) if bi == 0 else 1
+                stage.append(BasicBlock(inplanes, planes, s,
+                                        has_downsample=bi == 0 and (s != 1 or inplanes != planes)))
+                inplanes = planes
+            setattr(self, f"layer{li + 1}", nn.Sequential(*stage))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = max_pool2d(F.relu(self.bn1(self.conv1(x))), 3, 2, 1)
+        return self.layer4(self.layer3(self.layer2(self.layer1(x))))
 
 
 class ResNestDecoder(nn.Module):
@@ -151,23 +237,43 @@ class ResNestDecoder(nn.Module):
         self.downsample = nn.Sequential(
             nn.Conv2d(in_channels, out_channels, 1, bias=False), BatchNorm2d(out_channels))
 
-    def forward(self, x: torch.Tensor, gate: Optional[nn.Conv2d] = None):
-        """x: (B, in, H, W), the concat of skip and upsampled maps.
+    def int8_inputs(self, x) -> dict:
+        """Calibration (ops/quant.py): the skip and upsampled halves of a
+        pair input, under the scale keys of the two convs that read them."""
+        if not isinstance(x, tuple):
+            return {}
+        return {f"{conv}:{half}": t for conv in ("conv.0", "downsample.0")
+                for half, t in zip("ab", x)}
+
+    def _inputs(self, x):
+        """(input of conv.0, input of downsample.0). A (skip, up) pair goes
+        as it is to an int8 conv that takes pairs, and as the concat to any
+        other."""
+        if not isinstance(x, tuple):
+            return x, x
+        pair = [getattr(s[0], "takes_pair", False) for s in (self.conv, self.downsample)]
+        cat = None if all(pair) else torch.cat(x, dim=1)
+        return tuple(x if p else cat for p in pair)
+
+    def forward(self, x, gate: Optional[nn.Conv2d] = None):
+        """x: (B, in, H, W), the concat of skip and upsampled maps, or the
+        (skip, up) pair.
 
         With `gate` (the following attention gate's 1x1 conv) in eval mode,
         the block's tail — radix apply, inner ReLU, shortcut BN, residual,
         outer ReLU and the gate itself — runs as one fused epilogue and the
         call returns (gated (B,C,H,W), y_hat (B,H,W,K)) instead of the block
         output."""
+        xc, xd = self._inputs(x)
         if gate is None or self.training:
-            return F.relu(self.conv(x) + self.downsample(x))
+            return F.relu(self.conv(xc) + self.downsample(xd))
         conv, bn, _, splat, _ = self.conv
-        z, attn = splat(F.relu(bn(conv(x))), return_parts=True)
+        z, attn = splat(F.relu(bn(conv(xc))), return_parts=True)
         res_conv, res_bn = self.downsample
         rs, rb = res_bn.eval_affine()
         k = gate.out_channels
         out, yhat = fused_decoder_epilogue(
-            nhwc(z), attn, nhwc(res_conv(x)), rs, rb,
+            nhwc(z), attn, nhwc(res_conv(xd)), rs, rb,
             gate.weight.view(k, -1).t(), gate.bias)
         return nchw(out), yhat
 
@@ -179,5 +285,12 @@ class Upsampling(nn.Module):
         super().__init__()
         self.up = nn.ConvTranspose2d(in_channels, out_channels, 2, 2)
 
+    def int8_inputs(self, x) -> dict:
+        """Calibration (ops/quant.py): the input of `up`, which forward does
+        not call while it is a ConvTranspose2d."""
+        return {"up": x}
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_transpose_2x2(x, self.up.weight, self.up.bias)
+        if isinstance(self.up, nn.ConvTranspose2d):
+            return conv_transpose_2x2(x, self.up.weight, self.up.bias)
+        return self.up(x)  # its int8 stand-in

@@ -93,10 +93,11 @@ def apply_prediction_method(agg_map: torch.Tensor, method: str, dim: int = -1) -
 def decoder_stage(decoder: ResNestDecoder, aag: AdversarialAttentionGate, skip, up,
                   gated: bool, fuse: bool, sink: List[torch.Tensor]) -> torch.Tensor:
     """One decoder depth of every gated variant: the decoder block on the
-    skip concat (`skip` None: no skip), then, when gated, the attention gate,
-    whose y_hat goes to `sink`. With `fuse` (eval only) a gated depth runs the
+    (skip, up) pair, which it concatenates unless its first convs are int8
+    (`skip` None: no skip), then, when gated, the attention gate, whose
+    y_hat goes to `sink`. With `fuse` (eval only) a gated depth runs the
     decoder's tail and the gate as one fused epilogue kernel."""
-    inp = up if skip is None else torch.cat([skip, up], dim=1)
+    inp = up if skip is None else (skip, up)
     if not gated:
         return decoder(inp)
     if fuse:

@@ -10,10 +10,13 @@ two extra modes:
     it (a model built for data parallelism, at any world size), the batch
     statistics are those of the global batch, by the JAX formula
     (octave_tpu/ops/norm.py:123-138): the per-channel mean and mean of
-    squares accumulated in at least float32 (a bf16 input is read as it
-    is, never copied to float32), summed over ranks and divided by the world
-    size (equal shards), var = max(mean2 - mean^2, 0), and the running
-    variance unbiased by the global count. Its backward is batch norm's
+    squares accumulated in float64 (the input is read as it is, never
+    copied), summed over ranks and divided by the world size (equal
+    shards), var = max(mean2 - mean^2, 0), and the running variance
+    unbiased by the global count. In float32 sums, mean2 - mean^2 cancels:
+    at 32² after two steps the losses of 2 ranks drifted 1.4e-4 relative
+    from one device's (torch's two-pass statistics); float64 sums hold them
+    within 1e-5 (tests/test_torch_parallel.py). Its backward is batch norm's
     analytic gradient over the global batch, whose two per-channel sums are
     all-reduced: what autograd through the formula and a differentiable
     all-reduce computes, in about half the full-size passes.
@@ -62,17 +65,17 @@ _CHANNEL = (1, -1, 1, 1)
 class _SyncBatchNorm(torch.autograd.Function):
     """Training batch norm of an NCHW shard over the global batch of every
     rank: (x, weight, bias, eps) -> (y, batch mean, biased batch var), the
-    last two without gradient. Per-channel sums accumulate in
-    promote(x.dtype, float32); full-size passes run in x's dtype."""
+    last two without gradient. Per-channel sums accumulate in float64;
+    full-size passes run in x's dtype."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
-        acc = torch.promote_types(x.dtype, torch.float32)
+        acc = torch.float64
         n = x.numel() // x.shape[1]
         world = ddp.world()
         if x.dtype == acc:
             mean2 = (x * x).mean(_DIMS)
-        else:  # bf16: each square is exact in float32, and the norm reads x as it is
+        else:  # the norm reads x as it is: each square is formed in float64
             mean2 = torch.linalg.vector_norm(x, 2, _DIMS, dtype=acc).square_().div_(n)
         stats = torch.stack([x.mean(_DIMS, dtype=acc), mean2])
         if world > 1:
@@ -85,6 +88,7 @@ class _SyncBatchNorm(torch.autograd.Function):
         y = torch.addcmul(shift.to(x.dtype).view(_CHANNEL), x, scale.to(x.dtype).view(_CHANNEL))
         ctx.save_for_backward(x, mean, invstd, scale)
         ctx.n_global = n * world
+        ctx.weight_dtype = weight.dtype
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
@@ -104,7 +108,8 @@ class _SyncBatchNorm(torch.autograd.Function):
         dt = x.dtype
         dx = torch.addcmul(torch.addcmul(c.to(dt).view(_CHANNEL), gy, scale.to(dt).view(_CHANNEL)),
                            x, b.to(dt).view(_CHANNEL))
-        return dx, sums[1] * invstd, sums[0], None
+        wdt = ctx.weight_dtype
+        return dx, (sums[1] * invstd).to(wdt), sums[0].to(wdt), None
 
 
 class BatchNorm2d(nn.BatchNorm2d):

@@ -24,16 +24,18 @@ finished, so the caching allocator cannot hand its block to a later forward.
 from __future__ import annotations
 
 import queue
+import re
 import threading
 import time
 from collections import deque
 from concurrent.futures import Future
-from typing import Any, Iterable, Iterator, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, Iterator, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from octave_tpu_torch.models.segmentor import ResnestUNet
+from octave_tpu_torch.ops import quant
 from octave_tpu_torch.ops.norm import fold_batch_stats, folded_inference
 from octave_tpu_torch.utils.convert import load_reference_state_dict
 
@@ -49,6 +51,20 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return device
 
 
+# the convs each int8_scope quantises, by the port's scale keys (ops/quant.py)
+# and as `octave_tpu/serve.py::Predictor._calibrate` selects them: the
+# backbone is the stem (`encoder_0_1_2`) and `encoder_1..4`, and `dense`
+# leaves out each Bottleneck's SplAt `conv2` subtree
+_BACKBONE = re.compile(r"encoder_(0_1_2|[1-4])\.")
+INT8_SCOPES = {
+    "all": lambda k: True,
+    "dense": lambda k: k.startswith("decoder_")
+    or (_BACKBONE.match(k) is not None and ".conv2." not in k),
+    "decoder+ups": lambda k: k.startswith(("decoder_", "upsampling_")),
+    "decoder": lambda k: k.startswith("decoder_"),
+}
+
+
 class Predictor:
     """Batched OCTA vessel predictor around ResnestUNet.predict."""
 
@@ -62,12 +78,30 @@ class Predictor:
         fold_bn: bool = True,
         output_format: str = "prob_f32",
         device: str | torch.device = "cuda",
+        int8_decoder: bool = False,
+        calibration_batches: Optional[Iterable[np.ndarray]] = None,
+        int8_scope: str = "decoder",
+        int8_prepack: bool = True,
     ):
         """state_dict: reference-named weights with raw BN stats (e.g. from
         `utils.convert.from_jax_variables`). fold_bn folds the stats in
         float32 before the cast to `dtype`, as the JAX Predictor does.
         use_fused_decoder=False runs the AAG kernel after each plain decoder
-        block instead of the fused decoder epilogue."""
+        block instead of the fused decoder epilogue.
+
+        int8_decoder: post-training int8 quantisation (ops/quant.py) of the
+        convs `int8_scope` selects ('decoder' | 'decoder+ups' | 'dense' |
+        'all', see INT8_SCOPES), with static activation scales from running
+        `calibration_batches` (input batches as `__call__` takes them) through
+        this predictor's folded, cast eval graph; the weights are quantised
+        from the folded, cast ones, once (`int8_prepack`) or on every call."""
+        # cheap argument checks first, before any model build or BN fold
+        if int8_decoder and calibration_batches is None:
+            raise ValueError("int8_decoder=True requires calibration_batches "
+                             "(a few representative input batches)")
+        if int8_decoder and int8_scope not in INT8_SCOPES:
+            raise ValueError(f"unknown int8_scope {int8_scope!r}; expected one of "
+                             f"{sorted(INT8_SCOPES)}")
         if output_format not in OUTPUT_FORMATS:
             raise ValueError(f"output_format must be one of {OUTPUT_FORMATS}; "
                              f"got {output_format!r}")
@@ -85,6 +119,13 @@ class Predictor:
         self.model = model.to(self.device, dtype).to(memory_format=torch.channels_last).eval()
         self._copy_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
                              else None)
+        self.int8_scales: Optional[Dict[str, float]] = None
+        if int8_decoder:
+            with torch.inference_mode():
+                stats = quant.calibrate(self.model, calibration_batches,
+                                        lambda batch: self._forward(self._put(batch)))
+            self.int8_scales = quant.scales_from_stats(stats, INT8_SCOPES[int8_scope])
+            quant.quantize_(self.model, self.int8_scales, prepack=int8_prepack)
 
     def _forward(self, batch: torch.Tensor) -> torch.Tensor:
         """Device forward of one (B,H,W,3) batch already on the device."""

@@ -285,8 +285,9 @@ class Trainer:
                 if lead:
                     log.info("resumed from step %d", state.step)
 
+        # a resumed run goes on with the batch an uninterrupted one takes next
         it = ds.batch_iterator(build_dataset(cfg, "train"), cfg.data.batch_size,
-                               seed=cfg.train.seed)
+                               seed=cfg.train.seed, start=state.step)
         # the augmentation draws of step s come from a generator seeded with
         # (train.seed + 7919, s): a resumed run draws what an uninterrupted
         # one would. They are drawn for the global batch on every rank.

@@ -132,21 +132,9 @@ class _Inverter:
         self.bn(_j(tkey, "downsample.1"), fpath + ("downsample_bn",))
 
 
-def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """{"params", "batch_stats"} of octave_tpu's ResnestUNet (with encoder
-    gates and heads or without), ResnestUnetParallelHead,
-    ResnestUnetParallelHeadAttentionGate, or of a propagation block
-    (BasePC / BaseC / BaseMulti), as nested dicts of arrays -> the
-    reference-named torch state dict. Every leaf must map."""
-    inv = _Inverter(variables)
-    if "base" in variables["params"]:
-        inv.conv("base.conv1", ("base", "conv1", "conv"))
-        inv.bn("base.bn1", ("base", "bn1"))
-        inv.conv("base.conv4", ("base", "conv4", "conv"))
-        inv.bn("base.bn4", ("base", "bn4"))
-        inv.conv("base.conv7", ("base", "conv7", "conv"))
-        inv.bn("base.bn7", ("base", "bn7"))
-        return inv.finish()
+def _walk_segmentor(inv: _Inverter) -> None:
+    """The segmentor family's table: every module of the JAX tree that `inv`
+    says is there, handed to `inv` under its reference name."""
     bb = ("backbone",)
     inv.conv("encoder_0_1_2.0.0", bb + ("stem_conv1", "conv"))
     inv.bn("encoder_0_1_2.0.1", bb + ("stem_bn1",))
@@ -183,6 +171,102 @@ def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         inv.conv("linear_head_dec.4", ("head_dec_conv2", "conv"))
         inv.bn("linear_head_dec.6", ("head_dec_bn2",))
         inv.dense("linear_head_dec.8", ("linear_head_dec",))
+
+
+def from_jax_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """{"params", "batch_stats"} of octave_tpu's ResnestUNet (with encoder
+    gates and heads or without), ResnestUnetParallelHead,
+    ResnestUnetParallelHeadAttentionGate, or of a propagation block
+    (BasePC / BaseC / BaseMulti), as nested dicts of arrays -> the
+    reference-named torch state dict. Every leaf must map."""
+    inv = _Inverter(variables)
+    if "base" in variables["params"]:
+        inv.conv("base.conv1", ("base", "conv1", "conv"))
+        inv.bn("base.bn1", ("base", "bn1"))
+        inv.conv("base.conv4", ("base", "conv4", "conv"))
+        inv.bn("base.bn4", ("base", "bn4"))
+        inv.conv("base.conv7", ("base", "conv7", "conv"))
+        inv.bn("base.bn7", ("base", "bn7"))
+        return inv.finish()
+    _walk_segmentor(inv)
+    return inv.finish()
+
+
+class _ConvNames(_Inverter):
+    """Walks the segmentor's table without a tree: notes the reference name
+    of every conv path the family can have (resnest50's blocks, the dual
+    decoders' `_c` branch, the gates and heads)."""
+
+    def __init__(self):
+        from octave_tpu_torch.models.resnest import ResNeStConfig
+
+        self.blocks = ResNeStConfig().layers
+        self.sd, self.used, self.names = {}, set(), {}
+
+    def has(self, col: str, path: Path) -> bool:
+        if path[0] == "backbone" and path[1].startswith("layer"):
+            layer, block = map(int, path[1][len("layer"):].split("_"))
+            return block < self.blocks[layer - 1]
+        return True
+
+    def _take(self, path: Path):
+        return None
+
+    def conv(self, tkey: str, fpath: Path):
+        self.names[fpath] = tkey
+
+    conv_transpose = conv
+
+    def dense(self, tkey: str, fpath: Path):
+        pass  # a Dense records no int8 scale
+
+
+def scales_from_jax(scales: Mapping[str, float]) -> Dict[str, float]:
+    """The JAX package's int8 activation scales ({"decoder_3/conv1_a_absmax":
+    s, "decoder_3/splat/conv/in_absmax": s, "upsampling_2/in_absmax": s,
+    "backbone/stem_conv2/in_absmax": s, ...}, floats) of a segmentor -> the
+    port's keys (ops/quant.py): `decoder_3.conv.0:a`, `decoder_3.conv.3.conv`,
+    `upsampling_2.up`, `encoder_0_1_2.0.3`. Every key must map."""
+    names = _ConvNames()
+    _walk_segmentor(names)
+    out = {}
+    for key, v in scales.items():
+        mod, leaf = key.rsplit("/", 1)
+        parts = tuple(mod.split("/"))
+        if leaf == "in_absmax":
+            fpath, half = parts + ("conv",), ""
+            if fpath not in names.names:
+                fpath = parts  # an Upsampling's own kernel
+        elif leaf.endswith(("_a_absmax", "_b_absmax")):
+            fpath, half = parts + (leaf[: -len("_a_absmax")], "conv"), ":" + leaf[-len("a_absmax")]
+        else:
+            fpath, half = None, ""
+        if fpath not in names.names:
+            raise KeyError(f"no module of the port takes the JAX scale {key!r}")
+        out[names.names[fpath] + half] = float(v)
+    return out
+
+
+def from_jax_build_resnet(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """{"params", "batch_stats"} of octave_tpu's BuildResNet (CE-Net's ResNet
+    of BasicBlocks) -> the state dict of `models.resnest.BuildResNet`: the
+    stem `conv1`/`bn1`, then `layer{l}.{b}.conv1/bn1/conv2/bn2` and, where
+    a block has it, `downsample.0/.1` from `layer{l}_{b}`'s
+    downsample_conv / downsample_bn. Every leaf must map."""
+    inv = _Inverter(variables)
+    inv.conv("conv1", ("conv1", "conv"))
+    inv.bn("bn1", ("bn1",))
+    for layer in range(1, 5):
+        block = 0
+        while inv.has("params", (f"layer{layer}_{block}", "conv1", "conv", "kernel")):
+            tkey, fpath = f"layer{layer}.{block}", (f"layer{layer}_{block}",)
+            for name in ("1", "2"):
+                inv.conv(f"{tkey}.conv{name}", fpath + (f"conv{name}", "conv"))
+                inv.bn(f"{tkey}.bn{name}", fpath + (f"bn{name}",))
+            if inv.has("params", fpath + ("downsample_conv", "conv", "kernel")):
+                inv.conv(f"{tkey}.downsample.0", fpath + ("downsample_conv", "conv"))
+                inv.bn(f"{tkey}.downsample.1", fpath + ("downsample_bn",))
+            block += 1
     return inv.finish()
 
 

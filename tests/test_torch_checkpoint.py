@@ -203,6 +203,21 @@ def test_fit_resumes_at_the_saved_step(tmp_path, caplog):
     _assert_states_equal(again, second)
 
 
+def test_resumed_fit_equals_the_uninterrupted_fit(tmp_path):
+    """7 phantoms in batches of 4: one batch per epoch, each from that
+    epoch's permutation. `fit` to 2 steps, then a resume to 4, equals `fit`
+    to 4 bit for bit: the resumed steps 3 and 4 take the batches of epochs 2
+    and 3, as the uninterrupted run does."""
+    data = {"data.synthetic_n": "7", "data.batch_size": "4", "train.steps": "4"}
+    whole = _trainer(**data).fit()
+    over = {**data, "train.checkpoint_dir": str(tmp_path / "ckpt"),
+            "train.checkpoint_every": "2"}
+    assert _trainer(**{**over, "train.steps": "2"}).fit().step == 2
+    resumed = _trainer(**over).fit()
+    assert resumed.step == 4
+    _assert_states_equal(resumed, whole)
+
+
 def test_sigterm_saves_and_stops(tmp_path):
     tr = _trainer(**{"train.checkpoint_dir": str(tmp_path), "train.steps": "5",
                      "train.checkpoint_every": "0"})

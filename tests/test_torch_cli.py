@@ -17,6 +17,7 @@ from goldens import fill_state_dict
 from port_fixtures import few_torch_threads  # noqa: F401  (autouse, module scope)
 from octave_tpu_torch.cli import main
 from octave_tpu_torch.models.resnest import resnest50
+from octave_tpu_torch.ops.quant import int8_mm
 from octave_tpu_torch.serve import Predictor
 from octave_tpu_torch.train.trainer import Trainer
 from octave_tpu_torch.utils.checkpoint import CheckpointManager, load_pytree
@@ -102,8 +103,19 @@ def test_predict_directory(checkpoint, tmp_path, rng):
              "--config", SMOKE, "--device", "cpu", *SMALL]
     assert main(fresh) == 0
     assert len(os.listdir(tmp_path / "out2")) == 6
-    with pytest.raises(SystemExit, match="ROADMAP A.6"):
-        main([*args, "--int8"])
+    # --int8: the decoder in int8, calibrated on the command's first batch
+    int8_dir = tmp_path / "out_int8"
+    int8_mm.launches = 0
+    assert main([*args[:4], str(int8_dir), *args[5:], "--checkpoint", checkpoint, "--int8"]) == 0
+    assert int8_mm.launches == 2 * 33  # two batches, 33 int8 GEMMs in the decoder
+    direct8 = Predictor(state.segmentor.state_dict(), device="cpu", int8_decoder=True,
+                        calibration_batches=[np.concatenate(xs[:2])])
+    want8 = np.concatenate([direct8(np.concatenate(xs[:2])), direct8(xs[2])])[..., 1]
+    for i in range(3):
+        p = np.load(int8_dir / f"im{i}_prob.npy")
+        np.testing.assert_array_equal(p, want8[i])
+        np.testing.assert_array_equal(read_image(str(int8_dir / f"im{i}_mask.png")),
+                                      np.where(want8[i] >= 0.5, 255, 0))
     (tmp_path / "empty").mkdir()
     with pytest.raises(SystemExit, match="no images found"):
         main(["predict", "--images", str(tmp_path / "empty"), "--out", str(out_dir),

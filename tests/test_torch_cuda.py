@@ -1,6 +1,7 @@
-"""The port's Triton kernels against their plain PyTorch versions, its
-deployment path (augmentation, checkpoints, the pipelined server) and the
-gated dual decoders with their two critics, on a GPU.
+"""The port's Triton kernels against their plain PyTorch versions, its int8
+convs against the CPU's, its deployment path (augmentation, checkpoints,
+the pipelined server, the int8 Predictor) and the gated dual decoders with
+their two critics, on a GPU.
 
 Every case skips without CUDA. The file imports neither JAX nor the JAX
 package, so on a GPU host without JAX it runs on its own:
@@ -382,3 +383,91 @@ def test_world_one_nccl_step_equals_one_device(cuda):
     finally:
         torch.distributed.destroy_process_group()
         torch.backends.cudnn.allow_tf32 = tf32
+
+
+# (C_in, C_out, kernel, stride, padding, groups, B, H = W): the decoder's
+# shapes and the ones CUDA's _int_mm takes only padded: a SplAt fc on
+# (B, C, 1, 1) at B <= 16, the stem's C_in = 3 (K = 27), the final fc's
+# N = 2
+INT8_CONVS = [(64, 32, 3, 1, 1, 1, 2, 38), (32, 64, 3, 1, 1, 4, 2, 19),
+              (32, 64, 1, 1, 0, 2, 1, 1), (32, 64, 1, 1, 0, 2, 8, 1),
+              (3, 32, 3, 2, 1, 1, 2, 20), (32, 2, 1, 1, 0, 1, 2, 16)]
+
+
+@pytest.mark.parametrize("case", INT8_CONVS, ids=lambda c: "x".join(map(str, c)))
+def test_int8_conv_on_card_equals_cpu(cuda, gen, case):
+    """The int8 conv on the card (cuBLASLt's int8 GEMM) equals the CPU's,
+    bit for bit, in bf16: the same quantisation, exact int32 products."""
+    from octave_tpu_torch.ops import quant
+
+    ci, co, k, s, p, g, b, hw = case
+    x = _t(gen.standard_normal((b, hw, hw, ci)).astype(np.float32), "cpu", torch.bfloat16)
+    x = x.permute(0, 3, 1, 2)
+    w = _t((gen.standard_normal((co, ci // g, k, k)) * 0.1).astype(np.float32), "cpu",
+           torch.bfloat16)
+    bias = _t(gen.standard_normal(co).astype(np.float32), "cpu", torch.bfloat16)
+    sx = float(x.float().abs().max()) / 127
+    want = quant.int8_conv(x, w, bias, sx, s, p, 1, g)
+    calls = quant.int8_mm.launches
+    got = quant.int8_conv(x.to(cuda), w.to(cuda), bias.to(cuda), sx, s, p, 1, g)
+    assert quant.int8_mm.launches == calls + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_int8_pair_and_transpose_on_card_equal_cpu(cuda, gen):
+    from octave_tpu_torch.ops import quant
+
+    a, b = (_t(gen.standard_normal((2, 16, 19, 19)).astype(np.float32), "cpu", torch.bfloat16)
+            for _ in range(2))
+    conv = torch.nn.Conv2d(32, 24, 3, padding=1, bias=False).to(torch.bfloat16)
+    up = torch.nn.ConvTranspose2d(16, 8, 2, 2).to(torch.bfloat16)
+    for prepack in (True, False):
+        q = quant.Int8Conv(conv, (0.03, 0.02), prepack)
+        want = q((a, b))
+        assert torch.equal(q.to(cuda)((a.to(cuda), b.to(cuda))).cpu(), want)
+    q = quant.Int8Conv(up, 0.03)
+    want = q(a)
+    assert torch.equal(q.to(cuda)(a.to(cuda)).cpu(), want)
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_int8_predictor_on_card(cuda, batch):
+    """The int8 Predictor (scope decoder: the SplAt fcs at M = B) on the
+    committed trained weights at 304², float32 with TF32 off, calibrated on
+    other phantoms than the requests: five epilogue launches, one int8 GEMM
+    a scale, masks as the card's float32 Predictor's on >= 0.99 of pixels
+    (the JAX package's gate) and as the CPU's int8 Predictor's on >= 0.99.
+    (At 64², off the resolution the weights were trained at, the CPU's own
+    int8 masks agree with its float masks on only ~0.90 of pixels, and a
+    float32 rounding anywhere upstream flips int8 roundings downstream.)"""
+    import os
+
+    from chip_smoke import phantoms
+    from octave_tpu_torch.ops import quant
+    from octave_tpu_torch.ops.kernels import launch_counts
+    from octave_tpu_torch.serve import Predictor
+    from octave_tpu_torch.utils.checkpoint import load_weights_npz
+    from octave_tpu_torch.utils.convert import from_jax_variables
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sd = from_jax_variables(load_weights_npz(os.path.join(root, "benchmarks", "weights304.npz")))
+    calib, images = phantoms(batch, 304, seed=31), phantoms(batch, 304, seed=11)
+    kw = dict(dtype=torch.float32)
+    int8 = dict(int8_decoder=True, calibration_batches=[calib], **kw)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        card = Predictor(sd, device=cuda, **int8)
+        launch_counts(reset=True)
+        quant.int8_mm.launches = 0
+        got = card(images)
+        torch.cuda.synchronize()
+        assert launch_counts()["decoder_epilogue"] == 5
+        assert quant.int8_mm.launches == len(card.int8_scales) == 33
+        plain = Predictor(sd, device=cuda, **kw)(images)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    cpu = Predictor(sd, device="cpu", **int8)(images)
+    assert got.shape == cpu.shape == (batch, 304, 304, 2) and np.isfinite(got).all()
+    for want in (plain, cpu):
+        assert float((got.argmax(-1) == want.argmax(-1)).mean()) >= 0.99

@@ -186,3 +186,35 @@ def test_trainer_eval_through_octa500(tmp_path):
     tr = Trainer(cfg, device="cpu")
     m = tr.evaluate(tr.init_state())
     assert np.isfinite(list(m.values())).all()
+
+
+class _Counted:
+    """A dataset of integers that records which samples were loaded."""
+
+    def __init__(self, n):
+        self.n, self.loaded = n, []
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        self.loaded.append(i)
+        v = np.full((1,), i, np.int64)
+        return tds.Sample(v, v, v)
+
+
+@pytest.mark.parametrize("n,batch_size,shuffle,drop_last",
+                         [(7, 4, True, True), (10, 3, True, True), (10, 3, True, False),
+                          (10, 3, False, True)])
+def test_batch_iterator_start_yields_the_uninterrupted_tail(n, batch_size, shuffle, drop_last):
+    """batch_iterator(start=k) yields batches k, k + 1, ... of the iterator
+    that starts at 0, across epoch boundaries, and loads no skipped sample."""
+    kw = dict(shuffle=shuffle, seed=4, drop_last=drop_last, epochs=5)
+    whole = [b["image"] for b in tds.batch_iterator(_Counted(n), batch_size, **kw)]
+    for start in range(len(whole) + 1):
+        data = _Counted(n)
+        tail = [b["image"] for b in tds.batch_iterator(data, batch_size, start=start, **kw)]
+        assert len(tail) == len(whole) - start
+        for got, want in zip(tail, whole[start:]):
+            np.testing.assert_array_equal(got, want)
+        assert len(data.loaded) == sum(len(b) for b in tail)

@@ -515,7 +515,10 @@ def test_evaluate_ragged_tail_equals_one_device(runs):
 def test_checkpoints_cross_between_one_device_and_two_ranks(runs, tmp_path, src):
     """A 2-rank checkpoint restores bit for bit into a 1-device state, and
     either kind resumes on 1 device and on 2 ranks: step 3 from the same
-    checkpoint agrees within the data-parallel bounds."""
+    checkpoint agrees within the data-parallel bounds. A resume goes on
+    with the batch order of an uninterrupted run: from the 1-device
+    checkpoint, 1-device step 3 is the uninterrupted 3-step run's step 3,
+    exactly, and 2 ranks agree with that run within the bounds."""
     work, _, res = runs
     cfg = _trainer_cfg(**{"train.steps": "3", "train.log_dir": str(tmp_path / "log")})
     trainer = Trainer(cfg, device="cpu")
@@ -530,6 +533,15 @@ def test_checkpoints_cross_between_one_device_and_two_ranks(runs, tmp_path, src)
     assert step0 == step1 == 3 and one["step"] == two["step"] == 3
     for k in LOSSES:
         assert abs(one[f"train/{k}"] - two[f"train/{k}"]) <= LOSS_RTOL * abs(two[f"train/{k}"]), k
+    if src == "single":
+        Trainer(_trainer_cfg(**{"train.steps": "3", "train.log_dir": str(tmp_path / "whole")}),
+                device="cpu").fit()
+        whole = _losses(tmp_path / "whole")[-1]
+        assert whole["step"] == 3
+        for k in LOSSES:
+            assert one[f"train/{k}"] == whole[f"train/{k}"], k
+            assert abs(two[f"train/{k}"] - whole[f"train/{k}"]) <= (
+                LOSS_RTOL * abs(whole[f"train/{k}"])), k
 
 
 def test_sigterm_on_one_rank_stops_every_rank_at_one_step(runs):

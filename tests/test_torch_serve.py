@@ -150,6 +150,18 @@ class TestBatchServer:
             assert out.shape == HW and out.dtype == np.uint8
             np.testing.assert_array_equal(out, mask_pred(np.stack([img, img]))[0])
 
+    def test_int8_predictor_serves_unchanged(self, rng):
+        """The server over an int8 Predictor (its convs swapped, its scales
+        static) routes, pads and returns as over the float one."""
+        calib = np.stack(_images(rng, 2))
+        int8_pred = Predictor.initialize(image_hw=HW, dtype=torch.float32, device="cpu",
+                                         int8_decoder=True, calibration_batches=[calib])
+        imgs = _images(rng, 5)
+        with _server(int8_pred, pipeline_depth=3) as srv:
+            outs = list(srv.map(iter(imgs)))
+        for img, out in zip(imgs, outs):
+            np.testing.assert_allclose(out, int8_pred(np.stack([img, img]))[0], atol=1e-5)
+
 
 def test_batch_server_equals_jax_batch_server(rng):
     """Same weights (through from_jax_variables), same images, float32: the
