@@ -95,7 +95,30 @@ Phases, each printing its own lines:
                an int8 Predictor called directly (calibrated on the same first
                batch); int8 and bf16 img/s in turns, the peak memory of one
                call, the calibration time and a profile of one int8 call with
-               the device ms of its quantise, im2col and GEMM passes.
+               the device ms of its quantise, im2col and GEMM passes;
+ 10. switches - the memory and lowering switches: every grouped conv shape
+               of the 304² UNet's train forward at B = 8 through the dense
+               and einsum lowerings against cuDNN's grouped conv (forward
+               and both backwards, float32 with TF32 off and bf16, max error
+               against cuDNN float32, fwd+bwd ms); Predictor(dense_groups=
+               "decoder") and Predictor(einsum_groups="decoder+enc") beside
+               the default one at B = 32 (argmax agreement >= 0.999, 5
+               epilogue launches per call, img/s in turns); one bf16 `unet`
+               step at 304², B = 8 per remat mode (False, True, 'conv',
+               'block', 'block-enc', 'block:012', 'block:01e34',
+               'block:012+conv') from the same state and batch: AAG
+               launches (10 where the region holds the gates, else 5), BN
+               running statistics and num_batches_tracked against
+               remat=False, step ms and peak memory at B = 8 and 64; the same
+               modes in float32 (TF32 off) against remat=False beside a
+               witness one float32 rounding away (`nudge_`); the bf16 Adam
+               moment's optimizer ms and bytes against fused Adam; `cli
+               train` with steps_per_call=2, remat=block:012,
+               dense_groups=decoder:01 and the bf16 moment for 4 steps
+               (logged steps, the checkpoint cadence crossed at step 4, 25
+               AAG launches, restore equal to the checkpoint with exp_avg in
+               bf16, `cli eval --checkpoint` printing train's metrics);
+               Trainer.fit img/s at steps_per_call 1, 2 and 4 in turns.
 Exits non-zero, before printing any result, without CUDA or outside a
 checkout of the repository; any failed check
 raises. The last three lines are the kernels JSON, the card's name and power
@@ -575,6 +598,11 @@ def main() -> int:
             by_path[name].update(paths)
     finally:
         shutil.rmtree(deploy_tmp, ignore_errors=True)
+
+    # -- 10. the memory and lowering switches -------------------------------
+    torch.cuda.empty_cache()
+    for name, paths in phase_switches(torch, smi, weights, images, serve).items():
+        by_path[name].update(paths)
 
     line = {"kernels": [
         {"name": name, "route": "triton", "source": kern["source"],
@@ -2282,6 +2310,418 @@ def phase_int8(torch, smi, serve, weights, images, predict_args, deploy_tmp):
         "calibration_s": calib_s, "int8_build_s": build_s, "scales": n_sites,
         "profile_ms": {"wall": t_prof, "device_kernels": busy, "groups": groups,
                        "stages": stage_ms}}}))
+    return paths
+
+
+# switches-phase bounds. A lowering against cuDNN's grouped conv in float32
+# with TF32 off: the same sums in another order; a weight gradient sums up to
+# B*H*W = 739,328 products (decoder_0 at B = 8), and on an H100 its order
+# moved it 1.0e-4 of its largest value. In bf16 every output is rounded to
+# bf16.
+LOWERING_F32_REL = 1e-3
+LOWERING_BF16_REL = 5e-2
+# recomputing a region repeats its forward: the BN running statistics must
+# match remat=False's within float32 rounding (a second update would move
+# them by about the momentum, 0.1 of their size)
+REMAT_BN_REL = 1e-5
+# train.remat -> AAG launches in one step: the regions over the whole forward
+# run the five gates again in their recompute; the block modes leave the
+# gates out of every region
+REMAT_MODES = {False: 5, True: 10, "conv": 10, "block": 5, "block-enc": 5, "block:012": 5,
+               "block:01e34": 5, "block:012+conv": 5}
+
+
+def phase_switches(torch, smi, weights, images, serve):
+    """Phase 10: the memory and lowering switches. Returns {kernel: {path:
+    launches}} of its runs."""
+    tmp = tempfile.mkdtemp(prefix="octave_switches_")
+    try:
+        return _switches(torch, smi, weights, images, serve, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _switches(torch, smi, weights, images, serve, tmp):
+    import numpy as np
+
+    from octave_tpu_torch.data import datasets as ds
+    from octave_tpu_torch.models import resnest
+    from octave_tpu_torch.models.segmentor import ResnestUNet
+    from octave_tpu_torch.ops.kernels import launch_counts
+    from octave_tpu_torch.serve import Predictor
+    from octave_tpu_torch.train import schedule
+    from octave_tpu_torch.train.trainer import Trainer, build_dataset
+    from octave_tpu_torch.utils.checkpoint import CheckpointManager, state_to_dict
+    from octave_tpu_torch.utils.config import Config
+
+    paths = {"aag": {}, "decoder_epilogue": {}}
+    summary = {"device": smi}
+
+    def counted(label, fn, want):
+        """fn() with the launch counts zeroed just before it and read just after."""
+        launch_counts(reset=True)
+        result = fn()
+        torch.cuda.synchronize()
+        got = launch_counts()
+        log(f"[switches] {label}: launches {got} (expected {want})")
+        check(got == want, f"{label}: launch counts {got}, expected {want}")
+        for name, n in got.items():
+            if n:
+                paths[name][label] = n
+        return result
+
+    # 10.1 every grouped conv shape of the 304² UNet's train forward at B = 8:
+    # the lowerings against cuDNN's grouped conv, forward and both backwards
+    t_phase = time.time()
+    shapes = {}
+    model = ResnestUNet(2).cuda().to(memory_format=torch.channels_last).train()
+
+    def record(name):
+        def hook(mod, args):
+            key = (tuple(args[0].shape), mod.out_channels, mod.kernel_size[0], mod.padding[0],
+                   mod.groups, mod.bias is not None)
+            shapes.setdefault(key, []).append(name)
+        return hook
+
+    hooks = [m.register_forward_pre_hook(record(n)) for n, m in model.named_modules()
+             if isinstance(m, torch.nn.Conv2d) and m.groups > 1]
+    with torch.no_grad(), torch.autocast("cuda", torch.bfloat16):
+        model(torch.rand(8, 304, 304, 3, device="cuda"))
+    for h in hooks:
+        h.remove()
+    del model
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    torch.backends.cudnn.allow_tf32 = False
+    lower_rows, totals = [], {}
+    try:
+        for (xs, cout, k, pad, g, bias), names in shapes.items():
+            cin = xs[1]
+            base = torch.nn.Conv2d(cin, cout, k, 1, pad, groups=g, bias=bias).cuda()
+            x32 = torch.randn(xs, generator=gen, device="cuda").contiguous(
+                memory_format=torch.channels_last)
+            ho = xs[2] + 2 * pad - k + 1
+            gy32 = torch.randn((xs[0], cout, ho, ho), generator=gen, device="cuda").contiguous(
+                memory_format=torch.channels_last)
+            ref = None
+            row = {"conv": names[0], "count": len(names), "x": list(xs), "cout": cout, "k": k,
+                   "groups": g}
+            for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+                conv = torch.nn.Conv2d(cin, cout, k, 1, pad, groups=g, bias=bias).cuda()
+                conv.load_state_dict(base.state_dict())
+                conv = conv.to(dt).to(memory_format=torch.channels_last)
+                impls = {"cudnn": conv, "dense": resnest.DenseGroupsConv2d.of(conv),
+                         "einsum": resnest.EinsumGroupsConv2d.of(conv)}
+                x = x32.to(dt).requires_grad_()
+                gy = gy32.to(dt)
+
+                for name, m in impls.items():
+                    out = m(x)
+                    gx, gw = torch.autograd.grad(out, (x, conv.weight), gy)
+                    torch.cuda.synchronize()
+                    got = [t.float() for t in (out, gx, gw)]
+                    if ref is None:  # cuDNN float32, TF32 off: the reference
+                        ref = got
+                    err = max(float((a - b).abs().max() / b.abs().max())
+                              for a, b in zip(got, ref))
+                    ms = timer.ms(lambda: torch.autograd.grad(m(x), (x, conv.weight), gy),
+                                  reps=3, warmup=1)
+                    row[f"{name}_{dname}"] = {"ms": ms, "rel_err": err}
+                    totals[(name, dname)] = totals.get((name, dname), 0.0) + ms * len(names)
+                    if name != "cudnn":
+                        bound = LOWERING_F32_REL if dt == torch.float32 else LOWERING_BF16_REL
+                        check(err <= bound, f"{name} lowering of {names[0]} {dname}: max err "
+                              f"{err:.3g} of max over {bound}")
+                del impls, x, gy, out, gx, gw, got
+            log(f"[switches] grouped conv {names[0]} (x{len(names)}) x {tuple(xs)} -> {cout}, "
+                f"{k}x{k}, groups {g}: fwd+bwd ms (max err / max vs cuDNN float32) "
+                + "; ".join(f"{d} " + ", ".join(
+                    f"{n} {row[f'{n}_{d}']['ms']:.3f} ({row[f'{n}_{d}']['rel_err']:.1e})"
+                    for n in ("cudnn", "dense", "einsum")) for d in ("float32", "bfloat16")))
+            lower_rows.append(row)
+            del ref, x32, gy32, base
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    log(f"[switches] all {sum(len(v) for v in shapes.values())} grouped convs of one 304² "
+        f"B=8 forward, fwd+bwd ms summed over the model on {smi}: "
+        + "; ".join(f"{d}: " + ", ".join(f"{n} {totals[(n, d)]:.2f}"
+                                         for n in ("cudnn", "dense", "einsum"))
+                    for d in ("float32", "bfloat16")))
+    summary["lowerings"] = {"convs": lower_rows,
+                            "model_ms": {f"{n}_{d}": v for (n, d), v in totals.items()}}
+    torch.cuda.empty_cache()
+
+    # 10.2 the lowered Predictors beside the default one (bf16, B = 32)
+    base_probs = serve(images)
+    lowered = {"dense_groups=decoder": Predictor(weights, dense_groups="decoder"),
+               "einsum_groups=decoder+enc": Predictor(weights, einsum_groups="decoder+enc")}
+    agree = {}
+    for label, pred in lowered.items():
+        probs = counted(f"Predictor({label}) __call__", lambda: pred(images),
+                        {"aag": 0, "decoder_epilogue": 5})
+        check(probs.shape == base_probs.shape and bool(np.isfinite(probs).all()),
+              f"{label}: shape or non-finite values")
+        agree[label] = float((probs.argmax(-1) == base_probs.argmax(-1)).mean())
+        check(agree[label] >= PATH_AGREEMENT_FLOOR, f"{label}: argmax agreement "
+              f"{agree[label]} with the default Predictor")
+
+    def wall(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    rates = {"default": [], **{label: [] for label in lowered}}
+    order = ["default", *lowered, *reversed(list(lowered)), "default"]
+    for label in order:
+        pred = serve if label == "default" else lowered[label]
+        rates[label].append(SERVE_B / wall(lambda: pred(images)))
+    log(f"[switches] lowered Predictors, 304² bf16 trained weights, B={SERVE_B}, on {smi}: "
+        f"argmax agreement with the default {agree}; img/s in turns "
+        + "; ".join(f"{k} {', '.join(f'{r:.1f}' for r in v)}" for k, v in rates.items()))
+    summary["serving"] = {"agreement": agree, "img_s": rates}
+    del lowered
+    torch.cuda.empty_cache()
+
+    # 10.3 remat: one unet step at 304², B = 8, per mode from the same state
+    # and batch, in bf16 and float32; step ms and peak memory at B = 8, 64
+    def trainer(mode, b=8, dtype="bfloat16", **extra):
+        over = {"data.synthetic_n": str(b), "data.batch_size": str(b),
+                "train.remat": str(mode).lower(), "model.instance_noise": "false",
+                "model.label_noise": "false", "train.eval_every": "0", "train.log_every": "0",
+                **extra}
+        if dtype == "bfloat16":
+            over["train.compute_dtype"] = "bfloat16"
+        return Trainer(Config().apply_overrides(over), device="cuda")
+
+    def batch_of(tr):
+        host = next(ds.batch_iterator(build_dataset(tr.cfg), tr.cfg.data.batch_size, seed=0))
+        return tr.device_batch(host)
+
+    def bn_stats(seg):
+        return {n: b.detach().clone() for n, b in seg.named_buffers()
+                if n.endswith(("running_mean", "running_var", "num_batches_tracked"))}
+
+    def grads(seg):
+        return [p.grad.detach().clone() for p in seg.parameters()]
+
+    def step_ms(tr, state, batch, reps):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.train_step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    remat_rows = {}
+    b8 = batch_of(trainer(False))
+    b64 = batch_of(trainer(False, b=64))
+    first = {}
+    for mode, want_aag in REMAT_MODES.items():
+        tr = trainer(mode)
+        state = tr.init_state()
+        losses = counted(f"bf16 step, remat={mode!r}", lambda: tr.train_step(state, b8),
+                         {"aag": want_aag, "decoder_epilogue": 0})
+        stats = bn_stats(state.segmentor)
+        nbt = [int(v) for n, v in stats.items() if n.endswith("num_batches_tracked")]
+        check(nbt and set(nbt) == {1}, f"remat={mode!r}: num_batches_tracked {set(nbt)}")
+        row = {"losses": {k: float(v) for k, v in losses.items()}}
+        if mode is False:
+            first = {"losses": row["losses"], "stats": stats}
+        else:
+            loss_err = max(abs(row["losses"][k] - v) / max(abs(v), 1e-12)
+                           for k, v in first["losses"].items())
+            bn_err = max(float((stats[n].double() - v.double()).abs().max()
+                               / max(float(v.double().abs().max()), 1e-30))
+                         for n, v in first["stats"].items() if not n.endswith("tracked"))
+            row.update(loss_rel=loss_err, bn_rel=bn_err)
+            check(bn_err <= REMAT_BN_REL, f"remat={mode!r}: BN running statistics "
+                  f"{bn_err:.3g} from remat=False's (bound {REMAT_BN_REL})")
+            check(loss_err <= 1e-6, f"remat={mode!r}: step-1 losses {loss_err:.3g} from "
+                  "remat=False's (the forward is the same)")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        row["b8_ms"] = step_ms(tr, state, b8, 3)
+        row["b8_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        tr.train_step(state, b64)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        row["b64_ms"] = step_ms(tr, state, b64, 3)
+        row["b64_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        remat_rows[str(mode)] = row
+        log(f"[switches] remat={mode!r}, bf16, on {smi}: B=8 {row['b8_ms']:.1f} ms/step, peak "
+            f"{row['b8_peak_gib']:.2f} GiB; B=64 {row['b64_ms']:.1f} ms/step, peak "
+            f"{row['b64_peak_gib']:.2f} GiB"
+            + (f"; step-1 losses {row['loss_rel']:.2e}, BN stats {row['bn_rel']:.2e} from "
+               "remat=False" if mode is not False else ""))
+        del tr, state, losses
+        torch.cuda.empty_cache()
+    del b64
+
+    # float32 (TF32 off): step-2 losses and the step-1 gradient against
+    # remat=False, beside a witness: remat=False from weights one float32
+    # rounding away (`nudge_`)
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = {}
+    try:
+        b8f = batch_of(trainer(False, dtype="float32"))
+        for mode in [False, *REMAT_MODES, "witness"]:
+            if mode in f32:
+                continue
+            tr = trainer(False if mode == "witness" else mode, dtype="float32")
+            state = tr.init_state()
+            if mode == "witness":
+                nudge_(torch, state.segmentor)
+            tr.train_step(state, b8f)
+            g1 = grads(state.segmentor)
+            l2 = {k: float(v) for k, v in tr.train_step(state, b8f).items()}
+            f32[mode] = (g1, l2)
+            del tr, state
+        g0, l0 = f32[False]
+        wg = rel_l2_pairs(torch, list(zip(f32["witness"][0], g0)))
+        wl = max(abs(f32["witness"][1][k] - v) / max(abs(v), 1e-12) for k, v in l0.items())
+        for mode in REMAT_MODES:
+            if mode is False:
+                continue
+            ge = rel_l2_pairs(torch, list(zip(f32[mode][0], g0)))
+            le = max(abs(f32[mode][1][k] - v) / max(abs(v), 1e-12) for k, v in l0.items())
+            remat_rows[str(mode)].update(f32_grad_rel_l2=ge, f32_step2_loss_rel=le)
+            check(ge <= max(wg, 1e-6) and le <= max(wl, 1e-6),
+                  f"remat={mode!r} float32: gradient {ge:.3g}, step-2 losses {le:.3g} from "
+                  f"remat=False, over the witness's {wg:.3g}, {wl:.3g}")
+        log("[switches] float32 (TF32 off) against remat=False: step-1 gradient rel L2 / "
+            "step-2 losses max rel: "
+            + ", ".join(f"{m} {remat_rows[str(m)]['f32_grad_rel_l2']:.2e} / "
+                        f"{remat_rows[str(m)]['f32_step2_loss_rel']:.2e}"
+                        for m in REMAT_MODES if m is not False)
+            + f"; witness (weights one float32 rounding away) {wg:.2e} / {wl:.2e}")
+        summary["remat_witness"] = {"grad_rel_l2": wg, "step2_loss_rel": wl}
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    del f32
+    summary["remat"] = remat_rows
+    torch.cuda.empty_cache()
+
+    # 10.4 the bf16 moment: optimizer ms and bytes against fused Adam
+    tr = trainer(False)
+    state = tr.init_state()
+    tr.train_step(state, b8)
+    opt_rows = {}
+    for label, make in (("fused Adam", lambda ps: torch.optim.Adam(ps, lr=1e-4, fused=True)),
+                        ("bf16 moment", lambda ps: schedule.MomentAdam(ps, 1e-4))):
+        ms, nbytes = [], 0
+        for module in (state.segmentor, state.critic):
+            opt = make([p for p in module.parameters()])
+            ms.append(wall(opt.step, reps=10) * 1e3)
+            nbytes += sum(s["exp_avg"].nbytes for s in opt.state.values())
+            del opt
+        opt_rows[label] = {"ms_per_step": sum(ms), "exp_avg_bytes": nbytes}
+    saved = opt_rows["fused Adam"]["exp_avg_bytes"] - opt_rows["bf16 moment"]["exp_avg_bytes"]
+    n_params = sum(p.numel() for m in (state.segmentor, state.critic) for p in m.parameters()
+                   if p.grad is not None)
+    check(saved == 2 * n_params, f"bf16 moment saves {saved} bytes for {n_params} parameters")
+    log(f"[switches] optimizer step of both players on {smi} (host clock, synchronised): "
+        f"fused Adam {opt_rows['fused Adam']['ms_per_step']:.3f} ms, bf16 moment "
+        f"{opt_rows['bf16 moment']['ms_per_step']:.3f} ms; first moment "
+        f"{opt_rows['fused Adam']['exp_avg_bytes'] / 1e6:.1f} MB -> "
+        f"{opt_rows['bf16 moment']['exp_avg_bytes'] / 1e6:.1f} MB ({saved / 1e6:.1f} MB saved, "
+        f"{n_params / 1e6:.2f}M parameters)")
+    summary["moment"] = opt_rows
+    del tr, state
+    torch.cuda.empty_cache()
+
+    # cli train with every switch: steps_per_call 2, block remat of depths
+    # 0-2, dense decoder depths 0-1, the bf16 moment; 4 steps, checkpoint
+    # cadence 3 (crossed at step 4 by the second call)
+    ckpt_dir = os.path.join(tmp, "ckpt")
+    over = {"data.synthetic_n": "8", "data.batch_size": "8", "train.compute_dtype": "bfloat16",
+            "train.steps_per_call": "2", "train.remat": "block:012",
+            "train.dense_groups": "decoder:01", "optim.moment_dtype": "bfloat16",
+            "train.checkpoint_dir": ckpt_dir, "train.checkpoint_every": "3",
+            "train.eval_every": "0", "train.log_every": "1", "train.steps": "4"}
+    saves = []
+    save = CheckpointManager.save
+
+    def recorded(self, step, st):
+        written = save(self, step, st)
+        saves.append((int(step), written))
+        return written
+
+    CheckpointManager.save = recorded
+    try:
+        t0 = time.time()
+        text, records = counted("cli train with the switches, 4 steps + final evaluate",
+                                lambda: run_cli(["train"] + [f"{k}={v}" for k, v in over.items()]),
+                                {"aag": 5 * 4 + 5, "decoder_epilogue": 0})
+        t_train = time.time() - t0
+    finally:
+        CheckpointManager.save = save
+    logged = [r.split()[1] for r in records if r.startswith("step ")]
+    check(logged == ["2", "4"], f"cli train logged steps {logged}, expected 2 and 4")
+    check(saves == [(4, True), (4, False)] and CheckpointManager(ckpt_dir).all_steps() == [4],
+          f"checkpoint saves {saves}: expected the cadence's at step 4, then the final one")
+    train_metrics = printed_metrics(text)
+    tr = Trainer(Config().apply_overrides(over), device="cuda")
+    restored = CheckpointManager(ckpt_dir).restore_latest(tr.init_state())
+    on_disk = torch.load(os.path.join(ckpt_dir, "step_00000004", "state.pt"),
+                         map_location="cpu", weights_only=False)
+    want, got = dict(leaves(on_disk)), dict(leaves(state_to_dict(restored)))
+    check(want.keys() == got.keys(), "restored state has other entries than the checkpoint")
+    n_tensors = 0
+    for key, v in want.items():
+        if torch.is_tensor(v):
+            n_tensors += 1
+            check(v.dtype == got[key].dtype and torch.equal(v, got[key].cpu()),
+                  f"restored {key} differs from the checkpoint ({got[key].dtype}, {v.dtype})")
+        else:
+            check(v == got[key], f"restored {key}: {got[key]} != {v}")
+    for opt in (restored.seg_opt, restored.critic_opt):
+        check(isinstance(opt.opt, schedule.MomentAdam) and all(
+            s["exp_avg"].dtype == torch.bfloat16 for s in opt.opt.state.values()),
+              "restored optimizer lost the bf16 moment")
+    del tr, restored, on_disk, want, got
+    text, _ = counted("cli eval --checkpoint", lambda: run_cli(
+        ["eval", "--checkpoint", ckpt_dir] + [f"{k}={v}" for k, v in over.items()]),
+        {"aag": 5, "decoder_epilogue": 0})
+    eval_metrics = printed_metrics(text)
+    # both commands print 4 decimals
+    check(eval_metrics.keys() == train_metrics.keys() and all(
+        abs(eval_metrics[k] - v) <= 1e-4 + 1e-9 for k, v in train_metrics.items()),
+          f"cli eval printed {eval_metrics}, cli train {train_metrics}")
+    log(f"[switches] cli train steps_per_call=2 remat=block:012 dense_groups=decoder:01 "
+        f"moment bf16, 304² B=8 bf16, 4 steps ({t_train:.1f} s with init and eval): logged steps "
+        f"{logged}, saves {saves}; restore equal to the checkpoint in {n_tensors} tensors, "
+        f"exp_avg bf16; cli eval --checkpoint prints train's metrics {train_metrics}")
+
+    # img/s of Trainer.fit at steps_per_call 1, 2, 4 (in turns, 12 steps each)
+    base_over = {"data.synthetic_n": "8", "data.batch_size": "8",
+                 "train.compute_dtype": "bfloat16", "train.eval_every": "0",
+                 "train.log_every": "0"}
+    state = Trainer(Config().apply_overrides(base_over), device="cuda").init_state()
+    spc = {1: [], 2: [], 4: []}
+    for k in (1, 2, 4, 4, 2, 1):
+        tr = Trainer(Config().apply_overrides({**base_over, "train.steps_per_call": str(k),
+                                               "train.steps": str(state.step + 12)}),
+                     device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = tr.fit(state)
+        torch.cuda.synchronize()
+        spc[k].append(12 * 8 / (time.perf_counter() - t0))
+    log(f"[switches] Trainer.fit, 12 steps, 304² B=8 bf16, on {smi}: img/s by steps_per_call "
+        + "; ".join(f"{k}: {', '.join(f'{r:.1f}' for r in v)}" for k, v in spc.items()))
+    summary["steps_per_call_img_s"] = spc
+    check(state.step == 72, f"the six fits ended at step {state.step}")
+    del state, tr, b8
+    torch.cuda.empty_cache()
+    log(f"[switches] phase 10 took {time.time() - t_phase:.1f} s")
+    log(json.dumps({"switches": summary}))
     return paths
 
 

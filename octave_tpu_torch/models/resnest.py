@@ -12,16 +12,23 @@ channels_last. Counterparts:
   * ResNestDecoder  :761-855
   * Upsampling      :858-884
   * BuildResNet     :887-912
+  * the grouped-conv lowerings (`groups_as_dense`, `groups_as_einsum`,
+    `grouped_conv_einsum`, `dense_groups_include`, :62-330) as modules that
+    `lower_grouped_convs_` swaps in, and the block remat of the Bottlenecks
+    and decoder blocks (:599-640; octave_tpu/models/segmentor.py:111-127)
+    as their `remat` attribute (`ops/remat.py`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import re
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from octave_tpu_torch.ops import remat
 from octave_tpu_torch.ops.common import avg_pool2d, conv_transpose_2x2, max_pool2d
 from octave_tpu_torch.ops.kernels.decoder_epilogue import fused_decoder_epilogue
 from octave_tpu_torch.ops.norm import BatchNorm2d
@@ -74,12 +81,15 @@ class Bottleneck(nn.Module):
     """ResNeSt-50 bottleneck: 1x1, split-attention 3x3 followed, when
     strided, by the avd AvgPool2d(3, stride, 1), then 1x1 to 4x planes; the
     shortcut of a stage's first block is avg_down: AvgPool2d(stride, stride,
-    ceil_mode, not counting padding), 1x1 conv, BN."""
+    ceil_mode, not counting padding), 1x1 conv, BN. `remat` (False, True or
+    "conv", see `ops.remat.run`) makes the block one recomputed region in
+    training."""
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  has_downsample: bool = False):
         super().__init__()
         self.stride = stride
+        self.remat = False
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
         self.bn1 = BatchNorm2d(planes)
         self.conv2 = SplAtConv2d(planes, planes, groups=1, bias=False)
@@ -93,6 +103,9 @@ class Bottleneck(nn.Module):
                 BatchNorm2d(planes * 4))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return remat.run(self.remat if self.training else False, self._block, x)
+
+    def _block(self, x: torch.Tensor) -> torch.Tensor:
         out = self.conv2(F.relu(self.bn1(self.conv1(x))))
         if self.stride > 1:
             out = avg_pool2d(out, 3, self.stride, 1)
@@ -133,9 +146,15 @@ class ResNeSt(nn.Module):
     stem_width, stem_width, 2 stem_width, then BN and ReLU as `bn1`/`relu`),
     the stem's MaxPool2d(3, 2, 1), and four stages `layer1..4` of
     Bottlenecks. The segmentor taps the stages; `forward` returns the last
-    one."""
+    one.
 
-    def __init__(self, config: ResNeStConfig = ResNeStConfig()):
+    Block remat, as the JAX ResNeSt's fields: with `remat_blocks` true each
+    Bottleneck of the encoder layers `remat_layers` names (1-based; True:
+    all) is its own recomputed region, which with `remat_save_convs` keeps
+    its conv outputs. Parameters and state dict are the same either way."""
+
+    def __init__(self, config: ResNeStConfig = ResNeStConfig(), remat_blocks=False,
+                 remat_save_convs: bool = False, remat_layers=True):
         super().__init__()
         other = {k: getattr(config, k) for k, v in _FIXED.items() if getattr(config, k) != v}
         if other:
@@ -155,6 +174,9 @@ class ResNeSt(nn.Module):
             stride = 1 if li == 0 else 2
             stage = [Bottleneck(inplanes, planes, stride, has_downsample=True)]
             stage += [Bottleneck(planes * 4, planes) for _ in range(blocks - 1)]
+            if remat_blocks and (remat_layers is True or li + 1 in remat_layers):
+                for block in stage:
+                    block.remat = "conv" if remat_save_convs else True
             setattr(self, f"layer{li + 1}", nn.Sequential(*stage))
             inplanes = planes * 4
 
@@ -164,11 +186,11 @@ class ResNeSt(nn.Module):
         return self.layer4(self.layer3(self.layer2(self.layer1(x))))
 
 
-def resnest50() -> ResNeSt:
+def resnest50(**remat_kw) -> ResNeSt:
     """The resnest50 configuration: layers (3, 4, 6, 3), radix 2,
     cardinality 1, bottleneck width 64, deep stem of width 32, avd and
-    avg_down."""
-    return ResNeSt(ResNeStConfig())
+    avg_down; `remat_kw` as ResNeSt takes them."""
+    return ResNeSt(ResNeStConfig(), **remat_kw)
 
 
 class BasicBlock(nn.Module):
@@ -223,10 +245,13 @@ class BuildResNet(nn.Module):
 
 class ResNestDecoder(nn.Module):
     """U-Net decoder residual block: [3x3 conv, BN, ReLU, SplAtConv2d(groups=2,
-    radix=2), ReLU] plus a 1x1 conv + BN shortcut, joined by ReLU(sum)."""
+    radix=2), ReLU] plus a 1x1 conv + BN shortcut, joined by ReLU(sum).
+    `remat` (False, True or "conv", see `ops.remat.run`) makes the training
+    block, the skip concat included, one recomputed region."""
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
+        self.remat = False
         self.conv = nn.Sequential(
             nn.Conv2d(in_channels, out_channels, 3, 1, 1, bias=False),
             BatchNorm2d(out_channels),
@@ -255,6 +280,10 @@ class ResNestDecoder(nn.Module):
         cat = None if all(pair) else torch.cat(x, dim=1)
         return tuple(x if p else cat for p in pair)
 
+    def _block(self, *parts: torch.Tensor) -> torch.Tensor:
+        xc, xd = self._inputs(parts if len(parts) > 1 else parts[0])
+        return F.relu(self.conv(xc) + self.downsample(xd))
+
     def forward(self, x, gate: Optional[nn.Conv2d] = None):
         """x: (B, in, H, W), the concat of skip and upsampled maps, or the
         (skip, up) pair.
@@ -264,9 +293,10 @@ class ResNestDecoder(nn.Module):
         outer ReLU and the gate itself — runs as one fused epilogue and the
         call returns (gated (B,C,H,W), y_hat (B,H,W,K)) instead of the block
         output."""
-        xc, xd = self._inputs(x)
         if gate is None or self.training:
-            return F.relu(self.conv(xc) + self.downsample(xd))
+            parts = x if isinstance(x, tuple) else (x,)
+            return remat.run(self.remat if self.training else False, self._block, *parts)
+        xc, xd = self._inputs(x)
         conv, bn, _, splat, _ = self.conv
         z, attn = splat(F.relu(bn(conv(xc))), return_parts=True)
         res_conv, res_bn = self.downsample
@@ -294,3 +324,174 @@ class Upsampling(nn.Module):
         if isinstance(self.up, nn.ConvTranspose2d):
             return conv_transpose_2x2(x, self.up.weight, self.up.bias)
         return self.up(x)  # its int8 stand-in
+
+
+# -- the grouped-conv lowerings ---------------------------------------------
+# The backbone's Bottleneck blocks, the scope 'enc' selects (the JAX package's
+# `layer{N}_{i}` blocks)
+_ENCODER_BLOCK = re.compile(r"encoder_[1-4]\.")
+
+
+def dense_groups_include(spec: str) -> Optional[Callable[[str], bool]]:
+    """A `dense_groups` / `einsum_groups` spec -> a predicate over the port's
+    module names, or None for every grouped conv: the port's copy of
+    octave_tpu/models/resnest.py::dense_groups_include (:187-224), with its
+    grammar and errors.
+
+    'all'              every grouped conv
+    'decoder'          every decoder block's (`decoder_*`, the dual
+                       decoders' `decoder_{1,0}_c` included, as in JAX)
+    'decoder:<digits>' the named decoder depths' (`decoder:1` names
+                       `decoder_1` and `decoder_1_c`, as JAX's prefix does)
+    'enc'              the backbone Bottlenecks' (`encoder_1..4`)
+    and '+'-joined combinations of the last three."""
+    if spec == "all":
+        return None
+    preds = []
+    for part in spec.split("+"):
+        if part == "decoder":
+            preds.append(lambda n: n.startswith("decoder_"))
+        elif part.startswith("decoder:"):
+            digits = part.split(":", 1)[1]
+            if not digits or not digits.isdigit():
+                raise ValueError(
+                    f"bad dense_groups stage list {spec!r}; expected e.g. 'decoder:01'")
+            names = tuple(f"decoder_{d}" for d in digits)
+            preds.append(lambda n, names=names: n.startswith(names))
+        elif part == "enc":
+            preds.append(lambda n: _ENCODER_BLOCK.match(n) is not None)
+        else:
+            raise ValueError(
+                f"unknown dense_groups {spec!r}; expected None | 'decoder' | "
+                "'decoder:<digits>' | 'enc' | 'all' or '+'-joined combinations")
+    if len(preds) == 1:
+        return preds[0]
+    return lambda n: any(f(n) for f in preds)
+
+
+def block_diagonal(weight: torch.Tensor, groups: int) -> torch.Tensor:
+    """A grouped conv's (g*co, ci, kh, kw) weight as the (g*co, g*ci, kh, kw)
+    weight of the dense conv that computes the same: group i's block on the
+    diagonal, zeros elsewhere. Its gradient drops the off-block entries."""
+    feat, ci = weight.shape[:2]
+    co = feat // groups
+    dense = weight.new_zeros(feat, ci * groups, *weight.shape[2:])
+    for gi in range(groups):
+        dense[gi * co:(gi + 1) * co, gi * ci:(gi + 1) * ci] = weight[gi * co:(gi + 1) * co]
+    return dense
+
+
+def grouped_conv_einsum(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                        groups: int, stride=(1, 1), padding=(0, 0),
+                        dilation=(1, 1)) -> torch.Tensor:
+    """A grouped conv of an NCHW x as kh*kw shifted batched matmuls, the JAX
+    package's `grouped_conv_einsum` (:147-184): each kernel tap (iy, ix)
+    contributes einsum('bhwgi,goi->bhwgo') over the shifted NHWC input, the
+    taps summed in row-major order, then the bias. `weight` is the grouped
+    (g*co, ci, kh, kw) layout nn.Conv2d holds. Returns NCHW with
+    channels_last memory, in the dtype the conv would return (autocast's
+    under autocast, else x's).
+
+    The matmuls and their sum run in float32 (float64 for float64) and the
+    result is rounded once, as cuDNN's bf16 conv accumulates: in bf16, taps
+    rounded one by one put a 304² B = 32 serving mask's argmax 0.0012 of
+    pixels from the grouped conv's (`chip_smoke.py` phase 10), where the
+    JAX package's bf16 einsum rounds each tap. The output is the `conv_out`
+    tensor the save-the-convs remat policy keeps (`ops/remat.py`)."""
+    b, cin, _, _ = x.shape
+    feat, ci, kh, kw = weight.shape
+    g = groups
+    co = feat // g
+    if cin != ci * g:
+        raise ValueError(f"input has {cin} channels; the weight wants {ci} x {g} groups")
+    dev = x.device.type
+    dtype = torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else x.dtype
+    acc = torch.promote_types(dtype, torch.float32)
+    (sh, sw), (ph, pw), (dh, dw) = stride, padding, dilation
+    with torch.autocast(dev, enabled=False):
+        xh = x.permute(0, 2, 3, 1).to(acc)
+        if ph or pw:
+            xh = F.pad(xh, (0, 0, pw, pw, ph, ph))
+        hp, wp = xh.shape[1:3]
+        ho = (hp - (kh - 1) * dh - 1) // sh + 1
+        wo = (wp - (kw - 1) * dw - 1) // sw + 1
+        xg = xh.reshape(b, hp, wp, g, ci)
+        wg = weight.to(acc).view(g, co, ci, kh, kw)
+        terms = [(iy, ix) for iy in range(kh) for ix in range(kw)] + [None] * (bias is not None)
+        out = None
+        for n, term in enumerate(terms, start=1):
+            if term is None:
+                t = bias.to(acc).view(g, co)
+            else:
+                iy, ix = term
+                xs = xg[:, iy * dh: iy * dh + (ho - 1) * sh + 1: sh,
+                        ix * dw: ix * dw + (wo - 1) * sw + 1: sw]
+                t = torch.einsum("bhwgi,goi->bhwgo", xs, wg[:, :, :, iy, ix])
+            if n < len(terms) or acc != dtype:
+                out = t if out is None else out + t
+                continue
+            with remat.conv_out():  # the last op: its output is the result
+                out = t.clone() if out is None else out + t
+        if acc != dtype:
+            with remat.conv_out():
+                out = out.to(dtype)
+    return out.reshape(b, ho, wo, feat).permute(0, 3, 1, 2)
+
+
+class _LoweredConv2d(nn.Conv2d):
+    """An nn.Conv2d with groups > 1 computed another way, holding the
+    parameters of the conv it replaces (same names, same state dict)."""
+
+    @classmethod
+    def of(cls, conv: nn.Conv2d) -> "_LoweredConv2d":
+        if conv.padding_mode != "zeros" or isinstance(conv.padding, str):
+            raise ValueError(f"{cls.__name__}: zero padding by numbers only; got "
+                             f"{conv.padding_mode!r}, {conv.padding!r}")
+        new = cls(conv.in_channels, conv.out_channels, conv.kernel_size, conv.stride,
+                  conv.padding, conv.dilation, conv.groups, conv.bias is not None,
+                  device="meta")
+        new.weight, new.bias = conv.weight, conv.bias
+        return new.train(conv.training)
+
+
+class DenseGroupsConv2d(_LoweredConv2d):
+    """The grouped conv as one dense conv of the block-diagonal weight: the
+    JAX package's `groups_as_dense` lowering (:291-313), groups times the
+    operations of the grouped conv."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, block_diagonal(self.weight, self.groups), self.bias, self.stride,
+                        self.padding, self.dilation)
+
+
+class EinsumGroupsConv2d(_LoweredConv2d):
+    """The grouped conv as kh*kw shifted batched matmuls: the JAX package's
+    `groups_as_einsum` lowering (:276-289), the grouped conv's operations."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return grouped_conv_einsum(x, self.weight, self.bias, self.groups, self.stride,
+                                   self.padding, self.dilation)
+
+
+def lower_grouped_convs_(model: nn.Module, dense: Optional[str] = None,
+                         einsum: Optional[str] = None) -> nn.Module:
+    """Swap, in place, each nn.Conv2d of `model` with groups > 1 that the
+    `einsum` spec selects for an EinsumGroupsConv2d and each other one that
+    the `dense` spec selects for a DenseGroupsConv2d (specs as
+    `dense_groups_include` reads them, over names relative to `model`; where
+    both select a conv the einsum lowering wins, as in the JAX package). The
+    parameters stay the same objects under the same names. Convs already
+    lowered, and int8 convs, are left as they are."""
+    lowerings = []
+    for cls, spec in ((EinsumGroupsConv2d, einsum), (DenseGroupsConv2d, dense)):
+        if spec is not None:
+            include = dense_groups_include(spec)
+            lowerings.append((cls, include or (lambda n: True)))
+    for name, m in list(model.named_modules()):
+        if type(m) is not nn.Conv2d or m.groups == 1:
+            continue
+        cls = next((c for c, include in lowerings if include(name)), None)
+        if cls is not None:
+            parent, _, child = name.rpartition(".")
+            setattr(model.get_submodule(parent) if parent else model, child, cls.of(m))
+    return model

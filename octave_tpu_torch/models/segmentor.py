@@ -15,6 +15,16 @@ package: `forward` takes (B,H,W,3) and returns NHWC tensors. `train()` /
 `eval()` stand for the JAX package's `train` flag: in training the batch norms
 use batch statistics and update their running stats once per forward, and
 every gate runs the AAG kernel inside autograd.
+
+Block remat (`remat_blocks`, `remat_save_convs`, `remat_enc_layers`, the JAX
+segmentors' fields, :111-127, :186-215): True makes every encoder Bottleneck
+and every decoder block (skip concat included; not the upsampling, not the
+gate) its own recomputed region in training; "encoder" the Bottlenecks
+only; a set of decoder depths those depths' blocks (both branches' for the
+dual decoders) and the Bottlenecks. `remat_enc_layers` (1-based encoder
+layers, True: all) narrows the Bottlenecks; `remat_save_convs` keeps each
+region's conv outputs (`ops/remat.py`). The state dict and the eval path
+are the same with or without.
 """
 from __future__ import annotations
 
@@ -111,18 +121,31 @@ def decoder_stage(decoder: ResNestDecoder, aag: AdversarialAttentionGate, skip, 
 class _ResnestEncoder(nn.Module):
     """The ResNeSt-50 encoder the three segmentors share, under the
     reference's `encoder_0_1_2` / `encoder_1..4` names, and the decoder
-    blocks of `depths` (`upsampling_i`, `decoder_i`, `aag_i` when `gated`)."""
+    blocks of `depths` (`upsampling_i`, `decoder_i`, `aag_i` when `gated`),
+    with the block remat of the module docstring."""
+
+    def __init__(self, remat_blocks=False, remat_save_convs: bool = False,
+                 remat_enc_layers=True):
+        super().__init__()
+        self._remat = (remat_blocks, remat_save_convs, remat_enc_layers)
 
     def _build(self, num_classes: int, depths, gated: bool, suffix: str = "") -> None:
+        blocks, save_convs, enc_layers = self._remat
+        mode = "conv" if save_convs else True
         if not suffix:
-            bb = resnest50()
+            bb = resnest50(remat_blocks=blocks, remat_save_convs=save_convs,
+                           remat_layers=enc_layers)
             self.encoder_0_1_2 = nn.Sequential(bb.conv1, bb.bn1, bb.relu)
             for i in range(1, 5):
                 setattr(self, f"encoder_{i}", getattr(bb, f"layer{i}"))
         for depth in depths:
             ui, uo, di, do = _DECODER_WIDTHS[depth]
             setattr(self, f"upsampling_{depth}{suffix}", Upsampling(ui, uo))
-            setattr(self, f"decoder_{depth}{suffix}", ResNestDecoder(di, do))
+            decoder = ResNestDecoder(di, do)
+            if blocks is True or (isinstance(blocks, (set, frozenset, tuple, list))
+                                  and depth in blocks):
+                decoder.remat = mode
+            setattr(self, f"decoder_{depth}{suffix}", decoder)
             if gated:
                 setattr(self, f"aag_{depth}{suffix}", AdversarialAttentionGate(do, num_classes))
 
@@ -165,8 +188,8 @@ class ResnestUNet(_ResnestEncoder):
 
     def __init__(self, num_classes: int = 2, gating_level: int = 4,
                  use_fused_decoder: bool = False, encoder_gating: bool = False,
-                 heads: bool = False):
-        super().__init__()
+                 heads: bool = False, **remat_kw):
+        super().__init__(**remat_kw)
         self.gating_level = gating_level
         self.use_fused_decoder = use_fused_decoder
         self.encoder_gating = encoder_gating
@@ -264,8 +287,8 @@ class ResnestUnetParallelHead(_ResnestEncoder):
     `decoder_{1,0}_c`, `fc_c`). Launches no kernel. `forward` returns the
     two agg maps stacked, (2, B, H, W, K)."""
 
-    def __init__(self, num_classes: int = 2):
-        super().__init__()
+    def __init__(self, num_classes: int = 2, **remat_kw):
+        super().__init__(**remat_kw)
         self._build(num_classes, range(5), gated=False)
         self._build(num_classes, (1, 0), gated=False, suffix="_c")
         self.fc = nn.Conv2d(32, num_classes, 1)
@@ -298,8 +321,8 @@ class ResnestUnetParallelHeadAttentionGate(_ResnestEncoder):
     ResnestUNet."""
 
     def __init__(self, num_classes: int = 2, gating_level: int = 3,
-                 use_fused_decoder: bool = False):
-        super().__init__()
+                 use_fused_decoder: bool = False, **remat_kw):
+        super().__init__(**remat_kw)
         self.gating_level = gating_level
         self.use_fused_decoder = use_fused_decoder
         self._build(num_classes, range(5), gated=True)
@@ -354,7 +377,8 @@ def build_segmentor(architecture: str, num_classes: int = 2, gating_level: int =
                     encoder_gating: bool = False, **kw) -> nn.Module:
     """The segmentor of `model.architecture` (unet | parallel_head |
     parallel_head_gate), as the JAX trainer builds it: gating_level goes to
-    the gated ones, encoder_gating to ResnestUNet only."""
+    the gated ones, encoder_gating to ResnestUNet only, the remat fields
+    (`remat_blocks`, `remat_save_convs`, `remat_enc_layers`) to all."""
     if architecture not in ARCHITECTURES:
         raise ValueError(f"unknown model.architecture {architecture!r}; expected "
                          f"{' | '.join(repr(a) for a in ARCHITECTURES)}")
@@ -364,5 +388,6 @@ def build_segmentor(architecture: str, num_classes: int = 2, gating_level: int =
     if architecture == "unet":
         return ResnestUNet(num_classes, gating_level, encoder_gating=encoder_gating, **kw)
     if architecture == "parallel_head":
-        return ResnestUnetParallelHead(num_classes)
+        return ResnestUnetParallelHead(num_classes, **{k: v for k, v in kw.items()
+                                                       if k.startswith("remat_")})
     return ResnestUnetParallelHeadAttentionGate(num_classes, gating_level, **kw)

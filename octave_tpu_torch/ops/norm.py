@@ -23,6 +23,14 @@ two extra modes:
     `torch.nn.SyncBatchNorm` is not used: it refuses CPU tensors and its
     Welford statistics are not this formula.
 Otherwise training uses torch's own forward.
+
+Inside a checkpoint's recompute (`ops/remat.py`) a training norm normalises
+by the batch's statistics as the forward did but leaves the running
+statistics as the forward left them, as Flax applies a remat region's
+`batch_stats` update once: the cuDNN path runs the same op with an update
+factor of 0 (running * 1 + batch * 0 is running, exactly) and without the
+`num_batches_tracked` increment; the synchronised path still all-reduces its
+statistics, on every rank in the same order, and skips the update.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from octave_tpu_torch.ops import remat
 from octave_tpu_torch.parallel import ddp
 
 EPS = 1e-5
@@ -123,7 +132,12 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            return self._synchronized(x) if self.synchronized else super().forward(x)
+            if self.synchronized:
+                return self._synchronized(x)
+            if remat.recomputing():
+                return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                    self.bias, True, 0.0, self.eps)
+            return super().forward(x)
         shape = (1, -1, 1, 1)
         if self.folded:
             return torch.addcmul(self.bias.view(shape), x, self.weight.view(shape))
@@ -132,6 +146,8 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def _synchronized(self, x: torch.Tensor) -> torch.Tensor:
         y, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias, self.eps)
+        if remat.recomputing():
+            return y
         n = x.numel() // x.shape[1] * ddp.world()
         with torch.no_grad():
             m = self.momentum

@@ -2,7 +2,8 @@
 
 `Predictor` (:26-318) runs the 304² ResnestUNet eval forward in bf16 with the
 batch-norm stats folded into an affine and, by default, the fused decoder
-epilogue kernel at every gated depth. Requests arrive as uint8 (B,H,W,3) and
+epilogue kernel at every gated depth; optionally int8 or with grouped convs
+lowered. Requests arrive as uint8 (B,H,W,3) and
 are normalised on the device; results leave as float32 / float16
 probabilities or a uint8 vessel mask.
 
@@ -34,6 +35,7 @@ from typing import Any, Dict, Iterable, Iterator, Mapping, Optional, Sequence, T
 import numpy as np
 import torch
 
+from octave_tpu_torch.models.resnest import dense_groups_include, lower_grouped_convs_
 from octave_tpu_torch.models.segmentor import ResnestUNet
 from octave_tpu_torch.ops import quant
 from octave_tpu_torch.ops.norm import fold_batch_stats, folded_inference
@@ -82,6 +84,8 @@ class Predictor:
         calibration_batches: Optional[Iterable[np.ndarray]] = None,
         int8_scope: str = "decoder",
         int8_prepack: bool = True,
+        dense_groups: Optional[str] = None,
+        einsum_groups: Optional[str] = None,
     ):
         """state_dict: reference-named weights with raw BN stats (e.g. from
         `utils.convert.from_jax_variables`). fold_bn folds the stats in
@@ -94,8 +98,21 @@ class Predictor:
         'all', see INT8_SCOPES), with static activation scales from running
         `calibration_batches` (input batches as `__call__` takes them) through
         this predictor's folded, cast eval graph; the weights are quantised
-        from the folded, cast ones, once (`int8_prepack`) or on every call."""
+        from the folded, cast ones, once (`int8_prepack`) or on every call.
+
+        dense_groups / einsum_groups lower the grouped convs a spec selects
+        ('decoder' | 'decoder:<digits>' | 'enc' | 'all' | '+'-combos, as the
+        JAX Predictor takes them; `models.resnest.lower_grouped_convs_`) to
+        block-diagonal dense convs / to shifted batched matmuls; exact math,
+        with the fused epilogue or the AAG kernel, folded BN or not. A conv
+        that int8 quantises runs as the int8 path runs every grouped conv,
+        one block-diagonal GEMM (`ops/quant.py`): what the JAX package's
+        dense lowering composed with int8 computes, so no second lowering
+        applies there."""
         # cheap argument checks first, before any model build or BN fold
+        for spec in (dense_groups, einsum_groups):
+            if spec is not None:
+                dense_groups_include(spec)
         if int8_decoder and calibration_batches is None:
             raise ValueError("int8_decoder=True requires calibration_batches "
                              "(a few representative input batches)")
@@ -116,6 +133,7 @@ class Predictor:
         model = ResnestUNet(num_classes, use_fused_decoder=use_fused_decoder)
         load_reference_state_dict(model, state_dict)
         folded_inference(model, fold_bn)
+        lower_grouped_convs_(model, dense_groups, einsum_groups)
         self.model = model.to(self.device, dtype).to(memory_format=torch.channels_last).eval()
         self._copy_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
                              else None)

@@ -7,11 +7,16 @@ LambdaLR, with the clip in optax's exact form (scale by max/||g|| only when
 ||g|| >= max, where `clip_grad_norm_` scales by max/(||g|| + 1e-6)). optax
 evaluates the schedule at the update count before the update, so the first
 step uses init_lr; LambdaLR does the same.
+
+`moment_dtype="bfloat16"` (optax's `mu_dtype`, :28-57) stores Adam's first
+moment in bf16: `MomentAdam`, plain `torch._foreach_*` ops in optax's
+arithmetic, since fused Adam keeps every state in its parameter's dtype.
 """
 from __future__ import annotations
 
 from typing import Callable, Iterable, Optional
 
+import numpy as np
 import torch
 
 Schedule = Callable[[int], float]
@@ -59,21 +64,94 @@ class Optimizer:
         self.sched.step()
 
 
+class MomentAdam(torch.optim.Optimizer):
+    """Adam, or AdamW with `weight_decay` > 0, whose first moment
+    `exp_avg` is stored in `moment_dtype`: optax.scale_by_adam(mu_dtype=...)
+    then add_decayed_weights and the learning rate, in optax's arithmetic.
+    With t the update count and mu the stored moment:
+        mu' = (1 - b1) g + [b1' mu]                  (float32)
+        nu' = (1 - b2) g^2 + b2 nu                   (float32)
+        u   = (mu' / (1 - b1^t)) / (sqrt(nu' / (1 - b2^t)) + eps) [+ wd p]
+        p  <- p + (-lr) u;  mu <- mu' rounded to its dtype
+    where [b1' mu] is the product in mu's dtype with b1' = b1 rounded to it
+    (0.8984375 for 0.9 in bf16: optax's `b1 * mu` is weakly typed). The
+    update uses the unrounded float32 mu'. `exp_avg_sq` stays float32."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0, moment_dtype: torch.dtype = torch.bfloat16):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+        self.moment_dtype = moment_dtype
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            states = [self.state[p] for p in params]
+            for p, st in zip(params, states):
+                if not st:
+                    st["step"] = torch.zeros((), dtype=torch.float32)
+                    st["exp_avg"] = torch.zeros_like(p, dtype=self.moment_dtype)
+                    st["exp_avg_sq"] = torch.zeros_like(p)
+            b1, b2 = group["betas"]
+            f32 = np.float32
+            t = int(states[0]["step"]) + 1
+            for st in states:
+                st["step"].fill_(t)
+            grads = [p.grad for p in params]
+            mus = [st["exp_avg"] for st in states]
+            nus = [st["exp_avg_sq"] for st in states]
+            mu = torch._foreach_mul(grads, 1 - b1)
+            # optax's weak-typed b1 * mu takes b1 in mu's dtype (0.8984375 in bf16)
+            b1_mu = float(torch.tensor(b1, dtype=self.moment_dtype))
+            torch._foreach_add_(mu, torch._foreach_mul(mus, b1_mu))
+            torch._foreach_copy_(mus, mu)
+            g2 = torch._foreach_mul(grads, grads)
+            torch._foreach_mul_(g2, 1 - b2)
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_add_(nus, g2)
+            # the bias corrections as optax forms them: float32 1 - b**t
+            torch._foreach_div_(mu, float(f32(1) - f32(b1) ** f32(t)))
+            denom = torch._foreach_div(nus, float(f32(1) - f32(b2) ** f32(t)))
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, group["eps"])
+            torch._foreach_div_(mu, denom)
+            if group["weight_decay"] > 0:
+                torch._foreach_add_(mu, torch._foreach_mul(params, group["weight_decay"]))
+            torch._foreach_mul_(mu, float(f32(-group["lr"])))
+            torch._foreach_add_(params, mu)
+
+
+MOMENT_DTYPES = {"bfloat16": torch.bfloat16}
+
+
+def moment_dtype_of(name: Optional[str]) -> Optional[torch.dtype]:
+    """optim.moment_dtype -> the stored first moment's dtype (None: that of
+    the parameters, in fused Adam); raises on a name the port lacks."""
+    if name not in (None, "float32", *MOMENT_DTYPES):
+        raise ValueError(f"optim.moment_dtype {name!r}: expected None, 'float32' or one "
+                         f"of {sorted(MOMENT_DTYPES)}")
+    return MOMENT_DTYPES.get(name)
+
+
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float = 1e-4, *,
                    schedule: Optional[Schedule] = None, weight_decay: float = 0.0,
                    b1: float = 0.9, b2: float = 0.999, grad_clip: Optional[float] = None,
                    moment_dtype: Optional[str] = None) -> Optimizer:
     """Adam (AdamW when weight_decay > 0, decoupled decay as optax.adamw) at
     `lr` or on `schedule`, with optional clip: the optimizer pair of the
-    segmentor and the critic. Fused on CUDA."""
-    if moment_dtype is not None:
-        raise NotImplementedError(
-            "optim.moment_dtype (a bf16 Adam moment) is not ported (ROADMAP A.7)")
+    segmentor and the critic. Fused on CUDA; with moment_dtype "bfloat16"
+    the first moment is stored in bf16 (`MomentAdam`), None and "float32"
+    keep it in float32."""
+    mu_dtype = moment_dtype_of(moment_dtype)
     params = [p for p in params if p.requires_grad]
     fused = bool(params) and all(p.is_cuda for p in params)
     kw = dict(lr=1.0 if schedule is not None else lr, betas=(b1, b2), eps=1e-8,
               fused=fused or None)
-    if weight_decay > 0:
+    if mu_dtype is not None:
+        opt = MomentAdam(params, kw["lr"], kw["betas"], kw["eps"], weight_decay, mu_dtype)
+    elif weight_decay > 0:
         opt = torch.optim.AdamW(params, weight_decay=weight_decay, **kw)
     else:
         opt = torch.optim.Adam(params, **kw)

@@ -1,8 +1,9 @@
 """The weakly-supervised adversarial train step and the streaming eval step.
 
 The port of `octave_tpu/train/steps.py` (adapt_segmentor_output :45-73,
-StepConfig :76-139, make_train_step :150-419, _eval_forward :457-465,
-make_eval_accumulate_step :483-503), for every segmentor of the family and
+StepConfig :76-139, make_train_step :150-419, make_multi_step :422-454,
+_eval_forward :457-465, make_eval_accumulate_step :483-503), for every
+segmentor of the family and
 one critic or the dual decoders' pair of critics. One step:
 
     pyramids, agg maps = segmentor(x)                 (BN stats update once)
@@ -29,6 +30,17 @@ With compute_dtype='bfloat16' both forwards run under torch.autocast (master
 weights stay float32) and every loss is taken on float32 casts of the
 pyramids and the agg maps, as the JAX step casts them.
 
+The memory and lowering switches (:95-138, :195-270):
+  * `remat` True runs the segmentor forward as one recomputed region, "conv"
+    as one that keeps its conv outputs (`ops/remat.py`); the "block..."
+    modes add no region here: the segmentor was built with block remat
+    (`models/segmentor.py`, as `train.trainer.Trainer` builds it);
+  * `dense_groups` / `einsum_groups` lower the segmentor's selected grouped
+    convs (`models/resnest.py::lower_grouped_convs_`), once, at its first
+    step (the Trainer lowers them when it builds the model, so that eval
+    runs them too).
+`make_multi_step` runs k steps per call on a stack of k batches.
+
 With `data_parallel` each rank runs the step on its shard of the global
 batch (:233-239, 344-346, 398-400): the WPCE class counts are global, each
 player's gradients are all-reduced to their mean between backward and its
@@ -41,6 +53,7 @@ Spectral u/v need nothing: every rank iterates them from the same weights.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -53,6 +66,8 @@ from octave_tpu_torch.losses.segmentor import (
     interlayer_divergence_pooled,
     weighted_partial_ce,
 )
+from octave_tpu_torch.models.resnest import dense_groups_include, lower_grouped_convs_
+from octave_tpu_torch.ops import remat
 from octave_tpu_torch.parallel import ddp
 from octave_tpu_torch.train.state import TrainState
 from octave_tpu_torch.utils.metrics import AucAccumulator, ConfusionAccumulator
@@ -119,6 +134,16 @@ class StepConfig:
     discriminator_depth_c: int = 1
     supervise_attention0: bool = False  # the supervised loss on atts[0] too
     compute_dtype: Optional[str] = None  # None | 'bfloat16'
+    # False | True (one region over the segmentor forward) | 'conv' (the
+    # same, keeping the conv outputs) | 'block' | 'block-enc' |
+    # 'block:<decoder depths>[e<encoder layers>]' and any of those with
+    # '+conv' (block remat, which the model carries)
+    remat: Any = False
+    # None | 'all' | 'decoder' | 'decoder:<digits>' | 'enc' | '+'-combos:
+    # grouped convs as block-diagonal dense convs / as shifted batched
+    # matmuls (einsum wins where both select a conv)
+    dense_groups: Optional[str] = None
+    einsum_groups: Optional[str] = None
     data_parallel: bool = False  # one shard per rank of the default process group
 
 
@@ -146,6 +171,11 @@ def make_train_step(cfg: StepConfig) -> Callable[[TrainState, Dict[str, Any]],
     tensors (reading them is the caller's only host sync)."""
     cdtype = compute_dtype(cfg.compute_dtype)
     depth_of = {"main": cfg.discriminator_depth, "c": cfg.discriminator_depth_c}
+    region = step_remat(cfg.remat)
+    for spec in (cfg.dense_groups, cfg.einsum_groups):
+        if spec is not None:
+            dense_groups_include(spec)  # raises on a bad spec, before any step
+    lowered = weakref.WeakSet()
 
     def loss_dtype(t: torch.Tensor) -> torch.Tensor:
         # losses in float32 under autocast; otherwise in the model's dtype
@@ -162,10 +192,13 @@ def make_train_step(cfg: StepConfig) -> Callable[[TrainState, Dict[str, Any]],
         def judged(pyramids, name):
             return list(pyramids[_CRITIC_PYRAMID[name]][: depth_of[name] + 1])
 
+        if seg not in lowered and (cfg.dense_groups or cfg.einsum_groups):
+            lower_grouped_convs_(seg, cfg.dense_groups, cfg.einsum_groups)
+            lowered.add(seg)
         seg.train()
         state.seg_opt.zero_grad()
         with amp():
-            out = seg(batch["image"])
+            out = remat.run(region, seg, batch["image"])
         pyramids_native, agg_maps = adapt_segmentor_output(out)
         pyramids = tuple(tuple(loss_dtype(a) for a in p) for p in pyramids_native)
         target_c = batch.get("scribble_onehot_c", batch["scribble_onehot"])
@@ -227,6 +260,41 @@ def make_train_step(cfg: StepConfig) -> Callable[[TrainState, Dict[str, Any]],
         return losses
 
     return train_step
+
+
+def step_remat(mode):
+    """StepConfig.remat -> the region the step puts around the segmentor
+    forward (`ops.remat.run`'s mode): True and 'conv' as they are, nothing
+    for False and the block modes. Raises on anything else (the JAX step
+    would take any other true value for True)."""
+    if mode is None or mode is False:
+        return False
+    if mode is True or mode == "conv":
+        return mode
+    if isinstance(mode, str) and mode.startswith("block"):
+        return False
+    raise ValueError(f"unknown remat mode {mode!r}")
+
+
+def make_multi_step(train_step, k: int):
+    """k train steps per call (octave_tpu/train/steps.py:422-454): `batches`
+    holds each batch leaf with a leading (k, ...) axis (a stack of k
+    per-step batches); step i runs on index i. Returns the losses averaged
+    over the k steps, on the device."""
+    if k <= 1:
+        return train_step
+
+    def pick(leaf, i):
+        return [pick(x, i) for x in leaf] if isinstance(leaf, (list, tuple)) else leaf[i]
+
+    def multi_step(state: TrainState, batches: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        total = None
+        for i in range(k):
+            losses = train_step(state, {name: pick(v, i) for name, v in batches.items()})
+            total = losses if total is None else {n: total[n] + v for n, v in losses.items()}
+        return {n: v / k for n, v in total.items()}
+
+    return multi_step
 
 
 def make_eval_accumulate_step(num_classes: int = 2, threshold: float = 0.5):

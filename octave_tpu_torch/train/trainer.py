@@ -7,10 +7,15 @@ family (`unet`, with or without encoder gating; `parallel_head`;
 `parallel_head_gate` with its pair of critics), on the synthetic phantoms or
 a ROSE / OCTA-500 folder (ROSE with per-head targets for the dual decoders),
 with train-time augmentation, checkpoint and resume, a final save on SIGTERM
-and an optional profiler trace. The host never waits for a step unless it is
-`dispatch_ahead` steps ahead of the device, or logs. Options whose port is
-still to come raise NotImplementedError naming their ROADMAP item; none is
-ignored.
+and an optional profiler trace, and the memory and lowering switches:
+`train.remat` (the three parsers :34-86 turn its block modes into the
+segmentor's block remat), `train.dense_groups` / `train.einsum_groups` (the
+segmentor's grouped convs lowered when it is built), `optim.moment_dtype`
+(both players' optimizers) and `train.steps_per_call` (:311-312, :412-483:
+k batches per call, the step advancing by k, the log, checkpoint and eval
+cadences by `_crossed`). The host never waits for a call unless it is
+`dispatch_ahead` calls ahead of the device, or logs; it reads the SIGTERM
+flag of a data-parallel run once per call.
 
 With `train.data_parallel` the trainer is one rank of a process group that
 already exists (`cli train` spawns one, or torchrun describes one): every
@@ -24,6 +29,7 @@ exact counts over ranks.
 """
 from __future__ import annotations
 
+import itertools
 import logging
 import signal
 import time
@@ -38,13 +44,19 @@ from octave_tpu_torch.data import augment
 from octave_tpu_torch.data import datasets as ds
 from octave_tpu_torch.data.preprocess import prepare_batch
 from octave_tpu_torch.models.discriminator import DiscriminatorBlock
+from octave_tpu_torch.models.resnest import lower_grouped_convs_
 from octave_tpu_torch.models.segmentor import ARCHITECTURES, build_segmentor
 from octave_tpu_torch.ops.norm import synchronize_batch_norm
 from octave_tpu_torch.parallel import ddp
 from octave_tpu_torch.serve import resolve_device
-from octave_tpu_torch.train.schedule import make_optimizer, polynomial_decay
+from octave_tpu_torch.train.schedule import make_optimizer, moment_dtype_of, polynomial_decay
 from octave_tpu_torch.train.state import TrainState
-from octave_tpu_torch.train.steps import StepConfig, make_eval_accumulate_step, make_train_step
+from octave_tpu_torch.train.steps import (
+    StepConfig,
+    make_eval_accumulate_step,
+    make_multi_step,
+    make_train_step,
+)
 from octave_tpu_torch.utils import convert
 from octave_tpu_torch.utils.checkpoint import CheckpointManager
 from octave_tpu_torch.utils.config import Config
@@ -55,17 +67,55 @@ from octave_tpu_torch.utils.profiling import trace
 log = logging.getLogger("octave_tpu_torch")
 
 
-def _unported(cfg: Config) -> list:
-    """(setting, ROADMAP item) of every option set that the port lacks."""
-    m, d, o, t = cfg.model, cfg.data, cfg.optim, cfg.train
-    checks = [
-        (o.moment_dtype is not None, "optim.moment_dtype", "A.7"),
-        (t.remat not in (False, None), "train.remat", "A.7"),
-        (t.dense_groups is not None or t.einsum_groups is not None,
-         "train.dense_groups / einsum_groups", "A.7"),
-        (int(t.steps_per_call) > 1, "train.steps_per_call > 1", "A.7"),
-    ]
-    return [(name, item) for bad, name, item in checks if bad]
+def _parse_remat_blocks(remat) -> object:
+    """train.remat -> the segmentors' remat_blocks field (the port's copy of
+    octave_tpu/train/trainer.py::_parse_remat_blocks): 'block' -> True,
+    'block-enc' -> 'encoder', 'block:<digits>' -> that set of decoder depths
+    (the backbone always remated); anything else -> False (the step-level
+    modes False / True / 'conv' need no model-side wiring). A '+conv' suffix
+    and an 'e<digits>' encoder part are accepted and stripped."""
+    if isinstance(remat, str) and remat.endswith("+conv"):
+        remat = remat[: -len("+conv")]
+    if remat == "block":
+        return True
+    if remat == "block-enc":
+        return "encoder"
+    if isinstance(remat, str) and remat.startswith("block:"):
+        dec = remat[len("block:"):].split("e", 1)[0]
+        idx = frozenset(int(c) for c in dec) if dec.isdigit() else frozenset()
+        if not idx or not idx <= {0, 1, 2, 3, 4}:
+            raise ValueError(f"remat {remat!r}: decoder indices must be 0-4")
+        return idx
+    if isinstance(remat, str) and remat.startswith("block"):
+        raise ValueError(f"unknown remat mode {remat!r}")
+    return False
+
+
+def _parse_remat_enc_layers(remat) -> object:
+    """The optional 'e<digits>' part of 'block:<dec>e<enc>[+conv]' -> the
+    segmentors' remat_enc_layers field: the encoder layers (1-based, 1..4)
+    that stay remated; no 'e' part -> True (all). The port's copy of
+    octave_tpu/train/trainer.py::_parse_remat_enc_layers."""
+    if not (isinstance(remat, str) and remat.startswith("block:")):
+        return True
+    if remat.endswith("+conv"):
+        remat = remat[: -len("+conv")]
+    parts = remat[len("block:"):].split("e", 1)
+    if len(parts) == 1:
+        return True
+    enc = parts[1]
+    idx = frozenset(int(c) for c in enc) if enc.isdigit() else frozenset()
+    if not idx or not idx <= {1, 2, 3, 4}:
+        raise ValueError(f"remat {remat!r}: encoder layers must be 1-4")
+    return idx
+
+
+def _remat_saves_convs(remat) -> bool:
+    """A '+conv' suffix on a block mode ('block+conv', 'block:012+conv'): each
+    region keeps its conv outputs (the segmentors' remat_save_convs). The
+    port's copy of octave_tpu/train/trainer.py::_remat_saves_convs."""
+    return isinstance(remat, str) and remat.startswith("block") \
+        and remat.endswith("+conv")
 
 
 def is_dual(cfg: Config) -> bool:
@@ -104,11 +154,14 @@ class Trainer:
     the caller passes "cpu")."""
 
     def __init__(self, cfg: Config, device: str | torch.device = "cuda"):
-        unported = _unported(cfg)
-        if unported:
-            raise NotImplementedError("not ported yet: " + "; ".join(
-                f"{name} (ROADMAP {item})" for name, item in unported))
-        m = cfg.model
+        m, t = cfg.model, cfg.train
+        # the remat and lowering specs raise the JAX ValueErrors here, before
+        # any model is built
+        self.remat_kw = dict(remat_blocks=_parse_remat_blocks(t.remat),
+                             remat_save_convs=_remat_saves_convs(t.remat),
+                             remat_enc_layers=_parse_remat_enc_layers(t.remat))
+        moment_dtype_of(cfg.optim.moment_dtype)
+        self.steps_per_call = max(1, int(t.steps_per_call))
         if m.architecture not in ARCHITECTURES:
             raise ValueError(f"unknown model.architecture {m.architecture!r}; expected "
                              f"{' | '.join(repr(a) for a in ARCHITECTURES)}")
@@ -158,9 +211,12 @@ class Trainer:
             discriminator_depth=self.disc_depths.get("main", m.discriminator_depth),
             discriminator_depth_c=self.disc_depths.get("c", 1),
             compute_dtype=cfg.train.compute_dtype,
+            remat=t.remat,
+            dense_groups=t.dense_groups,
+            einsum_groups=t.einsum_groups,
             data_parallel=self.data_parallel,
         )
-        self.train_step = make_train_step(self.step_cfg)
+        self.train_step = make_multi_step(make_train_step(self.step_cfg), self.steps_per_call)
         self.eval_step = make_eval_accumulate_step(m.num_classes)
 
     # ------------------------------------------------------------------
@@ -176,19 +232,20 @@ class Trainer:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.train.seed)
             segmentor = build_segmentor(m.architecture, m.num_classes, self.gating_level,
-                                        encoder_gating=m.encoder_gating)
+                                        encoder_gating=m.encoder_gating, **self.remat_kw)
             critics = {}
             for name, depth in sorted(self.disc_depths.items()):
                 critics[name] = DiscriminatorBlock(
                     tuple(cfg.data.image_size), depth=depth, num_filters=m.num_filters,
                     instance_noise=m.instance_noise, label_noise=m.label_noise,
                     num_classes=m.num_classes)
+        lower_grouped_convs_(segmentor, cfg.train.dense_groups, cfg.train.einsum_groups)
         segmentor = segmentor.to(self.device).to(memory_format=torch.channels_last).train()
         synchronize_batch_norm(segmentor, self.data_parallel)
         seg_opt = make_optimizer(
             segmentor.parameters(),
             schedule=polynomial_decay(o.seg_lr, o.end_lr, o.decay_steps, o.power),
-            weight_decay=o.weight_decay, grad_clip=o.grad_clip)
+            weight_decay=o.weight_decay, grad_clip=o.grad_clip, moment_dtype=o.moment_dtype)
         critic = critic_opt = None
         if critics:
             critic = critics["main"] if set(critics) == {"main"} else nn.ModuleDict(
@@ -197,7 +254,7 @@ class Trainer:
             critic_opt = make_optimizer(
                 critic.parameters(),
                 schedule=polynomial_decay(o.disc_lr, o.end_lr, o.decay_steps, o.power),
-                grad_clip=o.grad_clip)
+                grad_clip=o.grad_clip, moment_dtype=o.moment_dtype)
         gen = torch.Generator(device=self.device).manual_seed(self.noise_seed(0))
         state = TrainState(segmentor=segmentor, seg_opt=seg_opt, critic=critic,
                            critic_opt=critic_opt, generator=gen)
@@ -255,16 +312,44 @@ class Trainer:
             augment_draws=augment_draws, scribble_c=host_batch.get("scribble_c"),
             device=self.device)
 
+    def call_batch(self, host_batches: list, first_step: int,
+                   aug_gen: Optional[torch.Generator] = None) -> Dict[str, object]:
+        """The device batch of one call of `train_step`: step first_step + i
+        takes host_batches[i] (this rank's rows of it) with, when `aug_gen`
+        is given, its augmentation draws from that generator seeded with
+        (train.seed + 7919, the step), so that a resumed run, or one with
+        another steps_per_call, draws what an uninterrupted one would. With
+        several steps per call each leaf is the (k, b, ...) stack of the
+        steps' batches."""
+        cfg = self.cfg
+        batches = []
+        for i, host in enumerate(host_batches):
+            draws = None
+            if aug_gen is not None:
+                aug_gen.manual_seed((cfg.train.seed + 7919) * 1_000_003 + first_step + i)
+                draws = augment.draw(aug_gen, host["image"].shape[0],
+                                     cfg.data.augment_intensity)
+            batches.append(self.device_batch(*self.shard(host, draws)))
+        if len(batches) == 1:
+            return batches[0]
+
+        def stack(leaves):
+            if isinstance(leaves[0], (list, tuple)):
+                return [torch.stack(level) for level in zip(*leaves)]
+            return torch.stack(leaves)
+
+        return {k: stack([b[k] for b in batches]) for k in batches[0]}
+
     # ------------------------------------------------------------------
     def fit(self, state: Optional[TrainState] = None) -> TrainState:
         cfg = self.cfg
         state = state if state is not None else self.init_state()
         lead = self.rank == 0  # logs and writes; every rank steps
 
-        # preemption: a SIGTERM ends the loop at a step boundary, and the
+        # preemption: a SIGTERM ends the loop at a call boundary, and the
         # final save below keeps what was trained. Under data parallelism a
-        # rank's flag is all-reduced with each step and read where the host
-        # waits for that step anyway, so every rank stops at the same step
+        # rank's flag is all-reduced with each call and read where the host
+        # waits for that call anyway, so every rank stops at the same step
         preempted = {"flag": False}
 
         def on_sigterm(signum, frame):
@@ -285,13 +370,20 @@ class Trainer:
                 if lead:
                     log.info("resumed from step %d", state.step)
 
-        # a resumed run goes on with the batch an uninterrupted one takes next
-        it = ds.batch_iterator(build_dataset(cfg, "train"), cfg.data.batch_size,
-                               seed=cfg.train.seed, start=state.step)
-        # the augmentation draws of step s come from a generator seeded with
-        # (train.seed + 7919, s): a resumed run draws what an uninterrupted
-        # one would. They are drawn for the global batch on every rank.
+        # a resumed run goes on with the batch an uninterrupted one takes
+        # next; a call takes k = steps_per_call of them
+        k = self.steps_per_call
+        batches = ds.batch_iterator(build_dataset(cfg, "train"), cfg.data.batch_size,
+                                    seed=cfg.train.seed, start=state.step)
+        calls = iter(lambda: list(itertools.islice(batches, k)), [])
+        # augmentation draws per step (`call_batch`), for the global batch on
+        # every rank
         aug_gen = torch.Generator(device=self.device) if cfg.data.augment else None
+
+        def crossed(step: int, every: int) -> bool:
+            # a cadence boundary crossed by this call: step % every == 0 at k = 1
+            return every > 0 and step // every > (step - k) // every
+
         mlog = MetricsLogger(cfg.train.log_dir) if cfg.train.log_dir and lead else None
         timer = StepTimer()
         ahead = max(0, int(cfg.train.dispatch_ahead))
@@ -301,22 +393,17 @@ class Trainer:
         t0 = time.perf_counter()
         try:
             with trace(cfg.train.profile_dir):
-                for host_batch in it:
-                    if state.step >= cfg.train.steps:
+                for host_batches in calls:
+                    if state.step >= cfg.train.steps or len(host_batches) < k:
                         break
                     if stop or (preempted["flag"] and not self.data_parallel):
                         log.warning("SIGTERM received: saving and stopping at step %d",
                                     state.step)
                         break
-                    draws = None
-                    if aug_gen is not None:
-                        aug_gen.manual_seed((cfg.train.seed + 7919) * 1_000_003 + state.step)
-                        draws = augment.draw(aug_gen, host_batch["image"].shape[0],
-                                             cfg.data.augment_intensity)
-                    losses = self.train_step(state, self.device_batch(*self.shard(host_batch,
-                                                                                  draws)))
+                    losses = self.train_step(state, self.call_batch(host_batches, state.step,
+                                                                    aug_gen))
                     if cfg.train.debug_nans:
-                        bad = [k for k, v in losses.items() if not bool(torch.isfinite(v))]
+                        bad = [n for n, v in losses.items() if not bool(torch.isfinite(v))]
                         if bad:
                             raise FloatingPointError(f"non-finite {bad} at step {state.step}")
                     flag = None
@@ -324,7 +411,7 @@ class Trainer:
                         flag = ddp.all_reduce_max(torch.full(
                             (1,), float(preempted["flag"]), device=self.device))
                     if self.device.type == "cuda":
-                        # bound the host's run-ahead: wait for the oldest step
+                        # bound the host's run-ahead: wait for the oldest call
                         done = torch.cuda.Event()
                         done.record()
                         inflight.append((done, flag))
@@ -337,23 +424,22 @@ class Trainer:
                     timer.tick()
                     window.append(losses)
                     step = state.step
-                    if cfg.train.log_every > 0 and step % cfg.train.log_every == 0:
+                    if crossed(step, cfg.train.log_every):
                         if lead:
-                            mean = {k: float(torch.stack([l[k] for l in window]).float().mean())
-                                    for k in window[-1]}
+                            mean = {n: float(torch.stack([l[n] for l in window]).float().mean())
+                                    for n in window[-1]}
                             dt = time.perf_counter() - t0
-                            ips = cfg.data.batch_size * len(window) / dt
+                            ips = cfg.data.batch_size * k * len(window) / dt
                             log.info("step %d  %s  %.1f img/s", step,
-                                     "  ".join(f"{k}={v:.4f}" for k, v in mean.items()), ips)
+                                     "  ".join(f"{n}={v:.4f}" for n, v in mean.items()), ips)
                             if mlog is not None:
                                 mlog.log(step, {**mean, "img_per_s_wall": ips,
-                                                **timer.stats(cfg.data.batch_size)},
+                                                **timer.stats(cfg.data.batch_size * k)},
                                          prefix="train/")
                         window, t0 = [], time.perf_counter()
-                    if (ckpt is not None and cfg.train.checkpoint_every > 0
-                            and step % cfg.train.checkpoint_every == 0):
+                    if ckpt is not None and crossed(step, cfg.train.checkpoint_every):
                         ckpt.save(step, state)
-                    if cfg.train.eval_every > 0 and step % cfg.train.eval_every == 0:
+                    if crossed(step, cfg.train.eval_every):
                         self.evaluate(state)
         finally:
             if ckpt is not None:

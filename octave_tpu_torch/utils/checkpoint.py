@@ -68,9 +68,10 @@ def load_state_dict_into(state, saved: Dict[str, Any]):
     """Restore `saved` (of `state_to_dict`) into a freshly built TrainState
     of the same configuration, in place. Tensors land on the devices and in
     the layouts the fresh state already has: module tensors are copied into
-    the existing ones, the optimizers cast their moments to their
-    parameters' device, and a schedule takes only its counters (its lambda
-    was rebuilt from the config)."""
+    the existing ones, the optimizers move their moments to their
+    parameters' device in the dtype each was saved in (a bf16 `exp_avg`
+    stays bf16), and a schedule takes only its counters (its lambda was
+    rebuilt from the config)."""
     for name in ("critic", "critic_opt", "generator"):
         if (saved[name] is None) != (getattr(state, name) is None):
             raise ValueError(f"checkpoint and state disagree on having a {name}")
@@ -81,11 +82,24 @@ def load_state_dict_into(state, saved: Dict[str, Any]):
         opt = getattr(state, name)
         if opt is not None:
             opt.opt.load_state_dict(saved[name]["opt"])
+            _keep_saved_dtypes(opt.opt, saved[name]["opt"]["state"])
             opt.sched.load_state_dict(saved[name]["sched"])
     if state.generator is not None:
         state.generator.set_state(saved["generator"].cpu())
     state.step = int(saved["step"])
     return state
+
+
+def _keep_saved_dtypes(opt: torch.optim.Optimizer, saved_state: Dict[int, Any]) -> None:
+    """torch's Optimizer.load_state_dict casts floating state to its
+    parameter's dtype: give each state tensor back the dtype it was saved
+    in (exact: the cast up was exact)."""
+    params = [p for group in opt.param_groups for p in group["params"]]
+    for index, st in saved_state.items():
+        live = opt.state[params[index]]
+        for key, value in st.items():
+            if torch.is_tensor(value) and live[key].dtype != value.dtype:
+                live[key] = live[key].to(value.dtype)
 
 
 def _to_host(obj: Any) -> Any:

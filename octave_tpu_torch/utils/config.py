@@ -3,10 +3,9 @@
 
 The port's own copy of `octave_tpu/utils/config.py` (:14-188): the same
 fields, defaults, JSON/YAML loading and dotted overrides, so one config file
-drives either package. Fields that name work the port has not done yet
-(remat, the lowering switches, the optimizer's moment dtype, ...) are kept
-so such files load; `train.trainer.Trainer` raises NotImplementedError on
-any of them set.
+drives either package. `train.trainer.Trainer` takes every field as the
+JAX trainer does, but for `train.compute_dtype`, where it runs None (float32)
+and 'bfloat16' only and raises NotImplementedError on any other.
 """
 from __future__ import annotations
 
@@ -59,7 +58,7 @@ class OptimConfig:
     decay_steps: int = 10_000
     weight_decay: float = 0.0
     grad_clip: Optional[float] = None
-    # 'bfloat16': Adam first moment in bf16 (JAX package only)
+    # None | 'float32' | 'bfloat16': the Adam first moment's stored dtype
     moment_dtype: Optional[str] = None
 
 
@@ -77,10 +76,10 @@ class TrainConfig:
     steps: int = 1000
     eval_every: int = 200
     log_every: int = 50
-    # train steps per device dispatch in the JAX package; the port runs 1
+    # train steps per call of the step function (k batches per call)
     steps_per_call: int = 1
-    # train steps the host may run ahead of the device before it waits for
-    # the oldest (trainer.fit); 0 waits for every step
+    # calls the host may run ahead of the device before it waits for the
+    # oldest (trainer.fit); 0 waits for every call
     dispatch_ahead: int = 2
     checkpoint_dir: Optional[str] = None
     checkpoint_every: int = 500
@@ -90,9 +89,11 @@ class TrainConfig:
     profile_dir: Optional[str] = None
     log_dir: Optional[str] = None
     compute_dtype: Optional[str] = None  # None (float32) | 'bfloat16'
-    # JAX-only memory and lowering switches (octave_tpu/train/steps.py
-    # StepConfig); the port takes only their defaults
+    # False | True | 'conv' | 'block' | 'block-enc' | 'block:<depths>[e<layers>]'
+    # [+conv]: recomputed regions (train/steps.py StepConfig.remat)
     remat: Any = False
+    # None | 'all' | 'decoder' | 'decoder:<digits>' | 'enc' | '+'-combos:
+    # grouped convs lowered dense / as shifted matmuls (models/resnest.py)
     dense_groups: Optional[str] = None
     einsum_groups: Optional[str] = None
     debug_nans: bool = False

@@ -471,3 +471,79 @@ def test_int8_predictor_on_card(cuda, batch):
     assert got.shape == cpu.shape == (batch, 304, 304, 2) and np.isfinite(got).all()
     for want in (plain, cpu):
         assert float((got.argmax(-1) == want.argmax(-1)).mean()) >= 0.99
+
+
+# -- the memory and lowering switches on the card ---------------------------------
+@pytest.mark.parametrize("mode,aag", [(True, 10), ("conv", 10), ("block:012+conv", 5)])
+def test_remat_step_on_card(cuda, mode, aag):
+    """One remat step on the card (float32, TF32 off, 64², B = 2) against
+    remat=False from the same state and batch: the same losses (the forward
+    is the same), gradients within 1e-3 by relative L2 (a wrong recompute
+    moves them by O(1); the BNs over few values at 64² amplify the card's
+    nondeterministic sums), BN running statistics within 1e-6 of remat=False's
+    and `num_batches_tracked` 1 (a second update in the recompute would move
+    the statistics by about the momentum), and the AAG kernel launched again
+    in the recompute of the modes whose region holds the gates."""
+    from octave_tpu_torch.data import datasets as ds
+    from octave_tpu_torch.ops.kernels import launch_counts
+    from octave_tpu_torch.train.trainer import build_dataset
+
+    quiet = {"model.instance_noise": "false", "model.label_noise": "false"}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = {}
+        for m in (False, mode):
+            tr = _small_trainer(cuda, **{"train.remat": str(m).lower(), **quiet})
+            state = tr.init_state()
+            batch = tr.device_batch(next(ds.batch_iterator(build_dataset(tr.cfg), 2, seed=0)))
+            launch_counts(reset=True)
+            losses = tr.train_step(state, batch)
+            torch.cuda.synchronize()
+            runs[m] = (launch_counts()["aag"], {k: float(v) for k, v in losses.items()},
+                       [p.grad.double().cpu() for p in state.segmentor.parameters()],
+                       {n: b.double().cpu() for n, b in state.segmentor.named_buffers()})
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (n0, l0, g0, b0), (n1, l1, g1, b1) = runs[False], runs[mode]
+    assert n0 == 5 and n1 == aag
+    assert l1 == pytest.approx(l0, rel=1e-6)
+    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(g1, g0))
+    assert (num / sum(float((b ** 2).sum()) for b in g0)) ** 0.5 < 1e-3
+    for name, want in b0.items():
+        if name.endswith("num_batches_tracked"):
+            assert int(b1[name]) == int(want) == 1, name
+        else:
+            torch.testing.assert_close(b1[name], want, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("lowering", ["dense", "einsum"])
+def test_grouped_conv_lowerings_on_card_equal_cpu(cuda, gen, lowering):
+    """The block-diagonal dense and the einsum lowering of a decoder SplAt
+    conv (64 -> 128 channels, 3x3, groups 4, bias) give the CPU's output and
+    gradients on the card, float32 with TF32 off, within float32 summation
+    order (1e-5 of the largest value)."""
+    from octave_tpu_torch.models.resnest import lower_grouped_convs_
+
+    x0 = torch.from_numpy(gen.standard_normal((2, 64, 19, 19), dtype=np.float32))
+    gy0 = torch.from_numpy(gen.standard_normal((2, 128, 19, 19), dtype=np.float32))
+    torch.manual_seed(0)
+    base = torch.nn.Conv2d(64, 128, 3, 1, 1, groups=4)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        results = []
+        for dev in ("cpu", cuda):
+            conv = torch.nn.Conv2d(64, 128, 3, 1, 1, groups=4)
+            conv.load_state_dict(base.state_dict())
+            conv = lower_grouped_convs_(torch.nn.Sequential(conv), **{lowering: "all"})[0]
+            conv = conv.to(dev).to(memory_format=torch.channels_last)
+            x = x0.to(dev).contiguous(memory_format=torch.channels_last).requires_grad_()
+            out = conv(x)
+            out.backward(gy0.to(dev))
+            results.append([t.detach().cpu() for t in (out, x.grad, conv.weight.grad,
+                                                       conv.bias.grad)])
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for got, want in zip(results[1], results[0]):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))

@@ -25,7 +25,9 @@ group (`_rank_checks`) and hands back what the main process compares:
     after each resume agrees with the single-device step within the bounds
     above;
   * a SIGTERM on one rank stops both at the same step (during the resumed
-    run from the 2-rank checkpoint).
+    run from the 2-rank checkpoint);
+  * train.remat='conv' with train.steps_per_call=2 trains the 2 steps bit
+    for bit as the plain 2-rank run.
 Checkpoints (~0.9 GB each) are copied as hard links: a save writes a new
 step directory and renames it into place, never into a restored file.
 """
@@ -286,6 +288,13 @@ def _rank_checks(device, work: str, jax_variables) -> dict:
         out["first"] = {k: v.numpy() for k, v in first.items()}
         out["losses"] = _losses(work / "log_dp")
 
+    # the same 2 steps as one call, with the whole forward one recomputed
+    # region that keeps its conv outputs (the synchronised BN all-reduces
+    # again in the recompute, under the selective checkpoint's dispatch)
+    cfg = _trainer_cfg(**{"train.data_parallel": "true", "train.n_devices": str(n),
+                          "train.remat": "conv", "train.steps_per_call": "2"})
+    out["digest_switches"] = _digest(Trainer(cfg, device=device).fit())
+
     # evaluate: sharded with a padded tail, and the single-device evaluate
     out["eval_dp"] = trainer.evaluate(state)
     if r == 0:
@@ -504,6 +513,14 @@ def test_trainer_two_ranks_match_one_device(runs):
     for k, v in first.items():
         if not k.startswith("grad:"):
             np.testing.assert_allclose(got[k], v, rtol=BN_RTOL, atol=BN_ATOL, err_msg=k)
+
+
+def test_remat_and_steps_per_call_change_nothing_on_two_ranks(runs):
+    """train.remat='conv' with train.steps_per_call=2 on 2 ranks trains what
+    the plain 2-rank run trains, bit for bit: the recompute repeats the
+    forward and its all-reduces, the BN statistics update once."""
+    res = runs[2]
+    assert res[0]["digest_switches"] == res[1]["digest_switches"] == res[0]["digest"]
 
 
 def test_evaluate_ragged_tail_equals_one_device(runs):

@@ -1,8 +1,8 @@
 """The port's Trainer, CLI and metrics on the CPU.
 
 A 2-step `Trainer.fit` plus `evaluate` at 32² on the synthetic phantoms,
-the `train` command line, the options the port does not have yet (each
-must raise, naming its ROADMAP item) and those it has, the CUDA default, the bf16 step under
+the `train` command line, the options the port does not have (each must
+raise) and those it has, the CUDA default, the bf16 step under
 CPU autocast, and the metric accumulators against the JAX package's.
 """
 import json
@@ -70,16 +70,6 @@ def test_weak_only_and_depth_clamp():
 
 
 @pytest.mark.parametrize("override,item", [
-    ({"train.remat": "block-enc"}, "A.7"),
-    ({"train.remat": "block:012"}, "A.7"),
-    ({"optim.moment_dtype": "bfloat16"}, "A.7"),
-    ({"optim.moment_dtype": "float32"}, "A.7"),
-    ({"train.remat": "block"}, "A.7"),
-    ({"train.dense_groups": "decoder"}, "A.7"),
-    ({"train.einsum_groups": "decoder"}, "A.7"),
-    ({"train.steps_per_call": "2"}, "A.7"),
-    ({"train.remat": "conv"}, "A.7"),
-    ({"train.dense_groups": "all"}, "A.7"),
     ({"train.compute_dtype": "float16"}, None),
 ])
 def test_unported_options_raise(override, item):
@@ -99,10 +89,21 @@ def test_unported_options_raise(override, item):
     {"model.architecture": "parallel_head"},
     {"model.encoder_gating": "true"},
     {"model.architecture": "parallel_head_gate"},
+    {"train.remat": "block-enc"},
+    {"train.remat": "block:012"},
+    {"optim.moment_dtype": "bfloat16"},
+    {"optim.moment_dtype": "float32"},
+    {"train.remat": "block"},
+    {"train.dense_groups": "decoder"},
+    {"train.einsum_groups": "decoder"},
+    {"train.steps_per_call": "2"},
+    {"train.remat": "conv"},
+    {"train.dense_groups": "all"},
 ])
 def test_ported_options_are_accepted(override):
-    """What the deployment and model-family slices ported no longer raises
-    at construction."""
+    """What the deployment, model-family and memory-switch slices ported no
+    longer raises at construction (tests/test_torch_switches.py trains
+    each switch)."""
     Trainer(_cfg(**override), device="cpu")
 
 
