@@ -6,10 +6,12 @@ serving and training paths on one NVIDIA GPU. Run from the repository root:
 
 Phases, each printing its own lines:
   1. build   - compile both Triton kernels from this checkout's sources into
-               build/triton (emptied first) and time the build;
+               build/triton (emptied first) in float32, bfloat16 and float16
+               and time the build;
   2. kernels - each kernel against its plain PyTorch version at the five
-               decoder shapes of the 304² forward, in float32 with B = 8 and
-               in bfloat16 with B = 8 and B = 32 (the serving batch), with
+               decoder shapes of the 304² forward, in float32 with B = 8,
+               in bfloat16 with B = 8 and B = 32 (the serving batch) and in
+               float16 with B = 8, with
                median times (L2 flushed before every launch) and the byte
                bound; the kernels JSON line carries the bf16 B = 32 figures;
   3. golden  - the port's ResnestUNet in float32 (TF32 off) at 304² on the
@@ -28,7 +30,9 @@ Phases, each printing its own lines:
                Trainer.fit for 3 steps and evaluate, the main path, with the
                AAG launches counted (5 per train step, 5 per eval batch);
                the AAG Function's forward and backward at the five train
-               shapes against the plain formula; one float32 step (TF32 off,
+               shapes against the plain formula, x in float32 and bf16 and,
+               as the step under autocast calls it, float32 x gated in bf16
+               and in float16; one float32 step (TF32 off,
                noise off, B = 2) against the same step on the CPU through the
                plain AAG; one bf16 step against one float32 step; 20 bf16
                steps on one batch (finite, all four kinds of state move,
@@ -118,7 +122,24 @@ Phases, each printing its own lines:
                (logged steps, the checkpoint cadence crossed at step 4, 25
                AAG launches, restore equal to the checkpoint with exp_avg in
                bf16, `cli eval --checkpoint` printing train's metrics);
-               Trainer.fit img/s at steps_per_call 1, 2 and 4 in turns.
+               Trainer.fit img/s at steps_per_call 1, 2 and 4 in turns;
+ 11. surface  - the rest of the JAX package's surface: one float16 `unet`
+               step at 304², B = 8 (noise off) against float32 from the same
+               state and batch (losses 5%, 5 AAG launches gating in float16,
+               the largest float16 logits), 10 float16 steps (finite,
+               loss_sup falls), float16 and bf16 step ms and peak memory in
+               turns, `cli train train.compute_dtype=float16` for 2 steps on
+               a ROSE tree of PNGs; `Predictor(mesh=make_mesh())` and
+               `Predictor(mesh=(cuda:0, cuda:0))` against the single
+               Predictor (argmax agreement >= 0.999, 5 epilogue launches per
+               replica per call, 20 per replica for predict_many k = 4), a
+               BatchServer flood of 128 through the two replicas in order,
+               img/s in turns, torch.cuda.device_count(); the Predictor under
+               set_conv_transpose_impl("einsum") against "native" (agreement,
+               5 launches, img/s in turns) and the five Upsampling shapes of
+               a 304², B = 8 forward timed under each lowering; a float16
+               Predictor (5 epilogue launches in float16, agreement with
+               bf16 >= 0.995).
 Exits non-zero, before printing any result, without CUDA or outside a
 checkout of the repository; any failed check
 raises. The last three lines are the kernels JSON, the card's name and power
@@ -145,7 +166,7 @@ FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 DEPTHS = [(304, 304, 32), (152, 152, 64), (76, 76, 256), (38, 38, 512), (19, 19, 1024)]
 SERVE_B = 32
 # (dtype, batch) of the kernel comparisons; the JSON line reports the last
-CASES = [("float32", 8), ("bfloat16", 8), ("bfloat16", SERVE_B)]
+CASES = [("float32", 8), ("bfloat16", 8), ("float16", 8), ("bfloat16", SERVE_B)]
 K = 2
 # bf16 serving paths among themselves (fused vs AAG kernel, predict_many vs
 # __call__, mask_u8 vs prob_f32)
@@ -400,7 +421,7 @@ def main() -> int:
                                  source="octave_tpu_torch/ops/kernels/triton_decoder_epilogue.py",
                                  replaces="octave_tpu/ops/pallas/decoder_epilogue.py:131"),
     }
-    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     # -- 1. build ---------------------------------------------------------
@@ -419,8 +440,8 @@ def main() -> int:
 
     # -- 2. kernels against their plain versions ---------------------------
     timer = Timer(torch)
-    totals = {n: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, bytes=0, by=set())
-              for n in kernels}
+    totals = {(n, case): dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, bytes=0, by=set())
+              for n in kernels for case in CASES}
     for name, kern in kernels.items():
         for dname, bsz in CASES:
             dt = dtypes[dname]
@@ -446,19 +467,19 @@ def main() -> int:
                     f"y_hat {errs[1]:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                     f"bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB, "
                     f"{nbytes / ms / 1e6:.0f} GB/s achieved)")
-                if (dname, bsz) == CASES[-1]:  # serving dtype and batch: the JSON line
-                    t = totals[name]
-                    t["ms"] += ms
-                    t["plain_ms"] += plain_ms
-                    t["bound_ms"] += b_ms
-                    t["bytes"] += nbytes
-                    t["by"].add(b_by)
-                    t["err"] = max(t["err"], *errs)
+                t = totals[(name, (dname, bsz))]  # the JSON line takes CASES[-1]'s
+                t["ms"] += ms
+                t["plain_ms"] += plain_ms
+                t["bound_ms"] += b_ms
+                t["bytes"] += nbytes
+                t["by"].add(b_by)
+                t["err"] = max(t["err"], *errs)
                 del args, out, yhat, ref_out, ref_yhat
-    for name, t in totals.items():
-        log(f"[kernels] {name} bf16, five depths, B={SERVE_B}: kernel {t['ms']:.4f} ms, plain "
+    for (name, (dname, bsz)), t in totals.items():
+        log(f"[kernels] {name} {dname}, five depths, B={bsz}: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
             f"({t['bound_ms'] / t['ms']:.1%} of bound)")
+    totals = {name: totals[(name, CASES[-1])] for name in kernels}
 
     # -- 3. reference parity at 304² in float32 -----------------------------
     torch.backends.cudnn.allow_tf32 = False
@@ -604,6 +625,11 @@ def main() -> int:
     for name, paths in phase_switches(torch, smi, weights, images, serve).items():
         by_path[name].update(paths)
 
+    # -- 11. the rest of the surface: float16, the fan-out, ConvTranspose ----
+    torch.cuda.empty_cache()
+    for name, paths in phase_surface(torch, smi, weights, images, serve).items():
+        by_path[name].update(paths)
+
     line = {"kernels": [
         {"name": name, "route": "triton", "source": kern["source"],
          "replaces": kern["replaces"], "launches": launches[name],
@@ -631,6 +657,20 @@ TRAIN_GRAD_L2 = {"segmentor": 0.05, "critic": 1e-3}
 BF16_LOSS_RTOL = 0.05
 TRAIN_SHAPES = [(8, 304, 304, 32), (8, 152, 152, 64), (8, 76, 76, 256), (8, 38, 38, 512),
                 (8, 19, 19, 1024)]
+
+
+def aag_autocast_ref(x, w, b, cast):
+    """The gate as the train step under autocast computes it, for a float64
+    x, w, b: logits, y_hat and mask from x rounded to `cast`, and (x*mask,
+    y_hat) differentiated as the kernel's backward does it, through x
+    itself (g_x = g_out*mask + g_z W^T, g_w = x^T g_z); and the logits,
+    whose `.grad` after the backward is g_z."""
+    import torch
+    shift = (x.detach().to(cast).double() - x.detach()) @ w.detach()  # what rounding x moves
+    logits = x @ w + b + shift
+    logits.retain_grad()
+    yhat = torch.softmax(logits, dim=-1)
+    return x * yhat[..., 1:].sum(dim=-1, keepdim=True), yhat, logits
 
 
 def phase_train(torch, smi, fused_aag, fused_aag_plain, fused_decoder_epilogue,
@@ -687,40 +727,65 @@ def phase_train(torch, smi, fused_aag, fused_aag_plain, fused_decoder_epilogue,
     check(got["aag"] == 5 and finite(losses), f"one train step: launches {got}, losses {losses}")
     del tr, state, batch, losses
 
-    # 5b. the AAG Function inside autograd at the train shapes; bf16 bound:
-    # y_hat is kept in bf16 from forward to backward and g_w, g_b sum
-    # cancelling terms over every pixel
+    # 5b. the AAG Function inside autograd at the train shapes: x in dt, and,
+    # as the train step under autocast calls it, float32 x gated in the
+    # autocast dtype (x*mask in that dtype, y_hat float32, the backward in
+    # float32 from x itself). Gradient bounds: bf16's y_hat is kept in bf16
+    # from forward to backward and g_w, g_b sum cancelling terms over every
+    # pixel; under autocast the backward is float32 math on float32 values,
+    # held to the float64 formula of the same function (`aag_autocast_ref`:
+    # its y_hat from x rounded once), so float32's bound. There g_b, whose
+    # two entries are opposite sums over every pixel that may cancel to near
+    # zero, is held relative to the sum of its terms' magnitudes, the scale
+    # that float32 summation error follows
     gen = torch.Generator(device="cuda").manual_seed(1)
     worst = {}
-    for dt, share in ((torch.float32, 1e-4), (torch.bfloat16, 2**-5)):
+    cases = ((torch.float32, None, 1e-4), (torch.bfloat16, None, 2**-5),
+             (torch.float32, torch.bfloat16, 1e-4), (torch.float32, torch.float16, 1e-4))
+    for dt, cast, share in cases:
+        label = str(dt)[6:] + (f" autocast {str(cast)[6:]}" if cast else "")
         for shape in TRAIN_SHAPES:
             c = shape[-1]
             x = torch.randn(shape, generator=gen, device="cuda").to(dt).requires_grad_()
             w = (torch.randn(c, 2, generator=gen, device="cuda") * 0.1).requires_grad_()
             b = (torch.randn(2, generator=gen, device="cuda") * 0.1).requires_grad_()
-            g_out = torch.randn(shape, generator=gen, device="cuda").to(dt)
-            g_yhat = torch.randn(shape[:-1] + (2,), generator=gen, device="cuda").to(dt)
-            out, yhat = fused_aag(x, w, b)
+            g_out = torch.randn(shape, generator=gen, device="cuda").to(cast or dt)
+            g_yhat = torch.randn(shape[:-1] + (2,), generator=gen,
+                                 device="cuda").to(torch.float32 if cast else dt)
+            out, yhat = fused_aag(x, w, b, cast)
             torch.autograd.backward((out, yhat), (g_out, g_yhat))
             ref = [t.detach().double().requires_grad_() for t in (x, w, b)]
-            r_out, r_yhat = fused_aag_plain(*ref)
+            r_out, r_yhat, *r_z = (aag_autocast_ref(*ref, cast) if cast
+                                   else fused_aag_plain(*ref))
             torch.autograd.backward((r_out, r_yhat), (g_out.double(), g_yhat.double()))
             (tol_o, tol_y) = kernel_tolerance("aag", dt, c)
-            for got_t, want, (atol, rtol) in ((out, r_out, tol_o), (yhat, r_yhat, tol_y)):
-                d = (got_t.double() - want.detach()).abs()
-                check(bool((d <= atol + rtol * want.detach().abs()).all()),
-                      f"AAG forward {dt} {shape}: max err {d.max().item():.3g}")
+            want_o, want_y = r_out.detach(), r_yhat.detach()
+            if cast:
+                check(out.dtype == cast and yhat.dtype == torch.float32,
+                      f"AAG {label}: outputs {out.dtype} {yhat.dtype}")
+                want_o, want_y = (t.double() for t in fused_aag_plain(
+                    x.detach().to(cast), w.detach(), b.detach(), yhat_dtype=torch.float32))
+                tol_o, tol_y = kernel_tolerance("aag", cast, c)[0], tol_y
+            for got_t, want, (atol, rtol) in ((out, want_o, tol_o), (yhat, want_y, tol_y)):
+                d = (got_t.double() - want).abs()
+                check(bool((d <= atol + rtol * want.abs()).all()),
+                      f"AAG forward {label} {shape}: max err {d.max().item():.3g}")
             check(x.grad.dtype == dt and w.grad.dtype == b.grad.dtype == torch.float32,
                   f"AAG grads dtypes {x.grad.dtype} {w.grad.dtype} {b.grad.dtype}")
             for name, got_g, want in (("g_x", x.grad, ref[0].grad), ("g_w", w.grad, ref[1].grad),
                                       ("g_b", b.grad, ref[2].grad)):
-                err = float((got_g.double() - want).abs().max() / want.abs().max())
-                worst[(dt, name)] = max(worst.get((dt, name), 0.0), err)
-                check(err <= share, f"AAG {name} {dt} {shape}: {err:.3g} of max > {share}")
-            del x, w, b, out, yhat, ref, r_out, r_yhat, g_out, g_yhat
+                scale = want.abs().max()
+                if cast and name == "g_b":  # the float64 logits' gradient, summed as |.|
+                    scale = r_z[0].grad.abs().reshape(-1, 2).sum(dim=0).max()
+                err = float((got_g.double() - want).abs().max() / scale)
+                worst[(label, name)] = max(worst.get((label, name), 0.0), err)
+                check(err <= share, f"AAG {name} {label} {shape}: {err:.3g} of "
+                      f"{float(scale):.4g} > {share}")
+            del x, w, b, out, yhat, ref, r_out, r_yhat, r_z, g_out, g_yhat, want_o, want_y
     log("[train] AAG kernel forward + backward vs the float64 plain formula at the five "
-        "train shapes (B=8): worst |err| / max|grad| "
-        + ", ".join(f"{str(dt)[6:]} {n} {e:.2e}" for (dt, n), e in worst.items()))
+        "train shapes (B=8; under autocast the forward vs the plain formula on x rounded, "
+        "the backward vs aag_autocast_ref): worst |err| / max|grad| (g_b under autocast: / "
+        "sum of |g_z|) " + ", ".join(f"{lb} {n} {e:.2e}" for (lb, n), e in worst.items()))
 
     # 5c. kernel against plain: one float32 step on the card and on the CPU
     torch.backends.cudnn.allow_tf32 = False
@@ -2722,6 +2787,338 @@ def _switches(torch, smi, weights, images, serve, tmp):
     torch.cuda.empty_cache()
     log(f"[switches] phase 10 took {time.time() - t_phase:.1f} s")
     log(json.dumps({"switches": summary}))
+    return paths
+
+
+# surface-phase bounds: float16 against float32 losses as phase 5 holds bf16
+F16_LOSS_RTOL = BF16_LOSS_RTOL
+SURFACE_FLOOD = 128
+
+
+def phase_surface(torch, smi, weights, images, serve):
+    """Phase 11: the rest of the JAX package's surface. Returns {kernel:
+    {path: launches}} of its runs."""
+    tmp = tempfile.mkdtemp(prefix="octave_surface_")
+    try:
+        return _surface(torch, smi, weights, images, serve, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _surface(torch, smi, weights, images, serve, tmp):
+    import numpy as np
+
+    from octave_tpu_torch.data import datasets as ds
+    from octave_tpu_torch.models.segmentor import ResnestUNet
+    from octave_tpu_torch.ops import common
+    from octave_tpu_torch.ops.kernels import aag as aag_mod
+    from octave_tpu_torch.ops.kernels import launch_counts
+    from octave_tpu_torch.parallel.mesh import make_mesh
+    from octave_tpu_torch.serve import BatchServer, Predictor
+    from octave_tpu_torch.train.trainer import Trainer, build_dataset
+    from octave_tpu_torch.utils.config import Config
+    from octave_tpu_torch.utils.imageio import write_png_gray
+
+    paths = {"aag": {}, "decoder_epilogue": {}}
+    summary = {"device": smi, "device_count": torch.cuda.device_count()}
+    t_phase = time.time()
+
+    def counted(label, fn, want):
+        """fn() with the launch counts zeroed just before it and read just after."""
+        launch_counts(reset=True)
+        result = fn()
+        torch.cuda.synchronize()
+        got = launch_counts()
+        log(f"[surface] {label}: launches {got} (expected {want})")
+        check(got == want, f"{label}: launch counts {got}, expected {want}")
+        for name, n in got.items():
+            if n:
+                paths[name][label] = n
+        return result
+
+    def wall(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    # 11.1 float16 training: one unet step from the default Config (304²,
+    # B = 8, noise off) in float16 against float32 (TF32 off) from the same
+    # seeded state and batch, through the AAG kernel in float16
+    def trainer(dtype, **extra):
+        over = {"data.synthetic_n": "8", "data.batch_size": "8", "model.instance_noise": "false",
+                "model.label_noise": "false", "train.eval_every": "0", "train.log_every": "0",
+                **extra}
+        if dtype:
+            over["train.compute_dtype"] = dtype
+        return Trainer(Config().apply_overrides(over), device="cuda")
+
+    def batch_of(tr):
+        host = next(ds.batch_iterator(build_dataset(tr.cfg), tr.cfg.data.batch_size, seed=0))
+        return tr.device_batch(host)
+
+    seen = []
+    launch = aag_mod._launch
+
+    def recording(x, w, b, out_dtype, yhat_dtype):
+        seen.append(out_dtype)  # the dtype the kernel rounds x to and gates in
+        return launch(x, w, b, out_dtype, yhat_dtype)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        f32, f16 = trainer(None), trainer("float16")
+        l32 = f32.train_step(f32.init_state(), batch_of(f32))
+        state16 = f16.init_state()
+        batch16 = batch_of(f16)
+        aag_mod._launch = recording
+        try:
+            l16 = counted("float16 unet step (304², B=8)",
+                          lambda: f16.train_step(state16, batch16),
+                          {"aag": 5, "decoder_epilogue": 0})
+        finally:
+            aag_mod._launch = launch
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = False
+    check(seen == [torch.float16] * 5, f"the AAG kernel gated in {seen}")
+    f16_err = {k: abs(float(l16[k]) / float(l32[k]) - 1) for k in l32}
+    check(all(torch.isfinite(v) for v in l16.values()), f"float16 step losses {l16}")
+    check(max(f16_err.values()) <= F16_LOSS_RTOL, f"float16 vs float32 losses: {f16_err}")
+    # float16's range (65,504) at 304²: the largest logits of the step's
+    # forward, taken under the same autocast (the losses are float32 casts)
+    with torch.no_grad(), torch.autocast("cuda", torch.float16):
+        atts, agg, _ = state16.segmentor(batch16["image"])
+        y_fake = state16.critic(list(atts[:5]), state16.generator, update=False)
+        y_real = state16.critic([p.half() for p in batch16["mask_pyramid"][:5]],
+                                state16.generator, update=False)
+    ranges = {"agg map": float(agg.float().abs().max()),
+              "attention pyramid": max(float(a.float().abs().max()) for a in atts),
+              "critic logits": max(float(y.float().abs().max()) for y in (y_fake, y_real))}
+    check(all(np.isfinite(v) and v < 65504 for v in ranges.values()),
+          f"a float16 logit overflows: {ranges}")
+    log(f"[surface] float16 vs float32 step (TF32 off), 304², B=8, noise off, on {smi}: "
+        f"float16 {', '.join(f'{k} {float(v):.6f}' for k, v in l16.items())}; relative "
+        f"differences {', '.join(f'{k} {v:.2e}' for k, v in f16_err.items())} (bound "
+        f"{F16_LOSS_RTOL}); AAG gating in {sorted(set(str(d) for d in seen))}; largest |value| "
+        f"in float16 {', '.join(f'{k} {v:.4g}' for k, v in ranges.items())}")
+    summary["f16_step"] = {"losses": {k: float(v) for k, v in l16.items()},
+                           "rel_to_f32": f16_err, "max_abs": ranges}
+    del f32, l32
+    history = [f16.train_step(state16, batch16) for _ in range(10)]
+    sup = [float(h["loss_sup"]) for h in history]
+    check(all(bool(torch.isfinite(v)) for h in history for v in h.values()),
+          "non-finite losses in 10 float16 steps")
+    check(sup[-1] < sup[0], f"loss_sup did not fall over 10 float16 steps: {sup}")
+    log(f"[surface] 10 float16 steps on one batch (noise off): loss_sup {sup[0]:.5f} -> "
+        f"{sup[-1]:.5f}, every loss finite")
+    summary["f16_sup"] = sup
+    del f16, state16, batch16, history
+    torch.cuda.empty_cache()
+
+    rows = {"float16": [], "bfloat16": []}
+    for dtype in ("float16", "bfloat16", "bfloat16", "float16"):
+        tr = trainer(dtype)
+        st = tr.init_state()
+        b = batch_of(tr)
+        tr.train_step(st, b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = wall(lambda: tr.train_step(st, b)) * 1e3
+        rows[dtype].append((ms, torch.cuda.max_memory_allocated() / 2**30))
+        del tr, st, b
+        torch.cuda.empty_cache()
+    log(f"[surface] unet step 304², B=8, noise off, on {smi}: ms / peak GiB in turns "
+        + "; ".join(f"{k} " + ", ".join(f"{ms:.1f} / {g:.2f}" for ms, g in v)
+                    for k, v in rows.items()))
+    summary["step_ms_peak_gib"] = rows
+
+    # cli train train.compute_dtype=float16 on a ROSE tree of PNGs: 2 steps
+    # and the final evaluate
+    root = os.path.join(tmp, "data")
+    phantom_ds = ds.SyntheticOcta((304, 304), n=16, seed=41)
+    for split, idx in (("train", range(8)), ("test", range(8, 16))):
+        base = os.path.join(root, "ROSE-1", "SVC", split)
+        for d in ("img", "gt"):
+            os.makedirs(os.path.join(base, d))
+        for i in idx:
+            write_png_gray(os.path.join(base, "img", f"{i:03d}.png"), phantom_ds[i].image)
+            write_png_gray(os.path.join(base, "gt", f"{i:03d}.png"), phantom_ds[i].mask * 255)
+    over = {"data.dataset": "rose", "data.root": root, "data.batch_size": "8",
+            "train.compute_dtype": "float16", "train.steps": "2", "train.eval_every": "0",
+            "train.log_every": "1"}
+    text, records = counted("cli train train.compute_dtype=float16, 2 steps + final evaluate",
+                            lambda: run_cli(["train"] + [f"{k}={v}" for k, v in over.items()]),
+                            {"aag": 5 * 2 + 5, "decoder_epilogue": 0})
+    logged = [r for r in records if r.startswith("step ")]
+    metrics = printed_metrics(text)
+    check(len(logged) == 2 and "nan" not in " ".join(logged).lower()
+          and all(0.0 <= v <= 1.0 for v in metrics.values()),
+          f"cli train float16: logged {logged}, metrics {metrics}")
+    log(f"[surface] cli train train.compute_dtype=float16 on a ROSE tree of 8 + 8 PNGs: "
+        f"{logged[-1]}; metrics {metrics}")
+
+    # 11.2 the fan-out: Predictor(mesh=...) over every visible card and as
+    # two replicas on cuda:0, bf16, uint8 in, B = 32, trained weights
+    dev0 = torch.device("cuda", 0)
+    single = serve(images)
+    fans = {"make_mesh()": Predictor(weights, mesh=make_mesh()),
+            "(cuda:0, cuda:0)": Predictor(weights, mesh=(dev0, dev0))}
+    stack = np.broadcast_to(images[None], (4, *images.shape)).copy()
+    fan_rows = {}
+    for label, fan in fans.items():
+        n = len(fan.replicas)
+        probs = counted(f"Predictor(mesh={label}) __call__, {n} replicas", lambda: fan(images),
+                        {"aag": 0, "decoder_epilogue": 5 * n})
+        many = counted(f"Predictor(mesh={label}) predict_many k=4",
+                       lambda: fan.predict_many(stack), {"aag": 0, "decoder_epilogue": 20 * n})
+        check(probs.shape == single.shape and bool(np.isfinite(probs).all()),
+              f"fan-out {label}: shape or non-finite values")
+        agree = float((probs.argmax(-1) == single.argmax(-1)).mean())
+        agree_many = float((many.argmax(-1) == single[None].argmax(-1)).mean())
+        check(min(agree, agree_many) >= PATH_AGREEMENT_FLOOR,
+              f"fan-out {label}: argmax agreement {agree} / {agree_many} with the single one")
+        fan_rows[label] = {"replicas": n, "agreement": agree, "agreement_many": agree_many,
+                           "max_abs_prob": float(np.abs(probs - single).max())}
+    log(f"[surface] fan-out against the single Predictor (304² bf16, B={SERVE_B}), "
+        f"torch.cuda.device_count() = {torch.cuda.device_count()}: {fan_rows}")
+
+    # a BatchServer flood through the two replicas on cuda:0, in order
+    # against the fanned-out Predictor called directly
+    fan = fans["(cuda:0, cuda:0)"]
+    base_imgs = phantoms(64, 304, seed=13)
+    flood = [np.roll(base_imgs[i % 64], i, axis=1) for i in range(SURFACE_FLOOD)]
+    direct = np.concatenate([fan(np.stack(flood[i:i + SERVE_B]))
+                             for i in range(0, SURFACE_FLOOD, SERVE_B)])
+    def flood_through(pred):
+        """(results, seconds, launch counts, k per dispatch) of the flood
+        through a BatchServer over `pred`."""
+        dispatched = []
+        dispatch = pred.predict_many_device
+
+        def recording_dispatch(stack):
+            dispatched.append(stack.shape[0])
+            return dispatch(stack)
+
+        pred.predict_many_device = recording_dispatch  # the server's only way to the device
+        try:
+            with BatchServer(pred, batch=SERVE_B, image_hw=(304, 304), ks=(1, 2, 4)) as srv:
+                del dispatched[:]  # the warm-up's
+                launch_counts(reset=True)
+                t0 = time.perf_counter()
+                outs = list(srv.map(iter(flood)))
+                seconds = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                return outs, seconds, launch_counts(), dispatched
+        finally:
+            del pred.predict_many_device
+
+    outs, t_flood, got_launches, dispatched = flood_through(fan)
+    label = f"BatchServer flood of {SURFACE_FLOOD} over Predictor(mesh=(cuda:0, cuda:0))"
+    want = {"aag": 0, "decoder_epilogue": 5 * 2 * sum(dispatched)}
+    log(f"[surface] {label}: launches {got_launches} (expected {want}: 5 per replica per "
+        f"batch, k = {dispatched})")
+    check(got_launches == want, f"{label}: launch counts {got_launches}, expected {want}")
+    paths["decoder_epilogue"][label] = got_launches["decoder_epilogue"]
+    got = np.stack(outs)
+    err = float(np.abs(got - direct).max())
+    agree = float(((got[..., 1] >= 0.5) == (direct[..., 1] >= 0.5)).mean())
+    check(len(outs) == SURFACE_FLOOD and err <= SERVER_PROB_ATOL and agree >= SERVER_MASK_FLOOR,
+          f"fanned-out flood: {len(outs)} results, max |prob diff| {err}, agreement {agree}")
+    flood_rates = {"single": [], "(cuda:0, cuda:0)": [SURFACE_FLOOD / t_flood]}
+    for name, pred in (("single", serve), ("single", serve), ("(cuda:0, cuda:0)", fan)):
+        flood_rates[name].append(SURFACE_FLOOD / flood_through(pred)[1])
+    log(f"[surface] BatchServer flood of {SURFACE_FLOOD} over Predictor(mesh=(cuda:0, cuda:0)): "
+        f"in order, max |prob diff| {err:.3g} and mask agreement {agree:.6f} against the "
+        f"direct path; img/s in turns (fan-out, single, single, fan-out): "
+        + "; ".join(f"{k} {', '.join(f'{r:.1f}' for r in v)}" for k, v in flood_rates.items()))
+
+    preds = {"single": serve, **fans}
+    rates = {k: [] for k in preds}
+    for label in ["single", *fans, *reversed(list(fans)), "single"]:
+        rates[label].append(SERVE_B / wall(lambda: preds[label](images)))
+    log(f"[surface] __call__ img/s in turns (304² bf16, B={SERVE_B}, on {smi}): "
+        + "; ".join(f"{k} {', '.join(f'{r:.1f}' for r in v)}" for k, v in rates.items()))
+    summary["fan_out"] = {"rows": fan_rows, "img_s": rates, "flood_img_s": flood_rates}
+    del fans, fan, preds
+    torch.cuda.empty_cache()
+
+    # 11.3 the ConvTranspose lowering: the Predictor under "einsum" against
+    # "native", and the five Upsampling shapes of a 304², B = 8 forward
+    shapes = []
+    model = ResnestUNet(2).cuda().to(torch.bfloat16).to(memory_format=torch.channels_last).eval()
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: shapes.append((tuple(args[0].shape), tuple(mod.up.weight.shape))))
+        for n, m in model.named_modules() if n.startswith("upsampling_") and "." not in n]
+    with torch.inference_mode():
+        model.predict(torch.rand(8, 304, 304, 3, device="cuda", dtype=torch.bfloat16))
+    for h in hooks:
+        h.remove()
+    del model
+    check(len(shapes) == 5, f"{len(shapes)} Upsampling calls in one forward")
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    up_rows = []
+    try:
+        common.set_conv_transpose_impl("einsum")
+        probs = counted('Predictor __call__ under set_conv_transpose_impl("einsum")',
+                        lambda: serve(images), {"aag": 0, "decoder_epilogue": 5})
+        agree = float((probs.argmax(-1) == single.argmax(-1)).mean())
+        check(bool(np.isfinite(probs).all()) and agree >= PATH_AGREEMENT_FLOOR,
+              f"einsum ConvTranspose Predictor: argmax agreement {agree} with native")
+        ct_rates = {"native": [], "einsum": []}
+        for impl in ("native", "einsum", "einsum", "native"):
+            common.set_conv_transpose_impl(impl)
+            ct_rates[impl].append(SERVE_B / wall(lambda: serve(images)))
+        for xs, ws in shapes:
+            x = torch.randn(xs, generator=gen, device="cuda").to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+            wt = (torch.randn(ws, generator=gen, device="cuda") * 0.05).to(torch.bfloat16)
+            bias = (torch.randn(ws[1], generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
+            common.set_conv_transpose_impl("native")
+            ref = torch.nn.functional.conv_transpose2d(x.float(), wt.float(), bias.float(),
+                                                       stride=2)
+            row = {"x": list(xs), "w": list(ws)}
+            for impl in ("native", "einsum"):
+                common.set_conv_transpose_impl(impl)
+                y = common.conv_transpose_2x2(x, wt, bias)
+                row[f"{impl}_err"] = float((y.float() - ref).abs().max())
+                row[f"{impl}_ms"] = timer.ms(lambda: common.conv_transpose_2x2(x, wt, bias))
+            up_rows.append(row)
+            del x, wt, bias, ref, y
+    finally:
+        common.set_conv_transpose_impl("native")
+    log(f"[surface] Predictor under einsum ConvTranspose vs native (304² bf16, B={SERVE_B}): "
+        f"argmax agreement {agree:.6f}; img/s in turns "
+        + "; ".join(f"{k} {', '.join(f'{r:.1f}' for r in v)}" for k, v in ct_rates.items()))
+    log(f"[surface] the 5 Upsampling ConvTransposes of a 304² B=8 bf16 forward, ms (L2 flushed) "
+        f"native / einsum, on {smi}: "
+        + "; ".join(f"{r['x']} -> {r['w'][1]}: {r['native_ms']:.4f} / {r['einsum_ms']:.4f} "
+                    f"(max |err| vs float32 {r['native_err']:.2g} / {r['einsum_err']:.2g})"
+                    for r in up_rows)
+        + f"; summed {sum(r['native_ms'] for r in up_rows):.4f} / "
+          f"{sum(r['einsum_ms'] for r in up_rows):.4f}")
+    summary["conv_transpose"] = {"agreement": agree, "img_s": ct_rates, "upsampling": up_rows}
+    # 11.4 float16 serving: the decoder epilogue kernel in float16 on the
+    # Predictor's path (the committed weights cast to float16)
+    f16_pred = Predictor(weights, dtype=torch.float16)
+    probs16 = counted("Predictor(dtype=float16) __call__", lambda: f16_pred(images),
+                      {"aag": 0, "decoder_epilogue": 5})
+    agree16 = float((probs16.argmax(-1) == single.argmax(-1)).mean())
+    check(bool(np.isfinite(probs16).all()) and agree16 >= MASK_AGREEMENT_FLOOR,
+          f"float16 Predictor: argmax agreement {agree16} with bf16")
+    log(f"[surface] Predictor(dtype=float16) (304², B={SERVE_B}): argmax agreement with bf16 "
+        f"{agree16:.6f} (floor {MASK_AGREEMENT_FLOOR}), "
+        f"{SERVE_B / wall(lambda: f16_pred(images)):.1f} img/s")
+    summary["f16_serving_agreement"] = agree16
+    del f16_pred
+    log(f"[surface] phase 11 took {time.time() - t_phase:.1f} s")
+    log(json.dumps({"surface": summary}))
     return paths
 
 

@@ -21,6 +21,7 @@ Layout (JAX counterpart in brackets):
   * data/native.py, data/_native/    [octave_tpu/data/native.py, _native/loader.cpp;
     loader.cpp                        the port's own copy, with TIFF]
   * parallel/ddp.py                  [octave_tpu/parallel/mesh.py, on torch.distributed]
+  * parallel/mesh.py                 [octave_tpu/parallel/mesh.py: the serving mesh]
   * train/schedule.py, state.py,     [octave_tpu/train/...]
     steps.py, trainer.py
   * utils/config.py, metrics.py,     [octave_tpu/utils/config.py, metrics.py,

@@ -67,9 +67,20 @@ class AdversarialAttentionGate(nn.Module):
         self.conv1 = nn.Conv2d(in_channels, out_channels, 1)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x (B,C,H,W) -> (masked x (B,C,H,W), y_hat (B,H,W,K))."""
+        """x (B,C,H,W) -> (masked x (B,C,H,W), y_hat (B,H,W,K)).
+
+        Under autocast the kernel gates x rounded to the autocast dtype, as
+        autocast runs the gate's 1x1 conv and as the JAX step casts the
+        gate's input (the batch norm before it hands on float32), and writes
+        x*mask in that dtype; y_hat, the attention pyramid, stays float32:
+        the ILD's KL sends y_hat gradients beyond float16's range (at the 19²
+        gate by the second step at 304², B = 8: 5.5e6 in bf16, 4.8e7 in
+        float16; `scripts/f16_pyramid_grad.py` on an H100)."""
         k = self.conv1.out_channels
-        out, yhat = fused_aag(nhwc(x), self.conv1.weight.view(k, -1).t(), self.conv1.bias)
+        dev = x.device.type
+        autocast_dtype = torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else None
+        out, yhat = fused_aag(nhwc(x), self.conv1.weight.view(k, -1).t(), self.conv1.bias,
+                              autocast_dtype)
         return nchw(out), yhat
 
 

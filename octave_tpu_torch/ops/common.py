@@ -4,7 +4,8 @@ PyTorch's own operators have the reference's semantics natively, so these are
 thin named wrappers that fix the arguments each call site of the reference
 uses (the JAX package rebuilt them from reduce_window, octave_tpu/ops/common.py).
 The pools and the conv take NCHW; `nearest_resize` takes the NHWC maps of the
-losses and the data path.
+losses and the data path. The transposed conv has the JAX package's two
+lowerings (`set_conv_transpose_impl`, :272-310), selected module-wide.
 """
 from __future__ import annotations
 
@@ -12,6 +13,11 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from octave_tpu_torch.ops import remat
+
+CONV_TRANSPOSE_IMPLS = ("einsum", "native")
+_CONV_TRANSPOSE_IMPL = "native"
 
 
 def max_pool2d(x: torch.Tensor, kernel_size: int = 3, stride: int = 2,
@@ -37,10 +43,49 @@ def avg_pool2d(x: torch.Tensor, kernel_size: int, stride: int, padding: int = 0,
                         count_include_pad=count_include_pad)
 
 
+def set_conv_transpose_impl(impl: str) -> None:
+    """Select the lowering of `conv_transpose_2x2` for the whole process, as
+    the JAX package's switch does: 'native' (the default, cuDNN's
+    ConvTranspose2d) or 'einsum' (one matmul and an interleave). The int8
+    ConvTranspose follows it too (`ops/quant.py`)."""
+    global _CONV_TRANSPOSE_IMPL
+    if impl not in CONV_TRANSPOSE_IMPLS:
+        raise ValueError(f"unknown conv transpose impl {impl!r}; expected one of "
+                         f"{CONV_TRANSPOSE_IMPLS}")
+    _CONV_TRANSPOSE_IMPL = impl
+
+
+def conv_transpose_impl() -> str:
+    """The lowering `set_conv_transpose_impl` selected."""
+    return _CONV_TRANSPOSE_IMPL
+
+
 def conv_transpose_2x2(x: torch.Tensor, weight: torch.Tensor,
                        bias: torch.Tensor | None = None) -> torch.Tensor:
-    """ConvTranspose2d(kernel_size=2, stride=2); `weight` is (C_in, C_out, 2, 2)."""
-    return F.conv_transpose2d(x, weight, bias, stride=2)
+    """ConvTranspose2d(kernel_size=2, stride=2) of an NCHW x; `weight` is
+    (C_in, C_out, 2, 2).
+
+    Under 'einsum' each input pixel expands to its own 2x2 output block, so
+    the op is one (B*H*W, C_in) x (C_in, 4*C_out) matmul, with the weight's
+    columns in (i, j, C_out) order and the bias added by the matmul, then
+    the blocks interleaved into the NHWC rows of the output: the JAX
+    package's einsum 'bhwc,coij->bhiwjo' written as channels_last NCHW. The
+    interleave's copy is the `conv_out` tensor that the save-the-convs remat
+    policy keeps (`ops/remat.py`), as the JAX package tags both lowerings."""
+    if _CONV_TRANSPOSE_IMPL == "native":
+        return F.conv_transpose2d(x, weight, bias, stride=2)
+    b, cin, h, w = x.shape
+    cout = weight.shape[1]
+    cols = weight.permute(0, 2, 3, 1).reshape(cin, 4 * cout)
+    rows = x.permute(0, 2, 3, 1).reshape(b * h * w, cin)
+    if bias is None:
+        y = rows @ cols
+    else:
+        y = torch.addmm(bias.repeat(4), rows, cols)
+    y = y.view(b, h, w, 2, 2, cout).permute(0, 1, 3, 2, 4, 5)
+    with remat.conv_out():
+        y = y.reshape(b, 2 * h, 2 * w, cout)
+    return y.permute(0, 3, 1, 2)
 
 
 def nearest_resize(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:

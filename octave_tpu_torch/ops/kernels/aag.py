@@ -44,26 +44,26 @@ def _math_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.promote_types(x.dtype, torch.float32)
 
 
-def fused_aag_plain(x: torch.Tensor, w: torch.Tensor,
-                    b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def fused_aag_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    yhat_dtype: torch.dtype | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The eager formula, in float32 (float64 for float64 x), cast back to
-    x's dtype."""
+    x's dtype (y_hat to `yhat_dtype` when given)."""
     ct = _math_dtype(x)
     xf = x.to(ct)
     yhat = torch.softmax(xf @ w.to(ct) + b.to(ct), dim=-1)
     mask = yhat[..., 1:].sum(dim=-1, keepdim=True)
-    return (xf * mask).to(x.dtype), yhat.to(x.dtype)
+    return (xf * mask).to(x.dtype), yhat.to(yhat_dtype or x.dtype)
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor,
-            b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype,
+            yhat_dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
     triton_build_dir()
     from octave_tpu_torch.ops.kernels.triton_aag import aag_fwd_kernel
 
     c, k = w.shape
     n = x.numel() // c
-    out = torch.empty_like(x)
-    yhat = torch.empty(x.shape[:-1] + (k,), dtype=x.dtype, device=x.device)
+    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    yhat = torch.empty(x.shape[:-1] + (k,), dtype=yhat_dtype, device=x.device)
     block_n, block_c = pow2_tile(c, _TILE_ELEMS)
     grid = (-(-n // block_n),)
     aag_fwd_kernel[grid](
@@ -77,11 +77,17 @@ def _launch(x: torch.Tensor, w: torch.Tensor,
 
 class _AAGFunction(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, b):
+    def forward(ctx, x, w, b, autocast_dtype):
+        # under autocast the gate computes on x rounded to the autocast dtype
+        # (the kernel rounds it as it loads x, so x is read once); the
+        # backward reads x itself
+        out_dtype, yhat_dtype = x.dtype, x.dtype
+        if autocast_dtype is not None:
+            out_dtype, yhat_dtype = autocast_dtype, torch.float32
         if x.is_cuda:
-            out, yhat = _launch(x, w, b)
+            out, yhat = _launch(x, w, b, out_dtype, yhat_dtype)
         else:
-            out, yhat = fused_aag_plain(x, w, b)
+            out, yhat = fused_aag_plain(x.to(out_dtype), w, b, yhat_dtype)
         ctx.save_for_backward(x, w, yhat)
         ctx.b_dtype = b.dtype
         return out, yhat
@@ -102,18 +108,23 @@ class _AAGFunction(torch.autograd.Function):
         g_x = (g_out * mask + g_z @ w.to(ct).t()).to(x.dtype)
         g_w = (xf.reshape(-1, x.shape[-1]).t() @ g_z.reshape(-1, g_z.shape[-1])).to(w.dtype)
         g_b = g_z.reshape(-1, g_z.shape[-1]).sum(dim=0).to(ctx.b_dtype)
-        return g_x, g_w, g_b
+        return g_x, g_w, g_b, None
 
 
-def fused_aag(x: torch.Tensor, w: torch.Tensor,
-              b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B,H,W,C) contiguous NHWC; w (C,K); b (K,) -> (x*mask, y_hat (B,H,W,K)).
+def fused_aag(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+              autocast_dtype: torch.dtype | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B,H,W,C) contiguous NHWC; w (C,K); b (K,) -> (x*mask, y_hat (B,H,W,K)),
+    both in x's dtype. With `autocast_dtype` (the train path under autocast)
+    the gate computes on x rounded to that dtype and writes x*mask in it
+    (what `fused_aag_plain(x.to(autocast_dtype), ...)` gives), y_hat stays
+    float32 (the kernel computes it in float32 either way), and the gradient
+    of x comes back in x's dtype, computed from x itself.
 
     On a CUDA tensor it launches the Triton kernel (and counts the launch in
     `fused_aag.launches`); on a CPU tensor it runs `fused_aag_plain`, which
     also takes float64 for reference runs. It is differentiable on both."""
     cpu_f64 = (torch.float64,) if x.device.type == "cpu" else ()
-    check_nhwc("x", x, 4, x.device, (torch.float32, torch.bfloat16) + cpu_f64)
+    check_nhwc("x", x, 4, x.device, (torch.float32, torch.bfloat16, torch.float16) + cpu_f64)
     if w.ndim != 2 or w.shape[0] != x.shape[-1] or b.shape != (w.shape[1],):
         raise ValueError(f"w must be (C, K) and b (K,) for C={x.shape[-1]}; got "
                          f"{tuple(w.shape)}, {tuple(b.shape)}")
@@ -121,7 +132,9 @@ def fused_aag(x: torch.Tensor, w: torch.Tensor,
         raise ValueError("x, w and b must be on one device")
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused_aag: no implementation for device {x.device}")
-    return _AAGFunction.apply(x, w, b)
+    if autocast_dtype not in (None, torch.float32, torch.bfloat16, torch.float16):
+        raise TypeError(f"fused_aag: unsupported autocast dtype {autocast_dtype}")
+    return _AAGFunction.apply(x, w, b, autocast_dtype)
 
 
 register_counter("aag", fused_aag)

@@ -42,13 +42,16 @@ def aag_fwd_kernel(x_ptr, w_ptr, b_ptr, out_ptr, yhat_ptr, n_rows,
     """One program gates BLOCK_N rows of the (n_rows, C) activation.
 
     The [BLOCK_N, BLOCK_C] tile is loaded once and stays in registers through
-    the gate (`gate_store`)."""
+    the gate (`gate_store`). It is rounded to the dtype of x*mask first, so
+    that a float32 x gated in bf16 or float16 (under autocast) is read once,
+    as the rounded copy would be; for x in that dtype the rounding is none."""
     pid = tl.program_id(0)
     rows = pid.to(tl.int64) * BLOCK_N + tl.arange(0, BLOCK_N)
     cols = tl.arange(0, BLOCK_C)
     row_ok = rows < n_rows
     col_ok = cols < C
     x = tl.load(x_ptr + rows[:, None] * C + cols[None, :],
-                mask=row_ok[:, None] & col_ok[None, :], other=0.0).to(tl.float32)
+                mask=row_ok[:, None] & col_ok[None, :], other=0.0)
+    x = x.to(out_ptr.dtype.element_ty).to(tl.float32)
     gate_store(x, w_ptr, b_ptr, out_ptr, yhat_ptr, rows, cols, row_ok, col_ok,
                C, K, BLOCK_N, BLOCK_K)

@@ -36,6 +36,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from octave_tpu_torch.ops import common
 from octave_tpu_torch.ops.kernels import count_launch
 
 Pair = Tuple[int, int]
@@ -153,15 +154,26 @@ def conv_packed(x: torch.Tensor, packed: torch.Tensor, sx: torch.Tensor, ws: tor
 def conv_transpose_packed(x: torch.Tensor, packed: torch.Tensor, sx: torch.Tensor,
                           ws: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
     """The int8 ConvTranspose2d(2, 2) of an NCHW `x`: one (B*H*W, C_in) x
-    (C_in, 4*C_out) GEMM, dequantised per output channel, then the 2x2
-    interleave. Returns NCHW (a channels_last view)."""
+    (C_in, 4*C_out) GEMM and the 2x2 interleave, dequantised per output
+    channel. It follows `ops.common.set_conv_transpose_impl` as the JAX
+    package's int8 path does (:190-203): 'native' interleaves the int32 sums
+    into the strided output first, as XLA's conv_transpose writes it, then
+    dequantises; 'einsum' dequantises the GEMM's 2x2 blocks and interleaves
+    last. Both are exact in int32, so the values are the same. Returns NCHW
+    (a channels_last view)."""
     b, _, h, w = x.shape
     n = ws.shape[0]
     xq = quantize_activation(x.permute(0, 2, 3, 1), sx).reshape(b * h * w, -1)
-    y = int8_mm(xq, packed, 4 * n).float().reshape(b, h, w, 2, 2, n) * (sx * ws)
+    y = int8_mm(xq, packed, 4 * n).reshape(b, h, w, 2, 2, n)
+    native = common.conv_transpose_impl() == "native"
+    if native:
+        y = y.permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * h, 2 * w, n)
+    y = y.float() * (sx * ws)
     if bias is not None:
         y = y + bias.float()
-    y = y.to(x.dtype).permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * h, 2 * w, n)
+    y = y.to(x.dtype)
+    if not native:
+        y = y.permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * h, 2 * w, n)
     return y.permute(0, 3, 1, 2)
 
 

@@ -1,1 +1,2 @@
-"""Data parallelism over several devices (`ddp.py`)."""
+"""Data parallelism over several devices: training over processes (`ddp.py`),
+serving over a mesh of devices in one program (`mesh.py`)."""

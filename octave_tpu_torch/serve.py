@@ -3,24 +3,29 @@
 `Predictor` (:26-318) runs the 304² ResnestUNet eval forward in bf16 with the
 batch-norm stats folded into an affine and, by default, the fused decoder
 epilogue kernel at every gated depth; optionally int8 or with grouped convs
-lowered. Requests arrive as uint8 (B,H,W,3) and
-are normalised on the device; results leave as float32 / float16
-probabilities or a uint8 vessel mask.
+lowered, and optionally fanned out over a mesh of devices (`mesh=`, a replica
+of the model per device, each taking its rows of every batch). Requests
+arrive as uint8 (B,H,W,3) and are normalised on the device; results leave as
+float32 / float16 probabilities or a uint8 vessel mask.
 
 `BatchServer` (:321-671) is the request front end: callers submit single
 images, a worker thread groups them into (k, batch) stacks, and a resolver
 thread hands the results back, so that the device runs one stack while the
 next is assembled and the previous is downloaded.
 
-Asynchrony is explicit on CUDA. A dispatch (`predict_many_device`) uploads
-with a non-blocking copy (truly asynchronous when the caller's array lies in
-pinned memory, as the server's staging buffers do), enqueues its forwards on
-the calling thread's current stream, records an event and returns a
-`DeviceResult` without waiting. Converting that to numpy waits for the event
-on a separate copy stream and downloads into pinned memory, so a download
-never queues behind forwards that were enqueued after its own. The device
-tensor stays referenced by the `DeviceResult` until its download has
-finished, so the caching allocator cannot hand its block to a later forward.
+Asynchrony is explicit on CUDA. Every dispatch runs over the replicas, one
+per device of the mesh (without a mesh, the model itself on its one device).
+A dispatch (`predict_many_device`) uploads each replica's rows with
+non-blocking copies on that replica's upload stream (truly asynchronous when
+the caller's array lies in pinned memory, as the server's staging buffers
+do), enqueues the replica's forwards on its device's current stream after
+the upload's event, records an event and returns a `DeviceResult` without
+waiting. Converting that to numpy waits for each event on the replica's own
+copy stream and downloads into pinned memory, so a download never queues
+behind forwards that were enqueued after its own, and joins the shards in
+row order. The device tensors stay referenced by the `DeviceResult` until
+their downloads have finished, so the caching allocator cannot hand their
+blocks to a later forward.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from octave_tpu_torch.models.resnest import dense_groups_include, lower_grouped_
 from octave_tpu_torch.models.segmentor import ResnestUNet
 from octave_tpu_torch.ops import quant
 from octave_tpu_torch.ops.norm import fold_batch_stats, folded_inference
+from octave_tpu_torch.parallel.mesh import as_mesh, replicate, split_rows
 from octave_tpu_torch.utils.convert import load_reference_state_dict
 
 OUTPUT_FORMATS = ("prob_f32", "prob_f16", "mask_u8")
@@ -79,13 +85,14 @@ class Predictor:
         use_fused_decoder: bool = True,
         fold_bn: bool = True,
         output_format: str = "prob_f32",
-        device: str | torch.device = "cuda",
+        device: str | torch.device | None = None,
         int8_decoder: bool = False,
         calibration_batches: Optional[Iterable[np.ndarray]] = None,
         int8_scope: str = "decoder",
         int8_prepack: bool = True,
         dense_groups: Optional[str] = None,
         einsum_groups: Optional[str] = None,
+        mesh: Optional[Sequence[torch.device]] = None,
     ):
         """state_dict: reference-named weights with raw BN stats (e.g. from
         `utils.convert.from_jax_variables`). fold_bn folds the stats in
@@ -108,7 +115,17 @@ class Predictor:
         that int8 quantises runs as the int8 path runs every grouped conv,
         one block-diagonal GEMM (`ops/quant.py`): what the JAX package's
         dense lowering composed with int8 computes, so no second lowering
-        applies there."""
+        applies there.
+
+        device: CUDA by default, or the mesh's first device. mesh: a sequence
+        of devices (`parallel.mesh.make_mesh()` for every visible GPU; one
+        device may repeat, e.g. (cuda:0, cuda:0)). The model is built, folded,
+        lowered, calibrated and quantised once on mesh[0] and then copied to
+        every device of the mesh (`parallel.mesh.replicate`; the int8 scales
+        are shared, the prepacked int8 weights are buffers and move with
+        their replica). Every call splits the batch rows evenly over the
+        replicas (a ValueError unless the mesh size divides them) and returns
+        the rows in order."""
         # cheap argument checks first, before any model build or BN fold
         for spec in (dense_groups, einsum_groups):
             if spec is not None:
@@ -122,7 +139,13 @@ class Predictor:
         if output_format not in OUTPUT_FORMATS:
             raise ValueError(f"output_format must be one of {OUTPUT_FORMATS}; "
                              f"got {output_format!r}")
-        self.device = resolve_device(device)
+        if mesh is not None:
+            mesh = as_mesh(mesh)
+            if device is not None and not _same_device(torch.device(device), mesh[0]):
+                raise ValueError(f"device={device} but the mesh's first device is {mesh[0]}")
+            device = mesh[0]
+        self.device = resolve_device("cuda" if device is None else device)
+        self.mesh = (self.device,) if mesh is None else mesh
         self.method = method
         self.dtype = dtype
         self.output_format = output_format
@@ -135,21 +158,25 @@ class Predictor:
         folded_inference(model, fold_bn)
         lower_grouped_convs_(model, dense_groups, einsum_groups)
         self.model = model.to(self.device, dtype).to(memory_format=torch.channels_last).eval()
-        self._copy_stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
-                             else None)
+        # the first replica is the model itself; calibration runs through it alone
+        self.replicas: Tuple[_Replica, ...] = (_Replica(self.model, self.device),)
         self.int8_scales: Optional[Dict[str, float]] = None
         if int8_decoder:
             with torch.inference_mode():
-                stats = quant.calibrate(self.model, calibration_batches,
-                                        lambda batch: self._forward(self._put(batch)))
+                stats = quant.calibrate(self.model, calibration_batches, lambda batch:
+                                        self._fan_out(batch, 0, self._forward))
             self.int8_scales = quant.scales_from_stats(stats, INT8_SCOPES[int8_scope])
             quant.quantize_(self.model, self.int8_scales, prepack=int8_prepack)
+        if len(self.mesh) > 1:
+            self.replicas += tuple(_Replica(m, d) for m, d in
+                                   zip(replicate(self.model, self.mesh[1:]), self.mesh[1:]))
 
-    def _forward(self, batch: torch.Tensor) -> torch.Tensor:
-        """Device forward of one (B,H,W,3) batch already on the device."""
+    def _forward(self, model: torch.nn.Module, batch: torch.Tensor) -> torch.Tensor:
+        """Device forward of one (B,H,W,3) batch already on the device, by
+        `model` (a replica's)."""
         if batch.dtype == torch.uint8:
             batch = batch.to(self.dtype) / 255.0  # uint8 wire format, normalised here
-        _, pred = self.model.predict(batch, self.method)
+        _, pred = model.predict(batch, self.method)
         if self.output_format == "mask_u8":
             vessel = pred[..., 1] if pred.shape[-1] > 1 else pred[..., 0]
             return (vessel >= 0.5).to(torch.uint8) * 255
@@ -176,25 +203,46 @@ class Predictor:
                           pin_memory=self.device.type == "cuda")
         return raw.numpy().view(dtype).reshape(tuple(shape))
 
-    def _put(self, batch: np.ndarray) -> torch.Tensor:
-        # uint8 stays uint8 on the wire; floats go up in the compute dtype
-        t = torch.from_numpy(np.ascontiguousarray(batch))
-        if t.dtype != torch.uint8:
-            t = t.to(self.dtype)
-        return t.to(self.device, non_blocking=True)
-
-    def _result(self, out: torch.Tensor) -> "DeviceResult":
-        done = None
-        if self.device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record()
-        return DeviceResult(out, done, self._copy_stream)
+    def _fan_out(self, host: np.ndarray, axis: int, run) -> "DeviceResult":
+        """run(model, device batch) on every replica for its rows of `host`
+        along `axis`; the shards in row order. Each upload runs on its
+        replica's upload stream and its forward on its device's current
+        stream, after the upload's event."""
+        parts = []
+        host = np.ascontiguousarray(host)  # no copy for a contiguous array
+        for rep, piece in zip(self.replicas, split_rows(host, len(self.replicas), axis)):
+            # uint8 stays uint8 on the wire; floats go up in the compute dtype
+            t = torch.from_numpy(piece)
+            if t.dtype != torch.uint8:
+                t = t.to(self.dtype)
+            if rep.device.type != "cuda":
+                parts.append((run(rep.model, t.to(rep.device)), None, None))
+                continue
+            with torch.cuda.device(rep.device):
+                with torch.cuda.stream(rep.upload):
+                    x = torch.empty(t.shape, dtype=t.dtype, device=rep.device)
+                    # a shard of a (k, B, ...) stack split along the batch is
+                    # k runs of memory: one copy each keeps a pinned stack's
+                    # upload asynchronous, where a contiguous host copy of the
+                    # shard would be pageable and block the host
+                    for dst, src in ([(x, t)] if t.is_contiguous() else zip(x, t)):
+                        dst.copy_(src, non_blocking=True)
+                    uploaded = torch.cuda.Event()
+                    uploaded.record()
+                compute = torch.cuda.current_stream(rep.device)
+                compute.wait_event(uploaded)
+                x.record_stream(compute)  # allocated on the upload stream, read here
+                out = run(rep.model, x)
+                done = torch.cuda.Event()
+                done.record(compute)
+            parts.append((out, done, rep.download))
+        return DeviceResult(parts, axis)
 
     @torch.inference_mode()
     def __call__(self, batch: np.ndarray) -> np.ndarray:
         """(B,H,W,3) uint8 or float in [0,1] -> (B,H,W,K) probabilities, or
         a (B,H,W) uint8 mask for output_format='mask_u8'."""
-        return np.asarray(self._result(self._forward(self._put(batch))))
+        return np.asarray(self._fan_out(batch, 0, self._forward))
 
     def predict_many(self, stack: np.ndarray) -> np.ndarray:
         """A (k,B,H,W,3) stack of batches: one upload, k forwards in order,
@@ -207,9 +255,10 @@ class Predictor:
         forwards and returns at once. `.tensor` is the (k, B, ...) device
         tensor, for work that stays on the device; `np.asarray(result)` waits
         and downloads. The k forwards are a loop on one stream, so their
-        activations reuse each other's memory."""
-        xs = self._put(stack)
-        return self._result(torch.stack([self._forward(xs[i]) for i in range(xs.shape[0])]))
+        activations reuse each other's memory. With a mesh, axis 1 (the
+        batch) is split over the replicas."""
+        return self._fan_out(stack, 1, lambda m, xs: torch.stack(
+            [self._forward(m, xs[i]) for i in range(xs.shape[0])]))
 
     def warmup(self, batch: int, image_hw: Tuple[int, int], ks: Sequence[int] = (1,),
                in_channels: int = 3, wire_dtype=np.uint8) -> None:
@@ -236,27 +285,68 @@ class Predictor:
             yield np.asarray(inflight.popleft())[0]
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """a and b name one device (cuda = cuda:<current device>)."""
+    if a.type == b.type == "cuda" and a.index is None:
+        a = torch.device("cuda", torch.cuda.current_device())
+    return a == b
+
+
+class _Replica:
+    """A mesh device's copy of the model, with its upload and download
+    streams on CUDA."""
+
+    def __init__(self, model: torch.nn.Module, device: torch.device):
+        self.model, self.device = model, device
+        cuda = device.type == "cuda"
+        self.upload = torch.cuda.Stream(device) if cuda else None
+        self.download = torch.cuda.Stream(device) if cuda else None
+
+
 class DeviceResult:
     """The output of a dispatch, still on the device and possibly still being
     computed. `np.asarray(result)` waits for it and returns it as a host
-    array (backed by pinned memory on CUDA)."""
+    array (backed by pinned memory on CUDA). The output of a fanned-out
+    dispatch has one part per replica: `np.asarray` downloads each on its
+    replica's copy stream and joins them along the split axis."""
 
-    def __init__(self, tensor: torch.Tensor, done: Optional["torch.cuda.Event"],
-                 copy_stream: Optional["torch.cuda.Stream"]):
-        self.tensor, self._done, self._copy_stream = tensor, done, copy_stream
+    def __init__(self, parts: Sequence[tuple], axis: int):
+        """parts: one (device tensor, done event or None, copy stream or
+        None) per replica, in row order along `axis`."""
+        self._parts, self._axis = list(parts), axis
+
+    @property
+    def tensor(self) -> torch.Tensor:
+        """The device tensor; the shards of a fanned-out dispatch joined on
+        the first shard's device."""
+        if len(self._parts) == 1:
+            return self._parts[0][0]
+        first = self._parts[0][0].device
+        return torch.cat([t.to(first) for t, _, _ in self._parts], dim=self._axis)
+
+    @staticmethod
+    def _download(out, done, copy_stream):
+        """(host tensor, event of its copy or None): the download enqueued on
+        `copy_stream` after `done`, into pinned memory."""
+        if out.device.type != "cuda":
+            return out, None
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        with torch.cuda.stream(copy_stream):
+            copy_stream.wait_event(done)
+            host.copy_(out, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record()
+        return host, copied
 
     def __array__(self, dtype=None, copy=None) -> np.ndarray:
-        out = self.tensor
-        if out.device.type == "cuda":
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            with torch.cuda.stream(self._copy_stream):
-                self._copy_stream.wait_event(self._done)
-                host.copy_(out, non_blocking=True)
-                copied = torch.cuda.Event()
-                copied.record()
-            copied.synchronize()  # `out` is referenced until here
-            out = host
-        arr = out.numpy()
+        # every shard's download is enqueued before the first wait; each
+        # device tensor is referenced until its copy has finished
+        pending = [self._download(*part) for part in self._parts]
+        for _, copied in pending:
+            if copied is not None:
+                copied.synchronize()
+        arrs = [host.numpy() for host, _ in pending]
+        arr = arrs[0] if len(arrs) == 1 else np.concatenate(arrs, axis=self._axis)
         return arr if dtype is None else arr.astype(dtype)
 
 

@@ -2,9 +2,9 @@
 
 The port of `octave_tpu/train/steps.py` (adapt_segmentor_output :45-73,
 StepConfig :76-139, make_train_step :150-419, make_multi_step :422-454,
-_eval_forward :457-465, make_eval_accumulate_step :483-503), for every
-segmentor of the family and
-one critic or the dual decoders' pair of critics. One step:
+_eval_forward :457-465, make_eval_step :468-480, make_eval_accumulate_step
+:483-503), for every segmentor of the family and one critic or the dual
+decoders' pair of critics. One step:
 
     pyramids, agg maps = segmentor(x)                 (BN stats update once)
     L_seg = sum over heads WPCE(softmax(agg_h), scribble_h)
@@ -26,9 +26,11 @@ step, the port does explicitly:
   * the critic phase sees the attention pyramids detached and, for each
     critic in order, from the step's original u/v, iterates D(fake) then
     D(real), storing both.
-With compute_dtype='bfloat16' both forwards run under torch.autocast (master
-weights stay float32) and every loss is taken on float32 casts of the
-pyramids and the agg maps, as the JAX step casts them.
+With compute_dtype 'bfloat16' or 'float16' both forwards run under
+torch.autocast in that dtype (master weights stay float32, and their
+gradients come back float32) and every loss is taken on float32 casts of the
+pyramids and the agg maps, as the JAX step casts them. float16 has no loss
+scaling, as the JAX step has none.
 
 The memory and lowering switches (:95-138, :195-270):
   * `remat` True runs the segmentor forward as one recomputed region, "conv"
@@ -70,16 +72,21 @@ from octave_tpu_torch.models.resnest import dense_groups_include, lower_grouped_
 from octave_tpu_torch.ops import remat
 from octave_tpu_torch.parallel import ddp
 from octave_tpu_torch.train.state import TrainState
-from octave_tpu_torch.utils.metrics import AucAccumulator, ConfusionAccumulator
+from octave_tpu_torch.utils.metrics import (
+    AucAccumulator,
+    ConfusionAccumulator,
+    eval_step_metrics,
+)
 
-_COMPUTE_DTYPES = {None: None, "bfloat16": torch.bfloat16}
+_COMPUTE_DTYPES = {None: None, "float32": None, "bfloat16": torch.bfloat16,
+                   "float16": torch.float16}
 
 
 def compute_dtype(name: Optional[str]) -> Optional[torch.dtype]:
     """train.compute_dtype -> the autocast dtype (None: plain float32)."""
     if name not in _COMPUTE_DTYPES:
-        raise NotImplementedError(f"compute_dtype {name!r}: the port runs float32 "
-                                  "or bfloat16 only")
+        raise ValueError(f"unknown compute_dtype {name!r}; expected one of "
+                         f"{', '.join(repr(k) for k in _COMPUTE_DTYPES)}")
     return _COMPUTE_DTYPES[name]
 
 
@@ -133,7 +140,7 @@ class StepConfig:
     # 2 levels: the `_c` branch gates depths 1 and 0)
     discriminator_depth_c: int = 1
     supervise_attention0: bool = False  # the supervised loss on atts[0] too
-    compute_dtype: Optional[str] = None  # None | 'bfloat16'
+    compute_dtype: Optional[str] = None  # None | 'float32' | 'bfloat16' | 'float16'
     # False | True (one region over the segmentor forward) | 'conv' (the
     # same, keeping the conv outputs) | 'block' | 'block-enc' |
     # 'block:<decoder depths>[e<encoder layers>]' and any of those with
@@ -297,6 +304,32 @@ def make_multi_step(train_step, k: int):
     return multi_step
 
 
+def _eval_forward(segmentor, image: torch.Tensor) -> torch.Tensor:
+    """Softmax of the main head's agg map (head 0 of the dual decoders), from
+    the eval forward, in float32; the segmentor's mode is put back."""
+    was_training = segmentor.training
+    segmentor.eval()
+    try:
+        _, agg_maps = adapt_segmentor_output(segmentor(image))
+    finally:
+        segmentor.train(was_training)
+    return torch.softmax(agg_maps[0].float(), dim=-1)
+
+
+def make_eval_step(num_classes: int = 2):
+    """Inference and one batch's metrics: eval_step(segmentor, batch) ->
+    (softmax prediction (b,h,w,c), `eval_step_metrics` of the vessel
+    channel against batch["mask_onehot"])."""
+    ch = 1 if num_classes > 1 else 0
+
+    @torch.inference_mode()
+    def eval_step(segmentor, batch):
+        pred = _eval_forward(segmentor, batch["image"])
+        return pred, eval_step_metrics(pred[..., ch], batch["mask_onehot"][..., ch])
+
+    return eval_step
+
+
 def make_eval_accumulate_step(num_classes: int = 2, threshold: float = 0.5):
     """Streaming eval: eval_step(segmentor, batch) -> (softmax prediction,
     confusion counts, ROC histograms) of one batch, for dataset-level
@@ -306,13 +339,7 @@ def make_eval_accumulate_step(num_classes: int = 2, threshold: float = 0.5):
 
     @torch.inference_mode()
     def eval_step(segmentor, batch):
-        was_training = segmentor.training
-        segmentor.eval()
-        try:
-            _, agg_maps = adapt_segmentor_output(segmentor(batch["image"]))
-        finally:
-            segmentor.train(was_training)
-        pred = torch.softmax(agg_maps[0].float(), dim=-1)
+        pred = _eval_forward(segmentor, batch["image"])
         ch = 1 if num_classes > 1 else 0
         vessel_prob, target = pred[..., ch], batch["mask_onehot"][..., ch]
         weight = batch.get("sample_weight")

@@ -4,8 +4,8 @@
 The port's own copy of `octave_tpu/utils/config.py` (:14-188): the same
 fields, defaults, JSON/YAML loading and dotted overrides, so one config file
 drives either package. `train.trainer.Trainer` takes every field as the
-JAX trainer does, but for `train.compute_dtype`, where it runs None (float32)
-and 'bfloat16' only and raises NotImplementedError on any other.
+JAX trainer does; `train.compute_dtype` names one of None (float32),
+'float32', 'bfloat16' and 'float16', and any other raises ValueError.
 """
 from __future__ import annotations
 
@@ -88,7 +88,7 @@ class TrainConfig:
     n_devices: Optional[int] = None
     profile_dir: Optional[str] = None
     log_dir: Optional[str] = None
-    compute_dtype: Optional[str] = None  # None (float32) | 'bfloat16'
+    compute_dtype: Optional[str] = None  # None (float32) | 'float32' | 'bfloat16' | 'float16'
     # False | True | 'conv' | 'block' | 'block-enc' | 'block:<depths>[e<layers>]'
     # [+conv]: recomputed regions (train/steps.py StepConfig.remat)
     remat: Any = False

@@ -1,9 +1,11 @@
-"""Segmentation metrics: exact confusion counts and a binned-ROC AUC.
+"""Segmentation metrics: exact confusion counts and a binned-ROC AUC, and
+the host metrics (hard Dice, exact AUC, centerline Dice).
 
 The port of `octave_tpu/utils/metrics.py` (:18-232). Per-batch counts are
 int64 tensors on the device (no host round trip per batch); the eval harness
 adds batches on the host in numpy int64 (`astype64`), so dataset-scale
-counts never round. The ratio methods work on both forms.
+counts never round. The ratio methods work on both forms. `auc_exact` and
+`cl_dice` are host numpy / scipy functions, copies of the JAX package's.
 """
 from __future__ import annotations
 
@@ -74,6 +76,12 @@ class ConfusionAccumulator(NamedTuple):
         return self.tn / (self.tn + self.fp + eps)
 
 
+def dice_score(pred: torch.Tensor, target: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Hard Dice over the whole batch of binary maps (:93-98), in float32."""
+    p, t = pred.float(), target.float()
+    return 2 * (p * t).sum() / (p.sum() + t.sum() + eps)
+
+
 class AucAccumulator(NamedTuple):
     """Binned-ROC AUC: positive and negative scores histogrammed into fixed
     bins on the device; the AUC is the trapezoid over the binned ROC."""
@@ -124,6 +132,51 @@ class AucAccumulator(NamedTuple):
         tpr = cat([zero, cpos / (cpos[-1] + eps)])
         fpr = cat([zero, cneg / (cneg[-1] + eps)])
         return xp.sum((fpr[1:] - fpr[:-1]) * 0.5 * (tpr[1:] + tpr[:-1]))
+
+
+def auc_exact(scores, target) -> float:
+    """Exact AUC on the host (:162-187): the Mann-Whitney U statistic with
+    tied scores given their average rank; nan without both classes."""
+    s = np.asarray(scores).reshape(-1)
+    t = np.asarray(target).reshape(-1).astype(bool)
+    n_pos = int(t.sum())
+    n_neg = t.size - n_pos
+    if n_pos == 0 or n_neg == 0:
+        return float("nan")
+    order = np.argsort(s, kind="mergesort")
+    sorted_s = s[order]
+    # average rank of each run of tied scores (1-based)
+    starts = np.flatnonzero(np.r_[True, sorted_s[1:] != sorted_s[:-1]])
+    ends = np.r_[starts[1:], s.size]
+    ranks = np.empty(s.size, np.float64)
+    ranks[order] = np.repeat(0.5 * (starts + 1 + ends), ends - starts)
+    u = ranks[t].sum() - n_pos * (n_pos + 1) / 2
+    return float(u / (n_pos * n_neg))
+
+
+def cl_dice(pred, target) -> float:
+    """Centerline Dice on the host (:190-214), a topology-aware vessel
+    metric: the harmonic mean of the share of pred's skeleton inside target
+    and of target's skeleton inside pred. The skeleton is the JAX package's
+    morphological one (erode until empty, keeping what an opening removes)."""
+    from scipy.ndimage import binary_erosion, binary_opening
+
+    def skel(m):
+        m = m.astype(bool)
+        out = np.zeros_like(m)
+        er = m
+        while er.any():
+            out |= er & ~binary_opening(er)
+            er = binary_erosion(er)
+        return out
+
+    p = np.asarray(pred).astype(bool)
+    t = np.asarray(target).astype(bool)
+    sp, st = skel(p), skel(t)
+    eps = 1e-12
+    tprec = (sp & t).sum() / (sp.sum() + eps)
+    tsens = (st & p).sum() / (st.sum() + eps)
+    return float(2 * tprec * tsens / (tprec + tsens + eps))
 
 
 def eval_step_metrics(probs: torch.Tensor, target: torch.Tensor,

@@ -13,7 +13,7 @@ as tests/test_pallas_kernels.py (the same formula in another summation
 order), scaled by sqrt(C / 64) above C = 64; bfloat16 one bf16 ulp of the
 plain result (rtol 2^-7) plus 1e-3 (atol), because kernel and plain version
 both compute in float32 and round once, and can fall on either side of a
-rounding boundary.
+rounding boundary; float16 likewise one float16 ulp (rtol 2^-10) plus 1e-3.
 """
 import numpy as np
 import pytest
@@ -547,3 +547,146 @@ def test_grouped_conv_lowerings_on_card_equal_cpu(cuda, gen, lowering):
         torch.backends.cudnn.allow_tf32 = tf32
     for got, want in zip(results[1], results[0]):
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+# -- float16, the fan-out and the ConvTranspose lowering on the card ------------
+DEPTHS = [(304, 304, 32), (152, 152, 64), (76, 76, 256), (38, 38, 512), (19, 19, 1024)]
+
+
+@pytest.mark.parametrize("hwc", DEPTHS, ids=lambda d: f"C{d[2]}")
+def test_kernels_in_float16_at_the_decoder_depths(cuda, gen, hwc):
+    """Both kernels take float16 on the card (the Triton sources load in
+    float32 and store in the outputs' dtype) and agree with their plain
+    versions at the five decoder depths, B = 2, to the float16 rows."""
+    h, w_, c = hwc
+    f16, f32 = torch.float16, torch.float32
+    wk = _t((gen.standard_normal((c, 2)) * 0.1).astype(np.float32), cuda, f32)
+    bk = _t((gen.standard_normal(2) * 0.1).astype(np.float32), cuda, f32)
+    x = _t(gen.standard_normal((2, h, w_, c)).astype(np.float32), cuda, f16)
+    z = _t(gen.standard_normal((2, h, w_, 2 * c)).astype(np.float32), cuda, f16)
+    attn = _t(gen.standard_normal((2, 2 * c)).astype(np.float32), cuda, f32)
+    rs = _t(gen.uniform(0.5, 2, c).astype(np.float32), cuda, f32)
+    rb = _t(gen.uniform(-1, 1, c).astype(np.float32), cuda, f32)
+    cases = [("aag", fused_aag, fused_aag_plain, (x, wk, bk)),
+             ("decoder_epilogue", fused_decoder_epilogue, fused_decoder_epilogue_plain,
+              (z, attn, x, rs, rb, wk, bk))]
+    for name, fn, plain, args in cases:
+        launches = fn.launches
+        out, yhat = fn(*args)
+        torch.cuda.synchronize()
+        assert fn.launches == launches + 1 and out.dtype == yhat.dtype == f16
+        for got, want, tol in zip((out, yhat), plain(*args), kernel_tolerance(name, f16, c)):
+            _close(got, want, tol)
+    # the train path under autocast: float32 x read in float16, y_hat kept in
+    # float32
+    out, yhat = fused_aag(x.float(), wk, bk, autocast_dtype=f16)
+    assert out.dtype == f16 and yhat.dtype == f32
+    ref_out, ref_yhat = fused_aag_plain(x, wk, bk, yhat_dtype=f32)
+    _close(out, ref_out, kernel_tolerance("aag", f16, c)[0])
+    _close(yhat, ref_yhat, kernel_tolerance("aag", f32, c)[1])
+
+
+def _aag_autocast_ref(x, w, b, cast):
+    """float64 x, w, b: the gate as the train step under autocast computes
+    it (logits from x rounded to `cast`, the backward through x itself), and
+    the logits, whose `.grad` after a backward is g_z."""
+    shift = (x.detach().to(cast).double() - x.detach()) @ w.detach()
+    logits = x @ w + b + shift
+    logits.retain_grad()
+    yhat = torch.softmax(logits, dim=-1)
+    return x * yhat[..., 1:].sum(dim=-1, keepdim=True), yhat, logits
+
+
+@pytest.mark.parametrize("cast", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("shape", [(8, 19, 19, 1024), (8, 76, 76, 256)])
+def test_aag_kernel_under_autocast(cuda, gen, shape, cast):
+    """The train step's call under bf16 or float16 autocast: float32 x gated
+    in `cast` (x*mask in `cast`, y_hat float32), against the plain version
+    on x rounded; the float32 backward from x itself against the float64
+    formula of the same function, to 1e-4 of each gradient's largest entry
+    (g_b, two opposite sums over every pixel that may cancel, of the sum of
+    its terms' magnitudes)."""
+    c = shape[-1]
+    x = _t(gen.standard_normal(shape).astype(np.float32), cuda, torch.float32)
+    w, b = (_t((gen.standard_normal(s) * 0.1).astype(np.float32), cuda, torch.float32)
+            for s in ((c, 2), (2,)))
+    g_out = _t(gen.standard_normal(shape).astype(np.float32), cuda, cast)
+    g_yhat = _t(gen.standard_normal(shape[:-1] + (2,)).astype(np.float32), cuda, torch.float32)
+    x, w, b = (t.requires_grad_() for t in (x, w, b))
+    launches = fused_aag.launches
+    out, yhat = fused_aag(x, w, b, autocast_dtype=cast)
+    torch.cuda.synchronize()
+    assert fused_aag.launches == launches + 1
+    assert out.dtype == cast and yhat.dtype == torch.float32
+    want_out, want_yhat = fused_aag_plain(x.detach().to(cast), w.detach(), b.detach(),
+                                          yhat_dtype=torch.float32)
+    _close(out, want_out, kernel_tolerance("aag", cast, c)[0])
+    _close(yhat, want_yhat, kernel_tolerance("aag", torch.float32, c)[1])
+    torch.autograd.backward((out, yhat), (g_out, g_yhat))
+    assert x.grad.dtype == w.grad.dtype == b.grad.dtype == torch.float32
+    ref = [t.detach().double().requires_grad_() for t in (x, w, b)]
+    r_out, r_yhat, r_z = _aag_autocast_ref(*ref, cast)
+    torch.autograd.backward((r_out, r_yhat), (g_out.double(), g_yhat.double()))
+    scales = (ref[0].grad.abs().max(), ref[1].grad.abs().max(),
+              r_z.grad.abs().reshape(-1, 2).sum(dim=0).max())
+    for got, r, scale in zip((x.grad, w.grad, b.grad), ref, scales):
+        torch.testing.assert_close(got.double(), r.grad, rtol=0, atol=1e-4 * float(scale))
+
+
+def test_fanout_on_one_card_equals_single(cuda, gen):
+    """Predictor(mesh=(cuda:0, cuda:0)), two replicas on one card, against
+    the single Predictor on the same weights (float32, TF32 off, 64²,
+    B = 4): 5 epilogue launches per replica per call, 5 x 2 x k for
+    predict_many, and the rows back in order, within float32 summation order
+    (cuDNN may pick another algorithm at B = 2 than at B = 4)."""
+    from octave_tpu_torch.ops.kernels import launch_counts
+    from octave_tpu_torch.serve import Predictor
+
+    dev0 = torch.device("cuda", 0)
+    images = gen.integers(0, 256, (2, 4, 64, 64, 3), dtype=np.uint8)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        single = Predictor.initialize(dtype=torch.float32, device=dev0)
+        fanned = Predictor.initialize(dtype=torch.float32, mesh=(dev0, dev0))
+        want, want_many = single(images[0]), single.predict_many(images)
+        launch_counts(reset=True)
+        got = fanned(images[0])
+        torch.cuda.synchronize()
+        assert launch_counts()["decoder_epilogue"] == 10
+        got_many = fanned.predict_many(images)
+        torch.cuda.synchronize()
+        assert launch_counts()["decoder_epilogue"] == 10 + 20
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert got.shape == (4, 64, 64, 2) and got_many.shape == (2, 4, 64, 64, 2)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got_many, want_many, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("impl", ["native", "einsum"])
+def test_conv_transpose_lowerings_on_card_equal_cpu(cuda, gen, impl):
+    """conv_transpose_2x2 under each lowering on the card against the CPU's
+    native one (float32, TF32 off for the conv and the matmul; a
+    non-square input, C_in != C_out), and its int8 counterpart: exact int32
+    sums, the float32 dequantisation a few ulps apart between the card's and
+    the CPU's elementwise kernels (2 ulps at 14 measured), hence 1e-5."""
+    from octave_tpu_torch.ops import common, quant
+
+    x = torch.from_numpy(gen.standard_normal((2, 24, 5, 7), dtype=np.float32)).contiguous(
+        memory_format=torch.channels_last)
+    wt = torch.from_numpy(gen.standard_normal((24, 16, 2, 2), dtype=np.float32))
+    bias = torch.from_numpy(gen.standard_normal(16, dtype=np.float32))
+    want = common.conv_transpose_2x2(x, wt, bias)
+    want8 = quant.int8_conv_transpose_2x2(x, wt, bias, 0.03)
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        common.set_conv_transpose_impl(impl)
+        got = common.conv_transpose_2x2(x.to(cuda), wt.to(cuda), bias.to(cuda))
+        got8 = quant.int8_conv_transpose_2x2(x.to(cuda), wt.to(cuda), bias.to(cuda), 0.03)
+    finally:
+        common.set_conv_transpose_impl("native")
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+    torch.testing.assert_close(got8.cpu(), want8, atol=1e-5, rtol=0)

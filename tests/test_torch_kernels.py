@@ -81,8 +81,8 @@ def test_aag_rejects_bad_input(rng):
         fused_aag(x.permute(0, 3, 1, 2), w, b)  # NCHW strides, not NHWC
     with pytest.raises(ValueError):
         fused_aag(x, w[:4], b)
-    with pytest.raises(TypeError):
-        fused_aag(x.half(), w, b)
+    with pytest.raises(TypeError):  # float16 is a kernel dtype, int32 is not
+        fused_aag(x.to(torch.int32), w, b)
 
 
 @pytest.mark.parametrize("shape,k", [((2, 8, 10, 16), 2), ((1, 6, 6, 32), 3)])

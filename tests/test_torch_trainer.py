@@ -70,10 +70,11 @@ def test_weak_only_and_depth_clamp():
 
 
 @pytest.mark.parametrize("override,item", [
-    ({"train.compute_dtype": "float16"}, None),
+    ({"train.compute_dtype": "float64"}, None),
 ])
 def test_unported_options_raise(override, item):
-    with pytest.raises(NotImplementedError) as e:
+    """A compute dtype outside None, float32, bfloat16 and float16 raises."""
+    with pytest.raises(ValueError) as e:
         Trainer(_cfg(**override), device="cpu")
     if item is not None:
         assert f"ROADMAP {item}" in str(e.value)
@@ -99,6 +100,8 @@ def test_unported_options_raise(override, item):
     {"train.steps_per_call": "2"},
     {"train.remat": "conv"},
     {"train.dense_groups": "all"},
+    {"train.compute_dtype": "float16"},
+    {"train.compute_dtype": "float32"},
 ])
 def test_ported_options_are_accepted(override):
     """What the deployment, model-family and memory-switch slices ported no
