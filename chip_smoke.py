@@ -11,9 +11,11 @@ Phases, each printing its own lines:
   2. kernels - each kernel against its plain PyTorch version at the five
                decoder shapes of the 304² forward, in float32 with B = 8,
                in bfloat16 with B = 8 and B = 32 (the serving batch) and in
-               float16 with B = 8, with
+               float16 with B = 8, and the decoder epilogue in bfloat16 at
+               the bench's B = 256, with
                median times (L2 flushed before every launch) and the byte
-               bound; the kernels JSON line carries the bf16 B = 32 figures;
+               bound; the kernels JSON line carries the bf16 B = 32 figures
+               (and the epilogue's B = 256 ones under "at_bench_batch");
   3. golden  - the port's ResnestUNet in float32 (TF32 off) at 304² on the
                reference fill of tests/golden/unet304.npz, through the fused
                epilogue and through the AAG kernel, against the reference's
@@ -139,7 +141,18 @@ Phases, each printing its own lines:
                5 launches, img/s in turns) and the five Upsampling shapes of
                a 304², B = 8 forward timed under each lowering; a float16
                Predictor (5 epilogue launches in float16, agreement with
-               bf16 >= 0.995).
+               bf16 >= 0.995);
+ 12. bench    - `cli bench`'s configuration, `octave_tpu_torch.bench.main()`
+               at its defaults (the committed weights, int8 decoder
+               prepacked and dense-lowered behind the 0.99 agreement gate,
+               B = 256, k = 4, inputs on the device): its JSON record, 195
+               epilogue launches (5 per forward: 1 calibration, 2 gate, 8
+               per-call and 7 x 4 dispatched) and no AAG launch, the served
+               Predictor and the agreement; the k = 4 dispatch's first batch
+               against one call (argmax agreement >= 0.9999, the largest
+               probability difference); peak memory of one B = 256 call of
+               the int8 and of the bf16 Predictor; their img/s in turns; the
+               phase's seconds.
 Exits non-zero, before printing any result, without CUDA or outside a
 checkout of the repository; any failed check
 raises. The last three lines are the kernels JSON, the card's name and power
@@ -165,6 +178,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 DEPTHS = [(304, 304, 32), (152, 152, 64), (76, 76, 256), (38, 38, 512), (19, 19, 1024)]
 SERVE_B = 32
+BENCH_B, BENCH_K = 256, 4  # octave_tpu_torch/bench.py's batch and dispatch depth
 # (dtype, batch) of the kernel comparisons; the JSON line reports the last
 CASES = [("float32", 8), ("bfloat16", 8), ("float16", 8), ("bfloat16", SERVE_B)]
 K = 2
@@ -442,44 +456,63 @@ def main() -> int:
     timer = Timer(torch)
     totals = {(n, case): dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, bytes=0, by=set())
               for n in kernels for case in CASES}
-    for name, kern in kernels.items():
+
+    def hold(name, shape, dt):
+        """One kernel at one shape against its plain version: (max errors,
+        kernel ms, plain ms, bound ms, bound_by, bytes), logged."""
+        kern = kernels[name]
+        args = kernel_inputs(torch, name, shape, dt, gen)
+        out, yhat = kern["fn"](*args)
+        torch.cuda.synchronize()
+        ref_out, ref_yhat = kern["plain"](*args)
+        errs = []
+        for got, want, (atol, rtol) in zip((out, yhat), (ref_out, ref_yhat),
+                                           kernel_tolerance(name, dt, shape[3])):
+            d = (got.float() - want.float()).abs()
+            lim = atol + rtol * want.float().abs()
+            check(bool(torch.isfinite(got).all()), f"{name} {dt} {shape}: non-finite")
+            check(bool((d <= lim).all()), f"{name} {dt} {shape}: max err "
+                  f"{d.max().item():.3g} over atol {atol} rtol {rtol}")
+            errs.append(d.max().item())
+            del d, lim
+        del out, yhat, ref_out, ref_yhat
+        ms = timer.ms(lambda: kern["fn"](*args))
+        plain_ms = timer.ms(lambda: kern["plain"](*args), reps=5)
+        b_ms, b_by, nbytes = bound(name, shape, dt.itemsize)
+        log(f"[kernels] {name} {str(dt)[6:]} {shape}: max|err| out {errs[0]:.3g} "
+            f"y_hat {errs[1]:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB, "
+            f"{nbytes / ms / 1e6:.0f} GB/s achieved)")
+        return errs, ms, plain_ms, b_ms, b_by, nbytes
+
+    def add(t, errs, ms, plain_ms, b_ms, b_by, nbytes):
+        t["ms"] += ms
+        t["plain_ms"] += plain_ms
+        t["bound_ms"] += b_ms
+        t["bytes"] += nbytes
+        t["by"].add(b_by)
+        t["err"] = max(t["err"], *errs)
+
+    for name in kernels:
         for dname, bsz in CASES:
-            dt = dtypes[dname]
             for hwc in DEPTHS:
-                shape = (bsz, *hwc)
-                args = kernel_inputs(torch, name, shape, dt, gen)
-                out, yhat = kern["fn"](*args)
-                torch.cuda.synchronize()
-                ref_out, ref_yhat = kern["plain"](*args)
-                errs = []
-                for got, want, (atol, rtol) in zip((out, yhat), (ref_out, ref_yhat),
-                                                   kernel_tolerance(name, dt, shape[3])):
-                    d = (got.float() - want.float()).abs()
-                    lim = atol + rtol * want.float().abs()
-                    check(bool(torch.isfinite(got).all()), f"{name} {dname} {shape}: non-finite")
-                    check(bool((d <= lim).all()), f"{name} {dname} {shape}: max err "
-                          f"{d.max().item():.3g} over atol {atol} rtol {rtol}")
-                    errs.append(d.max().item())
-                ms = timer.ms(lambda: kern["fn"](*args))
-                plain_ms = timer.ms(lambda: kern["plain"](*args), reps=5)
-                b_ms, b_by, nbytes = bound(name, shape, dt.itemsize)
-                log(f"[kernels] {name} {dname} {shape}: max|err| out {errs[0]:.3g} "
-                    f"y_hat {errs[1]:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                    f"bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB, "
-                    f"{nbytes / ms / 1e6:.0f} GB/s achieved)")
-                t = totals[(name, (dname, bsz))]  # the JSON line takes CASES[-1]'s
-                t["ms"] += ms
-                t["plain_ms"] += plain_ms
-                t["bound_ms"] += b_ms
-                t["bytes"] += nbytes
-                t["by"].add(b_by)
-                t["err"] = max(t["err"], *errs)
-                del args, out, yhat, ref_out, ref_yhat
+                # the JSON line takes CASES[-1]'s totals
+                add(totals[(name, (dname, bsz))], *hold(name, (bsz, *hwc), dtypes[dname]))
     for (name, (dname, bsz)), t in totals.items():
         log(f"[kernels] {name} {dname}, five depths, B={bsz}: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
             f"({t['bound_ms'] / t['ms']:.1%} of bound)")
+    # the decoder epilogue at the bench's batch (phase 12: B = 256, bf16): at
+    # depth 0 its z holds 256 * 304^2 * 64 = 1.51e9 elements, 70% of 2^31
+    bench_totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0, bytes=0, by=set())
+    for hwc in DEPTHS:
+        add(bench_totals, *hold("decoder_epilogue", (BENCH_B, *hwc), torch.bfloat16))
+    t = bench_totals
+    log(f"[kernels] decoder_epilogue bfloat16, five depths, B={BENCH_B}: kernel {t['ms']:.4f} "
+        f"ms, plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_ms'] / t['ms']:.1%} of bound)")
     totals = {name: totals[(name, CASES[-1])] for name in kernels}
+    torch.cuda.empty_cache()
 
     # -- 3. reference parity at 304² in float32 -----------------------------
     torch.backends.cudnn.allow_tf32 = False
@@ -630,6 +663,12 @@ def main() -> int:
     for name, paths in phase_surface(torch, smi, weights, images, serve).items():
         by_path[name].update(paths)
 
+    # -- 12. cli bench: the JAX package's headline serving configuration ----
+    del serve
+    torch.cuda.empty_cache()
+    for name, paths in phase_bench(torch, smi).items():
+        by_path[name].update(paths)
+
     line = {"kernels": [
         {"name": name, "route": "triton", "source": kern["source"],
          "replaces": kern["replaces"], "launches": launches[name],
@@ -639,6 +678,12 @@ def main() -> int:
          "bound_by": "bytes" if totals[name]["by"] == {"bytes"} else "operations",
          "library_ms": None}
         for name, kern in kernels.items()]}
+    # the epilogue at the bench's batch too (phase 2's B = 256 case)
+    next(k for k in line["kernels"] if k["name"] == "decoder_epilogue")["at_bench_batch"] = {
+        "batch": BENCH_B, "dtype": "bfloat16", "max_abs_err": bench_totals["err"],
+        "ms": bench_totals["ms"], "plain_ms": bench_totals["plain_ms"],
+        "bound_ms": bench_totals["bound_ms"],
+        "bound_by": "bytes" if bench_totals["by"] == {"bytes"} else "operations"}
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps(line))
     print(smi)
@@ -3120,6 +3165,90 @@ def _surface(torch, smi, weights, images, serve, tmp):
     log(f"[surface] phase 11 took {time.time() - t_phase:.1f} s")
     log(json.dumps({"surface": summary}))
     return paths
+
+
+# bench-phase bounds: the k = 4 dispatch's first batch against one call on
+# the same Predictor and input (the forwards differ only in which buffers
+# the allocator hands them)
+BENCH_DISPATCH_AGREEMENT = 0.9999
+BENCH_KEYS = {"metric", "value", "unit", "per_call_img_s", "int8_mask_agreement", "device"}
+
+
+def phase_bench(torch, smi):
+    """Phase 12: `octave_tpu_torch.bench.main()` in process at its defaults
+    (B = 256, 304², k = 4, the committed weights, CUDA), with the launch
+    counts zeroed just before it; then, on the Predictors it built, the
+    k = 4 dispatch against one call, each Predictor's peak memory at B = 256
+    and the two Predictors' img/s in turns. Returns the launches by path."""
+    from octave_tpu_torch import bench
+    from octave_tpu_torch.ops.kernels import launch_counts
+
+    t_phase = time.time()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    launch_counts(reset=True)
+    with contextlib.redirect_stdout(out):
+        run = bench.main()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    t_bench = time.time() - t_phase
+    bench_peak = torch.cuda.max_memory_allocated() / 2**30
+    printed = out.getvalue().splitlines()
+    check(len(printed) == 1, f"bench printed {len(printed)} lines, expected one JSON line")
+    log(f"[bench] record: {printed[0]}")
+    record = json.loads(printed[0])
+    # one calibration forward, two gate forwards, 8 per-call forwards and 7
+    # dispatches of k forwards, 5 epilogues each
+    want = {"aag": 0, "decoder_epilogue": 5 * (1 + 2 + 8 + 7 * BENCH_K)}
+    log(f"[bench] launches {counts} (expected {want}); bench.main() took {t_bench:.1f} s, "
+        f"peak device memory {bench_peak:.2f} GiB")
+    check(counts == want, f"bench launches {counts}, expected {want}")
+    check(set(record) == BENCH_KEYS, f"bench record keys {sorted(record)}")
+    check(record["device"] == smi, f"bench device {record['device']!r}, nvidia-smi {smi!r}")
+    agreement = record["int8_mask_agreement"]
+    int8_served = run.served is run.int8
+    check(int8_served == (agreement >= bench.AGREEMENT_GATE)
+          and ("int8 dense-lowered decoder" in record["metric"]) == int8_served,
+          f"gate: agreement {agreement}, int8 served {int8_served}, {record['metric']}")
+    served = ("int8 (prepacked, dense-lowered decoder)" if int8_served
+              else "bf16: the agreement gate fell back")
+    log(f"[bench] served: {served}; int8/bf16 argmax agreement {agreement} "
+        f"(gate {bench.AGREEMENT_GATE})")
+    check(record["value"] > 0 and record["per_call_img_s"] > 0, "bench rates")
+
+    pred = run.served
+    xs = torch.from_numpy(run.images).to(pred.device, pred.dtype)
+    xk = xs.unsqueeze(0).expand(BENCH_K, *xs.shape).contiguous()
+    one = pred.predict_many_device(xs[None]).tensor[0]
+    first = pred.predict_many_device(xk).tensor[0]
+    agree = float((first.argmax(-1) == one.argmax(-1)).float().mean())
+    diff = float((first - one).abs().max())
+    log(f"[bench] k={BENCH_K} dispatch's first batch against one call (served Predictor, "
+        f"B={BENCH_B}): argmax agreement {agree:.6f} (floor {BENCH_DISPATCH_AGREEMENT}), "
+        f"max |prob diff| {diff:.3g}")
+    check(agree >= BENCH_DISPATCH_AGREEMENT, f"k={BENCH_K} dispatch disagrees with one call")
+    del one, first
+
+    for name, p in (("int8", run.int8), ("bf16", run.bf16)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 2**30
+        p.predict_many_device(xs[None]).tensor[0, 0, 0, 0].cpu()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[bench] {name} Predictor, one B={BENCH_B} call: peak {peak:.2f} GiB "
+            f"({resident:.2f} GiB resident before it: both Predictors, the inputs)")
+    rates = {"int8": [], "bf16": []}
+    for name in ("int8", "bf16", "bf16", "int8"):
+        dt = bench.median_dispatch_s(getattr(run, name), xk, calls=4, warmup=1)
+        rates[name].append(BENCH_B * BENCH_K / dt)
+    log(f"[bench] k={BENCH_K} x B={BENCH_B} dispatch in turns on {smi}: int8 "
+        f"{' / '.join(f'{r:.1f}' for r in rates['int8'])} img/s, bf16 "
+        f"{' / '.join(f'{r:.1f}' for r in rates['bf16'])} img/s")
+    del run, pred, xs, xk
+    log(f"[bench] phase 12 took {time.time() - t_phase:.1f} s")
+    return {"decoder_epilogue": {f"cli bench (B={BENCH_B}, k={BENCH_K})":
+                                 want["decoder_epilogue"]}}
 
 
 def nudge_(torch, module, seed=0):

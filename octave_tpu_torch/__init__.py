@@ -30,7 +30,9 @@ Layout (JAX counterpart in brackets):
   * utils/convert.py                 [inverse of octave_tpu/utils/torch_convert.py]
   * utils/padding.py                 [octave_tpu/utils/padding.py]
   * serve.py                         [octave_tpu/serve.py::Predictor, BatchServer]
-  * cli.py                           [octave_tpu/cli.py: train, eval, predict, convert]
+  * cli.py                           [octave_tpu/cli.py: train, eval, predict, convert,
+                                      bench]
+  * bench.py                         [bench.py at the repository's root]
 
 The package's top level names its main entry points lazily, as the JAX
 package's does: `octave_tpu_torch.Predictor` imports `serve` on first use.

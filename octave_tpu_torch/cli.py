@@ -1,18 +1,20 @@
-"""octave_tpu_torch command line: train / eval / predict / convert.
+"""octave_tpu_torch command line: train / eval / predict / convert / bench.
 
 Usage:
     python -m octave_tpu_torch.cli train   [--config cfg.json] [--device cuda|cpu] [k.ey=value ...]
     python -m octave_tpu_torch.cli eval    --checkpoint DIR [--config ...] [--device ...] [k.ey=value ...]
     python -m octave_tpu_torch.cli predict --images DIR --out DIR [--checkpoint DIR] [--device ...] [...]
     python -m octave_tpu_torch.cli convert --pth resnest50-<hash>.pth --out backbone.pt [--sha256 HEX]
+    python -m octave_tpu_torch.cli bench   [--device ...]
 
 The port of `octave_tpu/cli.py` (`train` :40-48, `eval` :51-66, `convert`
-:69-104, `predict` :107-170, --int8 included): the same config files and
-dotted overrides (utils/config.py). `train` and `eval` build the segmentor that
-`model.architecture` and `model.encoder_gating` name; `predict` serves
-ResnestUNet only, as the JAX Predictor does. The device is CUDA unless
---device says otherwise; without CUDA the commands exit with a message.
-`bench` is not ported.
+:69-104, `predict` :107-170, --int8 included, `bench` :173-177): the same
+config files and dotted overrides (utils/config.py). `train` and `eval` build
+the segmentor that `model.architecture` and `model.encoder_gating` name;
+`predict` serves ResnestUNet only, as the JAX Predictor does. `bench` runs
+the serving benchmark (`octave_tpu_torch/bench.py`) and prints its JSON
+line. The device is CUDA unless --device says otherwise; without CUDA the
+commands exit with a message.
 
 `train` and `eval` with `train.data_parallel=true [train.n_devices=N]` run
 one rank per device: under torchrun (WORLD_SIZE set) this process joins the
@@ -231,6 +233,13 @@ def cmd_predict(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from octave_tpu_torch import bench
+
+    bench.main(device=_device(args))
+    return 0
+
+
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s",
                         stream=sys.stderr)
@@ -270,6 +279,10 @@ def main(argv=None) -> int:
                          "the first batch")
     common(sp)
     sp.set_defaults(fn=cmd_predict)
+
+    sp = sub.add_parser("bench")
+    sp.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    sp.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     return args.fn(args)

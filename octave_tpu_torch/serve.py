@@ -25,7 +25,9 @@ copy stream and downloads into pinned memory, so a download never queues
 behind forwards that were enqueued after its own, and joins the shards in
 row order. The device tensors stay referenced by the `DeviceResult` until
 their downloads have finished, so the caching allocator cannot hand their
-blocks to a later forward.
+blocks to a later forward. A batch that is already a tensor on a CUDA device
+is not uploaded: each replica takes its rows where they lie (in place on its
+own device), as the JAX package's `predict_many_device` takes a device array.
 """
 from __future__ import annotations
 
@@ -203,56 +205,57 @@ class Predictor:
                           pin_memory=self.device.type == "cuda")
         return raw.numpy().view(dtype).reshape(tuple(shape))
 
-    def _fan_out(self, host: np.ndarray, axis: int, run) -> "DeviceResult":
-        """run(model, device batch) on every replica for its rows of `host`
-        along `axis`; the shards in row order. Each upload runs on its
-        replica's upload stream and its forward on its device's current
-        stream, after the upload's event."""
+    def _fan_out(self, batch, axis: int, run) -> "DeviceResult":
+        """run(model, device batch) on every replica for its rows of `batch`
+        (a numpy array or a tensor) along `axis`; the shards in row order.
+        A host batch goes up on each replica's upload stream and its forward
+        runs on the device's current stream, after the upload's event. A
+        batch already on a CUDA device stays there: each replica takes its
+        rows in place on its own device, or as a device-to-device copy."""
         parts = []
-        host = np.ascontiguousarray(host)  # no copy for a contiguous array
-        for rep, piece in zip(self.replicas, split_rows(host, len(self.replicas), axis)):
+        if not torch.is_tensor(batch):
+            batch = torch.from_numpy(np.ascontiguousarray(batch))  # no copy if contiguous
+        elif batch.device.type == "cpu":
+            batch = batch.contiguous()
+        for rep, t in zip(self.replicas, split_rows(batch, len(self.replicas), axis)):
             # uint8 stays uint8 on the wire; floats go up in the compute dtype
-            t = torch.from_numpy(piece)
+            # (a device tensor is cast on its device)
             if t.dtype != torch.uint8:
                 t = t.to(self.dtype)
             if rep.device.type != "cuda":
                 parts.append((run(rep.model, t.to(rep.device)), None, None))
                 continue
             with torch.cuda.device(rep.device):
-                with torch.cuda.stream(rep.upload):
-                    x = torch.empty(t.shape, dtype=t.dtype, device=rep.device)
-                    # a shard of a (k, B, ...) stack split along the batch is
-                    # k runs of memory: one copy each keeps a pinned stack's
-                    # upload asynchronous, where a contiguous host copy of the
-                    # shard would be pageable and block the host
-                    for dst, src in ([(x, t)] if t.is_contiguous() else zip(x, t)):
-                        dst.copy_(src, non_blocking=True)
-                    uploaded = torch.cuda.Event()
-                    uploaded.record()
-                compute = torch.cuda.current_stream(rep.device)
-                compute.wait_event(uploaded)
-                x.record_stream(compute)  # allocated on the upload stream, read here
+                if t.device.type == "cuda":
+                    x = t.to(rep.device, non_blocking=True)  # no copy on its own device
+                else:
+                    x = rep.put(t)
                 out = run(rep.model, x)
+                compute = torch.cuda.current_stream(rep.device)
                 done = torch.cuda.Event()
                 done.record(compute)
             parts.append((out, done, rep.download))
         return DeviceResult(parts, axis)
 
     @torch.inference_mode()
-    def __call__(self, batch: np.ndarray) -> np.ndarray:
+    def __call__(self, batch) -> np.ndarray:
         """(B,H,W,3) uint8 or float in [0,1] -> (B,H,W,K) probabilities, or
-        a (B,H,W) uint8 mask for output_format='mask_u8'."""
+        a (B,H,W) uint8 mask for output_format='mask_u8'. `batch` is a numpy
+        array or a tensor; one already on a CUDA device is not copied to
+        the host (`_fan_out`)."""
         return np.asarray(self._fan_out(batch, 0, self._forward))
 
-    def predict_many(self, stack: np.ndarray) -> np.ndarray:
+    def predict_many(self, stack) -> np.ndarray:
         """A (k,B,H,W,3) stack of batches: one upload, k forwards in order,
         one download."""
         return np.asarray(self.predict_many_device(stack))
 
     @torch.inference_mode()
-    def predict_many_device(self, stack: np.ndarray) -> "DeviceResult":
+    def predict_many_device(self, stack) -> "DeviceResult":
         """predict_many without the download: enqueues the upload and the k
-        forwards and returns at once. `.tensor` is the (k, B, ...) device
+        forwards and returns at once; a stack already on the device (a
+        tensor, as the JAX package's `predict_many_device` takes a device
+        array) is used where it lies. `.tensor` is the (k, B, ...) device
         tensor, for work that stays on the device; `np.asarray(result)` waits
         and downloads. The k forwards are a loop on one stream, so their
         activations reuse each other's memory. With a mesh, axis 1 (the
@@ -301,6 +304,25 @@ class _Replica:
         cuda = device.type == "cuda"
         self.upload = torch.cuda.Stream(device) if cuda else None
         self.download = torch.cuda.Stream(device) if cuda else None
+
+    def put(self, host: torch.Tensor) -> torch.Tensor:
+        """`host` copied to this replica's CUDA device on its upload stream,
+        for a forward on the device's current stream (which waits for the
+        copy's event)."""
+        with torch.cuda.stream(self.upload):
+            x = torch.empty(host.shape, dtype=host.dtype, device=self.device)
+            # a shard of a (k, B, ...) stack split along the batch is k runs
+            # of memory: one copy each keeps a pinned stack's upload
+            # asynchronous, where a contiguous host copy of the shard would be
+            # pageable and block the host
+            for dst, src in ([(x, host)] if host.is_contiguous() else zip(x, host)):
+                dst.copy_(src, non_blocking=True)
+            uploaded = torch.cuda.Event()
+            uploaded.record()
+        compute = torch.cuda.current_stream(self.device)
+        compute.wait_event(uploaded)
+        x.record_stream(compute)  # allocated on the upload stream, read on compute
+        return x
 
 
 class DeviceResult:

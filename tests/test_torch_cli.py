@@ -1,11 +1,12 @@
 """The port's command line on the CPU: train with a checkpoint, eval from it,
-predict over a folder, convert a pretrained backbone.
+predict over a folder, convert a pretrained backbone, run the bench small.
 
 Every command is driven in process through `cli.main` with `--device cpu`;
 without `--device cpu` and without a GPU each must exit asking for CUDA.
 """
 import ast
 import hashlib
+import json
 import os
 import shutil
 
@@ -122,15 +123,34 @@ def test_predict_directory(checkpoint, tmp_path, rng):
               "--device", "cpu"])
 
 
-@pytest.mark.parametrize("cmd", ["train", "eval", "predict"])
+@pytest.mark.parametrize("cmd", ["train", "eval", "predict", "bench"])
 def test_commands_need_cuda_by_default(tmp_path, cmd):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA")
-    args = {"train": [], "eval": [],
-            "predict": ["--images", str(tmp_path), "--out", str(tmp_path / "o")]}[cmd]
+    config = ["--config", SMOKE, *SMALL]
+    args = {"train": config, "eval": config,
+            "predict": ["--images", str(tmp_path), "--out", str(tmp_path / "o"), *config],
+            "bench": []}[cmd]  # bench takes no config: its configuration is fixed
     write_png_gray(str(tmp_path / "a.png"), np.zeros((8, 8), np.uint8))
     with pytest.raises(SystemExit, match="CUDA is not available"):
-        main([cmd, *args, "--config", SMOKE, *SMALL])
+        main([cmd, *args])
+
+
+def test_bench_command_on_cpu(capsys, monkeypatch):
+    """`bench --device cpu` runs `bench.main` on the CPU and prints its one
+    JSON line; the default size is patched down to B = 4, 32², k = 2."""
+    from octave_tpu_torch import bench
+
+    defaults = dict(zip(bench.main.__code__.co_varnames, bench.main.__defaults__))
+    assert defaults == {"batch": 256, "hw": 304, "k": 4, "device": None}
+    monkeypatch.setattr(bench.main, "__defaults__", (4, 32, 2, None))
+    assert main(["bench", "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 1
+    record = json.loads(lines[0])
+    assert set(record) == {"metric", "value", "unit", "per_call_img_s",
+                           "int8_mask_agreement", "device"}
+    assert record["metric"].startswith("32x32 en-face") and record["device"] == "cpu"
 
 
 def _free_port():

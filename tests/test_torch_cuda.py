@@ -690,3 +690,56 @@ def test_conv_transpose_lowerings_on_card_equal_cpu(cuda, gen, impl):
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
     torch.testing.assert_close(got8.cpu(), want8, atol=1e-5, rtol=0)
+
+
+def test_decoder_epilogue_at_the_bench_batch(cuda):
+    """The decoder epilogue against its plain version at the bench's B = 256,
+    depth 0 (304², C = 32), bf16: z holds 256 * 304^2 * 64 = 1.51e9
+    elements, 70% of 2^31, the largest tensor the kernel meets. Inputs are
+    drawn on the card (a host draw would take ~12 GB)."""
+    b_, h, w_, c, k = 256, 304, 304, 32, 2
+    g = torch.Generator(device=cuda).manual_seed(256)
+    rn = lambda *s: torch.randn(*s, generator=g, device=cuda)  # noqa: E731
+    z = rn(b_, h, w_, 2 * c).to(torch.bfloat16)
+    res = rn(b_, h, w_, c).to(torch.bfloat16)
+    attn = rn(b_, 2 * c)
+    rs = torch.rand(c, generator=g, device=cuda) * 1.5 + 0.5
+    rb = torch.rand(c, generator=g, device=cuda) * 2 - 1
+    w = (rn(c, k) * 0.1).contiguous()
+    bb = rn(k) * 0.1
+    launches = fused_decoder_epilogue.launches
+    out, yhat = fused_decoder_epilogue(z, attn, res, rs, rb, w, bb)
+    torch.cuda.synchronize()
+    assert fused_decoder_epilogue.launches == launches + 1
+    ref_out, ref_yhat = fused_decoder_epilogue_plain(z, attn, res, rs, rb, w, bb)
+    del z, res
+    for got, want, (atol, rtol) in zip((out, yhat), (ref_out, ref_yhat),
+                                       kernel_tolerance("decoder_epilogue", torch.bfloat16, c)):
+        want = want.float()
+        bad = (got.float() - want).abs() > atol + rtol * want.abs()
+        assert not bool(bad.any()), f"{int(bad.sum())} elements out of tolerance"
+
+
+def test_predictor_takes_device_input_in_place(cuda, monkeypatch):
+    """A stack already on the card goes through predict_many_device and
+    __call__ without an upload (the upload path raises here), single and
+    over two replicas of cuda:0, and agrees with the host path (float32 and
+    uint8; the host path casts float32 to bf16 on the CPU, the device path on
+    the card, both rounding to nearest even)."""
+    from octave_tpu_torch.serve import Predictor, _Replica
+
+    dev0 = torch.device("cuda", 0)
+    rng = np.random.default_rng(9)
+    stack = rng.uniform(0, 1, (2, 4, 64, 64, 3)).astype(np.float32)
+    for mesh in (None, (dev0, dev0)):
+        pred = Predictor.initialize(device=dev0, mesh=mesh)
+        for host in (stack, (stack * 255).astype(np.uint8)):
+            want, want_one = pred.predict_many(host), pred(host[0])
+            with monkeypatch.context() as m:
+                m.setattr(_Replica, "put", lambda self, t: pytest.fail("uploaded"))
+                on_card = torch.from_numpy(host).to(dev0)
+                got = pred.predict_many(on_card)
+                got_one = pred(on_card[0])
+            np.testing.assert_allclose(got, want, atol=2**-7, rtol=0)
+            np.testing.assert_allclose(got_one, want_one, atol=2**-7, rtol=0)
+            assert (got.argmax(-1) == want.argmax(-1)).mean() >= 0.999
