@@ -63,7 +63,7 @@ Phases, each printing its own lines:
                main depth 4 and c depth 1, 4 steps, 7 AAG launches per step
                and eval batch), restore exact, every kind of state moved,
                `cli eval --checkpoint` printing the live metrics; one float32
-               dual-critic step on the card against the CPU (112², B = 2);
+               dual-critic step on the card against the CPU (112², B = 2), beside a float32 witness;
                the fused dual-decoder eval forward (7 epilogue launches)
                against the unfused one in bf16; `octa_scribble_net` with
                encoder gating (5 AAG launches, 5 gates of 16 channels); step
@@ -124,7 +124,7 @@ Phases, each printing its own lines:
                (logged steps, the checkpoint cadence crossed at step 4, 25
                AAG launches, restore equal to the checkpoint with exp_avg in
                bf16, `cli eval --checkpoint` printing train's metrics);
-               Trainer.fit img/s at steps_per_call 1, 2 and 4 in turns;
+               Trainer.fit img/s at steps_per_call 1, 2 and 4;
  11. surface  - the rest of the JAX package's surface: one float16 `unet`
                step at 304², B = 8 (noise off) against float32 from the same
                state and batch (losses 5%, 5 AAG launches gating in float16,
@@ -152,7 +152,27 @@ Phases, each printing its own lines:
                against one call (argmax agreement >= 0.9999, the largest
                probability difference); peak memory of one B = 256 call of
                the int8 and of the bf16 Predictor; their img/s in turns; the
-               phase's seconds.
+               phase's seconds;
+ 13. graph    - the train step as one CUDA-graph replay per call (on CUDA
+               every `Trainer.fit` of phases 5-12 runs so, data parallelism
+               excepted): C.8 on the card (a fresh ResnestUNet's 87 backbone
+               conv stds against sqrt(2/(kh kw out))); Trainer.fit graphed
+               against eager in float32 (TF32 off, deterministic
+               algorithms, noise on, B = 2 at 128², a schedule that moves),
+               bit for bit in every call's losses and every state leaf
+               (parameters, BN statistics, spectral u/v, moments, schedule,
+               generator), for `unet` and `parallel_head_gate` at
+               steps_per_call 1, 2 and 4, the bf16 moment at 2 and each
+               remat mode at 1 (where they differ, the eager-against-eager
+               spread beside it, which the graph must not exceed); AAG
+               launches through the replays (5 per `unet` step, 7 per
+               `parallel_head_gate` step, 10 where the remat region holds
+               the gates); a graphed fit to step 2 resumed to step 4 against
+               the graphed fit to step 4; at 304², B = 8, bf16, default
+               Config, `unet` and `parallel_head_gate`: eager and graphed
+               step ms and img/s in turns, peak memory, one profiled call's
+               device idle share, and Trainer.fit img/s at steps_per_call
+               1, 2 and 4.
 Exits non-zero, before printing any result, without CUDA or outside a
 checkout of the repository; any failed check
 raises. The last three lines are the kernels JSON, the card's name and power
@@ -315,8 +335,8 @@ def package_log():
         logger.removeHandler(handler)
 
 
-def profile_groups(torch, fn, group):
-    """(wall ms, {group: device ms}, {kernel name: device ms}) of one fn()."""
+def profiled(torch, fn):
+    """(wall ms, the torch.profiler profile) of one fn()."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -325,6 +345,15 @@ def profile_groups(torch, fn, group):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    return wall, prof
+
+
+def profile_groups(torch, fn, group, prof=None):
+    """(wall ms, {group: device ms}, {kernel name: device ms}) of one fn(),
+    or of the profile `prof` (wall then None)."""
+    wall = None
+    if prof is None:
+        wall, prof = profiled(torch, fn)
     groups, names = {}, {}
     for ev in prof.events():
         # device kernels and copies only: user annotations (e.g. the
@@ -394,6 +423,10 @@ def phantoms(n, hw, seed):
 
 
 def main() -> int:
+    # cuBLAS's deterministic workspace setting (phase 13 runs with
+    # deterministic algorithms), read when cuBLAS first runs; on an H100 it
+    # is PyTorch's default size anyway
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not (os.path.isdir(os.path.join(HERE, "octave_tpu_torch"))
             and os.path.isfile(os.path.join(HERE, "tests", "goldens.py"))):
         print(f"chip_smoke: {HERE} is not a checkout of the repository "
@@ -667,6 +700,11 @@ def main() -> int:
     del serve
     torch.cuda.empty_cache()
     for name, paths in phase_bench(torch, smi).items():
+        by_path[name].update(paths)
+
+    # -- 13. the train step as one CUDA-graph replay per call ----------------
+    torch.cuda.empty_cache()
+    for name, paths in phase_graph(torch, smi).items():
         by_path[name].update(paths)
 
     line = {"kernels": [
@@ -1541,18 +1579,29 @@ def _family(torch, smi, device, tmp):
     grad_err = {"segmentor": rel_l2(s_gpu.segmentor, s_cpu.segmentor)}
     for name in ("main", "c"):
         grad_err[name] = rel_l2(s_gpu.critic[name], s_cpu.critic[name])
+    # the float32 witness: the CPU step from segmentor weights one float32
+    # rounding away (`nudge_`). From the ResNet init of the backbone (C.8)
+    # at B = 2 float32 is itself ~8e-2 from float64 in the segmentor
+    # gradient on the CPU, above TRAIN_GRAD_L2's 0.05 (set under torch's
+    # default init): card and CPU, two independent float32 runs, may then
+    # sit sqrt(2) witnesses apart
+    s_nudged = cpu.init_state()
+    nudge_(torch, s_nudged.segmentor)
+    cpu.train_step(s_nudged, cpu.device_batch(host))
+    witness = rel_l2(s_nudged.segmentor, s_cpu.segmentor)
+    seg_bound = max(TRAIN_GRAD_L2["segmentor"], 2**0.5 * witness)
     log(f"[family] fp32 dual-critic step {FAMILY_STEP_HW}², B={FAMILY_STEP_B}, TF32 off, noise "
         f"off: card (AAG kernel) " + ", ".join(f"{k} {float(v):.6f}" for k, v in l_gpu.items())
         + f"; CPU (plain AAG, {t_cpu:.1f} s) max loss rel err {loss_err:.2e} (bound "
         f"{TRAIN_LOSS_RTOL}); gradient rel L2 err " + ", ".join(
             f"{k} {v:.2e}" for k, v in grad_err.items())
-        + f" (bounds segmentor {TRAIN_GRAD_L2['segmentor']}, each critic "
-        f"{TRAIN_GRAD_L2['critic']})")
+        + f" (bounds segmentor max({TRAIN_GRAD_L2['segmentor']}, sqrt(2) x the witness "
+        f"{witness:.2e}) = {seg_bound:.2e}, each critic {TRAIN_GRAD_L2['critic']})")
     check(loss_err <= TRAIN_LOSS_RTOL, f"card vs CPU dual-critic losses differ by {loss_err}")
     for name, err in grad_err.items():
-        bound_ = TRAIN_GRAD_L2["segmentor" if name == "segmentor" else "critic"]
+        bound_ = seg_bound if name == "segmentor" else TRAIN_GRAD_L2["critic"]
         check(err <= bound_, f"card vs CPU {name} gradients differ by {err}")
-    del gpu, cpu, s_gpu, s_cpu
+    del gpu, cpu, s_gpu, s_cpu, s_nudged
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
 
     # 7.4 the fused dual-decoder eval forward against the unfused one, bf16
@@ -2809,13 +2858,14 @@ def _switches(torch, smi, weights, images, serve, tmp):
         f"{logged}, saves {saves}; restore equal to the checkpoint in {n_tensors} tensors, "
         f"exp_avg bf16; cli eval --checkpoint prints train's metrics {train_metrics}")
 
-    # img/s of Trainer.fit at steps_per_call 1, 2, 4 (in turns, 12 steps each)
+    # img/s of Trainer.fit at steps_per_call 1, 2, 4 (12 steps each; phase
+    # 13 times eager and graphed fits in turns)
     base_over = {"data.synthetic_n": "8", "data.batch_size": "8",
                  "train.compute_dtype": "bfloat16", "train.eval_every": "0",
                  "train.log_every": "0"}
     state = Trainer(Config().apply_overrides(base_over), device="cuda").init_state()
     spc = {1: [], 2: [], 4: []}
-    for k in (1, 2, 4, 4, 2, 1):
+    for k in (1, 2, 4):
         tr = Trainer(Config().apply_overrides({**base_over, "train.steps_per_call": str(k),
                                                "train.steps": str(state.step + 12)}),
                      device="cuda")
@@ -2827,7 +2877,7 @@ def _switches(torch, smi, weights, images, serve, tmp):
     log(f"[switches] Trainer.fit, 12 steps, 304² B=8 bf16, on {smi}: img/s by steps_per_call "
         + "; ".join(f"{k}: {', '.join(f'{r:.1f}' for r in v)}" for k, v in spc.items()))
     summary["steps_per_call_img_s"] = spc
-    check(state.step == 72, f"the six fits ended at step {state.step}")
+    check(state.step == 36, f"the three fits ended at step {state.step}")
     del state, tr, b8
     torch.cuda.empty_cache()
     log(f"[switches] phase 10 took {time.time() - t_phase:.1f} s")
@@ -3249,6 +3299,320 @@ def phase_bench(torch, smi):
     log(f"[bench] phase 12 took {time.time() - t_phase:.1f} s")
     return {"decoder_epilogue": {f"cli bench (B={BENCH_B}, k={BENCH_K})":
                                  want["decoder_epilogue"]}}
+
+
+# graph-phase settings (phase 13). The bit-for-bit cases: float32, TF32 off,
+# deterministic algorithms, noise on, B = 2 at GRAPH_HW² (the main critic's
+# depth 4 needs 32 to divide it), a schedule that decays over GRAPH_DECAY
+# steps (every update takes another rate), GRAPH_CALLS calls of k steps.
+GRAPH_HW = 128
+GRAPH_CALLS = 4
+GRAPH_DECAY = 8
+# AAG launches per step: the gates of each architecture, twice where the
+# remat region holds them (the recompute runs them again)
+GRAPH_AAG = {"unet": 5, "parallel_head_gate": 7}
+GRAPH_REMAT = (True, "conv", "block", "block-enc", "block:012", "block:01e34", "block:012+conv")
+# timed calls of each Trainer.fit in the speed part
+FIT_CALLS = 6
+# C.8: a conv's sample std against sqrt(2/(kh kw out)), in standard errors
+# (1/sqrt(2n) relative for n draws), as tests/test_torch_init.py holds it
+C8_Z = 6.0
+
+
+def phase_graph(torch, smi):
+    """Phase 13: the train step as one CUDA-graph replay per call. Returns
+    {kernel: {path: launches}} of its graphed runs."""
+    tmp = tempfile.mkdtemp(prefix="octave_graph_")
+    try:
+        with cached_datasets():
+            return _graph(torch, smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def cached_datasets():
+    """Every `Trainer.fit` inside reads one dataset object per (config,
+    split): the synthetic phantoms are generated once, not in each fit's
+    first epoch (~0.2 s per 304² phantom on the host), so a fit's time is
+    its training. The phantoms are the same either way."""
+    from octave_tpu_torch.train import trainer
+
+    build, made = trainer.build_dataset, {}
+
+    def build_once(cfg, split="train"):
+        d = cfg.data
+        key = (d.dataset, tuple(d.image_size), d.synthetic_n, d.root, cfg.train.seed, split)
+        if key not in made:
+            made[key] = build(cfg, split)
+        return made[key]
+
+    trainer.build_dataset = build_once
+    try:
+        yield
+    finally:
+        trainer.build_dataset = build
+
+
+def _graph(torch, smi, tmp):
+    import math
+    import warnings
+
+    from octave_tpu_torch.data import datasets as ds
+    from octave_tpu_torch.models.segmentor import ResnestUNet
+    from octave_tpu_torch.ops.kernels import launch_counts
+    from octave_tpu_torch.train.steps import GraphedStep
+    from octave_tpu_torch.train.trainer import Trainer, build_dataset
+    from octave_tpu_torch.utils.checkpoint import state_to_dict
+    from octave_tpu_torch.utils.config import Config
+
+    t_phase = time.time()
+    paths = {"aag": {}, "decoder_epilogue": {}}
+    summary = {"device": smi}
+
+    # 13.1 C.8 on the card: a fresh ResnestUNet's backbone convs
+    torch.manual_seed(0)
+    seg = ResnestUNet(2).cuda()
+    ratios, worst, splat = [], 0.0, []
+    for name, w in seg.state_dict().items():
+        if name.startswith("encoder_") and w.ndim == 4:
+            r = float(w.std()) / math.sqrt(2.0 / (w.shape[2] * w.shape[3] * w.shape[0]))
+            ratios.append(r)
+            worst = max(worst, abs(r - 1) * math.sqrt(2 * w.numel()))
+        elif name.startswith("decoder_") and ".conv.3." in name and w.ndim == 4:
+            splat.append(float(w.std()) * math.sqrt(3 * w[0].numel()))  # kaiming-uniform: 1
+    log(f"[graph] C.8: the {len(ratios)} backbone convs of a fresh ResnestUNet (seed 0) on the "
+        f"card: std / sqrt(2/(kh kw out)) {min(ratios):.4f}-{max(ratios):.4f}, at most "
+        f"{worst:.2f} standard errors from 1 (bound {C8_Z}); the decoders' {len(splat)} "
+        f"split-attention convs keep torch's kaiming-uniform: std / (1/sqrt(3 fan_in)) "
+        f"{min(splat):.4f}-{max(splat):.4f}")
+    check(len(ratios) == 87 and worst <= C8_Z, f"C.8: backbone conv stds {worst:.2f} "
+          "standard errors from the ResNet init")
+    summary["c8"] = {"convs": len(ratios), "ratio_min": min(ratios), "ratio_max": max(ratios),
+                     "worst_standard_errors": worst}
+    del seg
+
+    # 13.2 graphed against eager, bit for bit
+    def run(arch, graphed, k, calls=GRAPH_CALLS, **extra):
+        """Trainer.fit of `calls` calls of k steps from train.seed: (state,
+        each call's logged losses, AAG launches)."""
+        logs = tempfile.mkdtemp(dir=tmp)
+        cfg = Config().apply_overrides({
+            "data.image_size": f"[{GRAPH_HW},{GRAPH_HW}]", "data.batch_size": "2",
+            "data.synthetic_n": "8", "model.architecture": arch,
+            "optim.decay_steps": str(GRAPH_DECAY), "train.steps_per_call": str(k),
+            "train.steps": str(k * calls), "train.log_every": str(k), "train.log_dir": logs,
+            "train.eval_every": "0", **extra})
+        tr = Trainer(cfg, device="cuda", graphed=graphed)
+        launch_counts(reset=True)
+        state = tr.fit()
+        torch.cuda.synchronize()
+        n = launch_counts()["aag"]
+        with open(os.path.join(logs, "metrics.jsonl")) as f:
+            losses = [{k_: v for k_, v in json.loads(line).items() if k_.startswith("train/loss")}
+                      for line in f]
+        return state, losses, n
+
+    def differences(got, want):
+        """(largest |difference| over every leaf of the two states, leaves,
+        the leaves that differ)."""
+        a, b = dict(leaves(state_to_dict(got))), dict(leaves(state_to_dict(want)))
+        check(a.keys() == b.keys(), "the two states hold other entries")
+        worst_, bad = 0.0, []
+        for key, v in b.items():
+            u = a[key]
+            if torch.is_tensor(v):
+                if not torch.equal(u, v):
+                    bad.append(key)
+                    worst_ = max(worst_, float((u.double() - v.double()).abs().max()))
+            elif u != v:
+                bad.append(key)
+                worst_ = math.inf
+        return worst_, len(b), bad
+
+    def loss_gap(got, want):
+        check(len(got) == len(want), f"logged calls {len(got)} and {len(want)}")
+        return max(abs(g[key] - w[key]) for g, w in zip(got, want) for key in w)
+
+    def hold(label, arch, k, calls=GRAPH_CALLS, **extra):
+        eager, l_eager, n_eager = run(arch, False, k, calls, **extra)
+        graph, l_graph, n_graph = run(arch, True, k, calls, **extra)
+        check(eager.graph is None and isinstance(graph.graph, GraphedStep)
+              and graph.graph.graph is not None and graph.graph.calls == calls,
+              f"{label}: the graphed run captured no graph")
+        per_step = GRAPH_AAG[arch] * (2 if extra.get("train.remat") in ("true", "conv") else 1)
+        want_n = per_step * k * calls
+        check(n_eager == n_graph == want_n, f"{label}: AAG launches eager {n_eager}, graphed "
+              f"{n_graph}, expected {want_n}")
+        d_state, n_leaves, bad = differences(graph, eager)
+        d_loss = loss_gap(l_graph, l_eager)
+        row = {"k": k, "calls": calls, "loss_diff": d_loss, "state_diff": d_state,
+               "leaves": n_leaves, "aag_launches": n_graph}
+        text = "bit for bit" if not (bad or d_loss) else \
+            f"max |loss diff| {d_loss:.3g}, max |state diff| {d_state:.3g} in {len(bad)} leaves"
+        if bad or d_loss:
+            again, l_again, _ = run(arch, False, k, calls, **extra)
+            s_state, _, s_bad = differences(again, eager)
+            s_loss = loss_gap(l_again, l_eager)
+            row.update(spread_loss=s_loss, spread_state=s_state)
+            text += (f"; eager against eager from the same start: max |loss diff| {s_loss:.3g}, "
+                     f"max |state diff| {s_state:.3g} in {len(s_bad)} leaves")
+            check((s_bad or s_loss) and d_loss <= s_loss and d_state <= s_state,
+                  f"{label}: graphed against eager ({text}; first {bad[:4]}) outside the "
+                  "eager-against-eager spread")
+        log(f"[graph] {label}, float32 {GRAPH_HW}² B=2, noise on, {calls} calls: graphed "
+            f"against eager {text} over {len(l_graph)} calls' losses and {n_leaves} state leaves "
+            f"(parameters, BN statistics, spectral u/v, moments, schedule, generator); AAG "
+            f"launches {n_graph} ({per_step} per step through the replays)")
+        paths["aag"][f"graphed Trainer.fit, {label}, {calls} calls"] = n_graph
+        return row, graph, l_graph
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    bits = {}
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            straight = None
+            for arch in ("unet", "parallel_head_gate"):
+                for k in (1, 2, 4):
+                    bits[f"{arch} k={k}"], state, losses = hold(f"{arch} k={k}", arch, k)
+                    if arch == "unet" and k == 1:
+                        straight = state, losses
+                    del state
+            bits["unet moment bf16 k=2"], _, _ = hold(
+                "unet, MomentAdam (optim.moment_dtype=bfloat16), k=2", "unet", 2,
+                **{"optim.moment_dtype": "bfloat16"})
+            for mode in GRAPH_REMAT:
+                bits[f"unet remat={mode}"], _, _ = hold(
+                    f"unet remat={mode!r} k=1", "unet", 1, calls=2,
+                    **{"train.remat": str(mode).lower()})
+
+            # 13.3 the graphed resume: fit to step 2, then a resume to step 4,
+            # against the graphed fit to step 4 (unet k=1 above)
+            ckpt = os.path.join(tmp, "resume")
+            first, _, _ = run("unet", True, 1, calls=2, **{"train.checkpoint_dir": ckpt})
+            check(first.step == 2 and first.graph.graph is not None, "the fit to step 2")
+            del first
+            resumed, l_resumed, _ = run("unet", True, 1, calls=4, **{"train.checkpoint_dir": ckpt})
+            d_state, n_leaves, bad = differences(resumed, straight[0])
+            d_loss = loss_gap(l_resumed, straight[1][2:])
+            log(f"[graph] graphed fit to step 2 (captured at call 2), then resumed to step 4 "
+                f"(captured anew at call 4) against the graphed fit to step 4: "
+                f"{len(bad)} of {n_leaves} state leaves differ (largest {d_state:.3g}), calls "
+                f"3-4's losses differ by {d_loss:.3g}")
+            check(not bad and not d_loss and resumed.step == 4,
+                  f"graphed resume differs in {bad[:4]}, losses {d_loss}")
+            summary["resume_leaves_differing"] = len(bad)
+            del resumed, straight
+        nondeterministic = sorted({str(w.message).split(".")[0][:120] for w in caught
+                                   if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.allow_tf32 = True
+    log(f"[graph] ops without a deterministic variant in these runs: {nondeterministic or 'none'}"
+        f" (13.1-13.3 took {time.time() - t_phase:.1f} s)")
+    summary["bit_for_bit"] = bits
+    summary["nondeterministic_ops"] = nondeterministic
+    torch.cuda.empty_cache()
+
+    # 13.4 speed at 304², B = 8, bf16, default Config: eager and graphed in
+    # turns, peak memory, a profile of one call; Trainer.fit img/s at k = 1, 2, 4
+    speed = {}
+    for arch in ("unet", "parallel_head_gate"):
+        over = {"data.synthetic_n": "8", "train.compute_dtype": "bfloat16",
+                "train.eval_every": "0", "train.log_every": "0", "model.architecture": arch}
+        host = next(ds.batch_iterator(build_dataset(Config().apply_overrides(over)), 8, seed=0))
+        row, states, runs, batches = {}, {}, {}, {}
+        for mode in ("eager", "graphed"):
+            tr = Trainer(Config().apply_overrides(over), device="cuda",
+                         graphed=mode == "graphed")
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            states[mode] = state = tr.init_state()
+            runs[mode] = run_call = tr.step_call(state)
+            batches[mode] = tr.call_batch([host], 0)
+            for _ in range(3):  # the graphed: warm-up, capture, replay
+                run_call(state, batches[mode])
+            torch.cuda.synchronize()
+            row[f"{mode}_peak_gib"] = (torch.cuda.max_memory_allocated() - before) / 2**30
+            row[f"{mode}_reserved_gib"] = torch.cuda.memory_reserved() / 2**30
+        check(isinstance(runs["graphed"], GraphedStep) and runs["graphed"].graph is not None,
+              f"{arch}: the graphed step was not captured")
+        times = {"eager": [], "graphed": []}
+        for mode in ("eager", "graphed", "graphed", "eager"):
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runs[mode](states[mode], batches[mode])
+                torch.cuda.synchronize()
+                times[mode].append(time.perf_counter() - t0)
+        for mode in ("eager", "graphed"):
+            ms = statistics.median(times[mode]) * 1e3
+            launch_counts(reset=True)
+            wall, prof = profiled(torch, lambda: runs[mode](states[mode], batches[mode]))
+            _, groups, _ = profile_groups(torch, None, train_group, prof)
+            launched = launch_counts()["aag"]
+            # kernels of a graph's independent branches overlap: the union of
+            # their intervals, not their sum
+            busy = device_busy_ms(torch, prof)
+            check(busy > 0, f"{arch} {mode}: the profiler saw no device time")
+            check(launched == GRAPH_AAG[arch], f"{arch} {mode}: {launched} AAG launches in "
+                  f"one call, expected {GRAPH_AAG[arch]}")
+            row.update({f"{mode}_ms": ms, f"{mode}_img_s": 8e3 / ms,
+                        f"{mode}_profile_wall_ms": wall, f"{mode}_busy_ms": busy,
+                        f"{mode}_idle": 1 - busy / wall})
+            log(f"[graph] {arch} bf16 step, 304², B=8, {mode}, on {smi}: median {ms:.1f} ms over "
+                f"10 calls in turns ({8e3 / ms:.1f} img/s); peak "
+                f"{row[f'{mode}_peak_gib']:.2f} GiB above what was allocated before its state "
+                f"(reserved {row[f'{mode}_reserved_gib']:.2f} GiB after); one profiled call: "
+                f"wall {wall:.1f} ms, device busy {busy:.1f} ms (union of kernel intervals), "
+                f"idle {1 - busy / wall:.1%}; kernel time by group "
+                + ", ".join(f"{g} {v:.2f} ms" for g, v in sorted(groups.items(),
+                                                                  key=lambda x: -x[1])))
+        log(f"[graph] {arch}: graphed step {row['eager_ms'] / row['graphed_ms']:.2f}x eager's "
+            f"img/s on {smi}")
+
+        # Trainer.fit at steps_per_call 1, 2, 4: a fit of 2 calls (the
+        # graphed: warm-up, capture), then a timed fit of FIT_CALLS more on
+        # the state, the host's data path included (the phantoms cached)
+        fit_rates, fit_peaks = {}, {}
+        for k in (1, 2, 4):
+            for mode in (("eager", "graphed") if k != 2 else ("graphed", "eager")):
+                state = states[mode]
+                tr = Trainer(Config().apply_overrides(
+                    {**over, "train.steps_per_call": str(k), "train.steps": str(state.step + 2 * k)}),
+                    device="cuda", graphed=mode == "graphed")
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                tr.fit(state)
+                tr.cfg.train.steps = state.step + FIT_CALLS * k
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.fit(state)
+                torch.cuda.synchronize()
+                fit_rates[f"{mode} k={k}"] = FIT_CALLS * k * 8 / (time.perf_counter() - t0)
+                fit_peaks[f"{mode} k={k}"] = (torch.cuda.max_memory_allocated() - before) / 2**30
+        row["fit_img_s"], row["fit_peak_gib"] = fit_rates, fit_peaks
+        log(f"[graph] {arch} Trainer.fit (304², B=8, bf16, {FIT_CALLS} calls after a fit of 2, "
+            f"the host's data path included) on {smi}: img/s "
+            + "; ".join(f"{key} {v:.1f}" for key, v in fit_rates.items())
+            + "; peak above the state's resident memory (GiB) "
+            + "; ".join(f"{key} {v:.2f}" for key, v in fit_peaks.items()))
+        for k in (2, 4):
+            check(fit_peaks[f"graphed k={k}"] <= 1.25 * fit_peaks["graphed k=1"],
+                  f"{arch}: {k} steps in one graph peak at {fit_peaks[f'graphed k={k}']:.2f} GiB, "
+                  f"one step's graph at {fit_peaks['graphed k=1']:.2f}")
+        speed[arch] = row
+        del states, runs, batches, state, tr
+        torch.cuda.empty_cache()
+    summary["speed"] = speed
+    log(f"[graph] phase 13 took {time.time() - t_phase:.1f} s")
+    log(json.dumps({"graph": summary}))
+    return paths
 
 
 def nudge_(torch, module, seed=0):

@@ -21,6 +21,7 @@ channels_last. Counterparts:
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 from typing import Callable, Optional, Tuple
 
@@ -151,7 +152,10 @@ class ResNeSt(nn.Module):
     Block remat, as the JAX ResNeSt's fields: with `remat_blocks` true each
     Bottleneck of the encoder layers `remat_layers` names (1-based; True:
     all) is its own recomputed region, which with `remat_save_convs` keeps
-    its conv outputs. Parameters and state dict are the same either way."""
+    its conv outputs. Parameters and state dict are the same either way.
+
+    Every conv weight, once the stages are built, is drawn anew by
+    `resnet_conv_init_`, as the reference and the JAX package draw them."""
 
     def __init__(self, config: ResNeStConfig = ResNeStConfig(), remat_blocks=False,
                  remat_save_convs: bool = False, remat_layers=True):
@@ -179,11 +183,27 @@ class ResNeSt(nn.Module):
                     block.remat = "conv" if remat_save_convs else True
             setattr(self, f"layer{li + 1}", nn.Sequential(*stage))
             inplanes = planes * 4
+        resnet_conv_init_(self)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NCHW image -> layer4 features (B, 2048, H/32, W/32)."""
         x = max_pool2d(self.relu(self.bn1(self.conv1(x))), 3, 2, 1)
         return self.layer4(self.layer3(self.layer2(self.layer1(x))))
+
+
+def resnet_conv_init_(module: nn.Module) -> None:
+    """Draw the weight of every nn.Conv2d under `module`, in module order,
+    from N(0, sqrt(2/n)) with n = kh*kw*out_channels, from torch's global
+    RNG; biases keep their draws. The reference ResNet's re-init loop
+    (quoted at octave_tpu/models/resnest.py:383-386) and the JAX package's
+    `resnet_conv_init` (octave_tpu/ops/common.py:63), which its ResNeSt
+    (:636) and Bottleneck (:507) give every backbone conv, the
+    split-attention conv, fc1 and fc2 included."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.Conv2d):
+                n = m.kernel_size[0] * m.kernel_size[1] * m.out_channels
+                m.weight.normal_(0.0, math.sqrt(2.0 / n))
 
 
 def resnest50(**remat_kw) -> ResNeSt:

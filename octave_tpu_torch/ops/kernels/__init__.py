@@ -6,9 +6,11 @@ PyTorch versions on CPU tensors.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -27,9 +29,13 @@ def triton_build_dir() -> Path:
 
 # Each kernel wrapper carries a `launches` count, raised once where it
 # launches its kernel. A serving worker thread launches while another thread
-# reads or zeroes the counts, so all three go through one lock.
+# reads or zeroes the counts, so all of them go through one lock. Inside
+# `record_launches` (a CUDA-graph capture, which records kernels without
+# running them) a launch goes to the capture's tally instead, and each
+# replay adds that tally (`add_launches`).
 _COUNT_LOCK = threading.Lock()
 _COUNTED: dict = {}
+_TALLY: Optional[dict] = None
 
 
 def register_counter(name: str, wrapper) -> None:
@@ -41,7 +47,35 @@ def register_counter(name: str, wrapper) -> None:
 
 def count_launch(wrapper) -> None:
     with _COUNT_LOCK:
-        wrapper.launches += 1
+        if _TALLY is not None:
+            _TALLY[wrapper] = _TALLY.get(wrapper, 0) + 1
+        else:
+            wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Count the launches made inside into the yielded {wrapper: launches}
+    instead of the wrappers' counts (on every thread: a capture's backward
+    runs on autograd's)."""
+    global _TALLY
+    tally: dict = {}
+    with _COUNT_LOCK:
+        if _TALLY is not None:
+            raise RuntimeError("launches are already being recorded")
+        _TALLY = tally
+    try:
+        yield tally
+    finally:
+        with _COUNT_LOCK:
+            _TALLY = None
+
+
+def add_launches(tally: dict) -> None:
+    """Add a recorded tally to the wrappers' counts (one replay's launches)."""
+    with _COUNT_LOCK:
+        for wrapper, n in tally.items():
+            wrapper.launches += n
 
 
 def launch_counts(reset: bool = False) -> dict:

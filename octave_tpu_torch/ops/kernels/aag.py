@@ -101,8 +101,9 @@ class _AAGFunction(torch.autograd.Function):
         xf, yhat, g_out, g_yhat = (t.to(ct) for t in (x, yhat, g_out, g_yhat))
         mask = yhat[..., 1:].sum(dim=-1, keepdim=True)
         dmask = (g_out * xf).sum(dim=-1, keepdim=True)
-        sel = torch.ones(yhat.shape[-1], dtype=ct, device=yhat.device)
-        sel[0] = 0
+        # 0 for the background class, 1 for the others (made on the device:
+        # a captured step copies nothing from the host)
+        sel = (torch.arange(yhat.shape[-1], device=yhat.device) > 0).to(ct)
         ghat = g_yhat + dmask * sel
         g_z = yhat * (ghat - (ghat * yhat).sum(dim=-1, keepdim=True))
         g_x = (g_out * mask + g_z @ w.to(ct).t()).to(x.dtype)

@@ -63,7 +63,10 @@ def quantize_weight(w: torch.Tensor, transpose: bool = False):
     out_dim = 1 if transpose else 0
     wf = w.float()
     dims = tuple(d for d in range(wf.ndim) if d != out_dim)
-    ws = wf.abs().amax(dim=dims).clamp_min(1e-12) / 127.0
+    # a true division on every device: CUDA divides by a Python scalar as a
+    # multiply by its reciprocal, which may land one rounding off the
+    # quotient the CPU and the JAX package take
+    ws = wf.abs().amax(dim=dims).clamp_min(1e-12) / wf.new_tensor(127.0)
     shape = [1] * wf.ndim
     shape[out_dim] = -1
     return torch.round(wf * (1.0 / ws).view(shape)).to(torch.int8), ws

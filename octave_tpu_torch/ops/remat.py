@@ -6,8 +6,11 @@ octave_tpu/models/segmentor.py:111-127): a region's forward keeps only its
 inputs, and the backward runs the region again to get the tensors it needs.
 
   * `run` makes a region of `torch.utils.checkpoint.checkpoint(
-    use_reentrant=False)`, which puts back the RNG and autocast state of the
-    forward for the recompute. In mode "conv" the region keeps the outputs
+    use_reentrant=False)`, which puts back the autocast state of the
+    forward for the recompute. It does not stash the RNG state: no region
+    draws random numbers (the segmentor has no dropout; the critic's noise
+    lies outside every region), and putting a CUDA generator's state back
+    is refused inside a CUDA-graph capture. In mode "conv" the region keeps the outputs
     of its convolutions instead of recomputing them: the counterpart of
     `save_only_these_names("conv_out")`, where the JAX package tags every
     conv output (`aten.convolution` here: `nn.Conv2d`, the block-diagonal
@@ -68,7 +71,8 @@ def _recompute(inner):
 def run(mode, fn, *args):
     """fn(*args) under `mode`: False runs it as it is; True as one recomputed
     region (`torch.utils.checkpoint.checkpoint`, non-reentrant, which puts
-    back the forward's RNG and autocast state for the recompute); "conv" as
+    back the forward's autocast state for the recompute; `fn` draws no
+    random numbers); "conv" as
     one that keeps its conv outputs and recomputes only what lies between
     them. Without autograd recording there is nothing to recompute, and it
     runs as it is."""
@@ -83,4 +87,4 @@ def run(mode, fn, *args):
         return fwd, _recompute(rec)
 
     return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
-                                             context_fn=contexts)
+                                             preserve_rng_state=False, context_fn=contexts)

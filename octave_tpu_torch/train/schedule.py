@@ -11,6 +11,13 @@ step uses init_lr; LambdaLR does the same.
 `moment_dtype="bfloat16"` (optax's `mu_dtype`, :28-57) stores Adam's first
 moment in bf16: `MomentAdam`, plain `torch._foreach_*` ops in optax's
 arithmetic, since fused Adam keeps every state in its parameter's dtype.
+
+On CUDA an update never waits for the host, so that a train step captured
+in a CUDA graph replays right (`train.steps.GraphedStep`): the learning rate
+is read from a device tensor loaded before each call (a LambdaLR writes a
+Python float, which a capture would bake in), the gradients are static
+tensors zeroed in place, fused Adam is `capturable`, and `MomentAdam` forms
+its bias corrections on the device.
 """
 from __future__ import annotations
 
@@ -47,21 +54,73 @@ def clip_by_global_norm(grads: list, max_norm: float) -> torch.Tensor:
 class Optimizer:
     """A torch optimizer, its LR schedule and an optional global-norm clip,
     stepped as one unit: `step()` clips, updates the parameters, then
-    advances the schedule."""
+    advances the schedule (`sched`, a LambdaLR, keeps the update count).
+
+    On the CPU the update takes the schedule's float and `zero_grad` sets
+    the gradients to None. On CUDA the update reads its rate from `lrs`, a
+    device tensor holding the rates of one call's updates (`load_lrs`, before
+    the call; an update that no call loaded loads its own), and `zero_grad`
+    zeroes the gradients in place, so that a captured step replays each call
+    with that call's rates into the same gradient tensors."""
 
     def __init__(self, opt: torch.optim.Optimizer, sched, grad_clip: Optional[float] = None):
         self.opt, self.sched, self.grad_clip = opt, sched, grad_clip
+        params = [p for g in opt.param_groups for p in g["params"]]
+        self.lrs = torch.zeros(1, device=params[0].device) \
+            if params and params[0].is_cuda else None
+        self._first = self._loaded = 0  # the update count of lrs[0]; rates loaded
+
+    def lr_table(self, k: int) -> list:
+        """The learning rates of the next k updates, from the schedule at
+        each update's count (LambdaLR's base_lr * lambda(count))."""
+        (base,), (lam,) = self.sched.base_lrs, self.sched.lr_lambdas
+        n = self.sched.last_epoch
+        return [base * lam(n + i) for i in range(k)]
+
+    def load_lrs(self, k: int) -> None:
+        """Put the next k updates' rates into `lrs` (CUDA; never inside a
+        capture, which would bake them in)."""
+        if self.lrs.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("learning rates are loaded before a captured call, not inside it")
+        if self.lrs.numel() < k:
+            self.lrs = torch.zeros(k, device=self.lrs.device)
+        for i, lr in enumerate(self.lr_table(k)):
+            self.lrs[i].fill_(lr)
+        self._first, self._loaded = self.sched.last_epoch, k
 
     def zero_grad(self) -> None:
-        self.opt.zero_grad(set_to_none=True)
+        if self.lrs is None:
+            self.opt.zero_grad(set_to_none=True)
+            return
+        grads = [p.grad for g in self.opt.param_groups for p in g["params"]
+                 if p.grad is not None]
+        if grads:
+            torch._foreach_zero_(grads)
 
     def step(self) -> None:
         if self.grad_clip is not None:
             grads = [p.grad for g in self.opt.param_groups for p in g["params"]
                      if p.grad is not None]
             clip_by_global_norm(grads, self.grad_clip)
-        self.opt.step()
+        if self.lrs is None:
+            self.opt.step()
+        else:
+            i = self.sched.last_epoch - self._first
+            if not 0 <= i < self._loaded:
+                self.load_lrs(1)
+                i = 0
+            group = self.opt.param_groups[0]
+            rate, group["lr"] = group["lr"], self.lrs[i]
+            try:
+                self.opt.step()
+            finally:
+                group["lr"] = rate
         self.sched.step()
+
+    def advance(self, k: int) -> None:
+        """Count k updates that ran without `step` (a replayed call's)."""
+        for _ in range(k):
+            self.sched.step()
 
 
 class MomentAdam(torch.optim.Optimizer):
@@ -75,12 +134,22 @@ class MomentAdam(torch.optim.Optimizer):
         p  <- p + (-lr) u;  mu <- mu' rounded to its dtype
     where [b1' mu] is the product in mu's dtype with b1' = b1 rounded to it
     (0.8984375 for 0.9 in bf16: optax's `b1 * mu` is weakly typed). The
-    update uses the unrounded float32 mu'. `exp_avg_sq` stays float32."""
+    update uses the unrounded float32 mu'. `exp_avg_sq` stays float32.
+    t lives beside the parameters and the bias corrections are float32
+    tensors formed there, as optax forms them; `lr` is a float or a
+    one-element tensor there. So a step never waits for the host."""
 
     def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
                  weight_decay: float = 0.0, moment_dtype: torch.dtype = torch.bfloat16):
         super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
         self.moment_dtype = moment_dtype
+
+    def load_state_dict(self, state_dict) -> None:
+        """torch's load, with each update count put beside its parameter."""
+        super().load_state_dict(state_dict)
+        for p, st in self.state.items():
+            if "step" in st:
+                st["step"] = st["step"].to(p.device, torch.float32)
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -91,14 +160,13 @@ class MomentAdam(torch.optim.Optimizer):
             states = [self.state[p] for p in params]
             for p, st in zip(params, states):
                 if not st:
-                    st["step"] = torch.zeros((), dtype=torch.float32)
+                    st["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
                     st["exp_avg"] = torch.zeros_like(p, dtype=self.moment_dtype)
                     st["exp_avg_sq"] = torch.zeros_like(p)
             b1, b2 = group["betas"]
-            f32 = np.float32
-            t = int(states[0]["step"]) + 1
-            for st in states:
-                st["step"].fill_(t)
+            steps = [st["step"] for st in states]
+            torch._foreach_add_(steps, 1.0)
+            t = steps[0]
             grads = [p.grad for p in params]
             mus = [st["exp_avg"] for st in states]
             nus = [st["exp_avg_sq"] for st in states]
@@ -112,14 +180,15 @@ class MomentAdam(torch.optim.Optimizer):
             torch._foreach_mul_(nus, b2)
             torch._foreach_add_(nus, g2)
             # the bias corrections as optax forms them: float32 1 - b**t
-            torch._foreach_div_(mu, float(f32(1) - f32(b1) ** f32(t)))
-            denom = torch._foreach_div(nus, float(f32(1) - f32(b2) ** f32(t)))
+            torch._foreach_div_(mu, 1 - torch.pow(b1, t))
+            denom = torch._foreach_div(nus, 1 - torch.pow(b2, t))
             torch._foreach_sqrt_(denom)
             torch._foreach_add_(denom, group["eps"])
             torch._foreach_div_(mu, denom)
             if group["weight_decay"] > 0:
                 torch._foreach_add_(mu, torch._foreach_mul(params, group["weight_decay"]))
-            torch._foreach_mul_(mu, float(f32(-group["lr"])))
+            lr = group["lr"]
+            torch._foreach_mul_(mu, -lr if torch.is_tensor(lr) else float(np.float32(-lr)))
             torch._foreach_add_(params, mu)
 
 
@@ -143,12 +212,13 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float = 1e-4, *,
     `lr` or on `schedule`, with optional clip: the optimizer pair of the
     segmentor and the critic. Fused on CUDA; with moment_dtype "bfloat16"
     the first moment is stored in bf16 (`MomentAdam`), None and "float32"
-    keep it in float32."""
+    keep it in float32. The optimizer steps on the device without a host
+    sync when its parameters are on CUDA (see `Optimizer`)."""
     mu_dtype = moment_dtype_of(moment_dtype)
     params = [p for p in params if p.requires_grad]
     fused = bool(params) and all(p.is_cuda for p in params)
     kw = dict(lr=1.0 if schedule is not None else lr, betas=(b1, b2), eps=1e-8,
-              fused=fused or None)
+              fused=fused or None, capturable=fused)
     if mu_dtype is not None:
         opt = MomentAdam(params, kw["lr"], kw["betas"], kw["eps"], weight_decay, mu_dtype)
     elif weight_decay > 0:

@@ -7,6 +7,10 @@ buffers (BN running stats, spectral u/v), the two optimizers hold their
 moments and schedules, and one torch.Generator on the device feeds the
 critic's noise layers. The step mutates them in place.
 
+`graph` holds the step captured on this state (`train.steps.GraphedStep`,
+on CUDA): it reads the state's tensors where they were at capture, so a
+restore, which replaces optimizer states, drops it.
+
 `critic` is one DiscriminatorBlock, or, for the dual decoders' two
 pyramids, an `nn.ModuleDict` {"main", "c"} of them under one optimizer (the
 JAX state's dict of critics). The single critic stays flat, so its
@@ -15,7 +19,7 @@ checkpoints keep their keys.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.nn as nn
@@ -31,3 +35,4 @@ class TrainState:
     critic_opt: Optional[Optimizer] = None
     generator: Optional[torch.Generator] = None
     step: int = 0
+    graph: Any = None

@@ -43,6 +43,16 @@ The memory and lowering switches (:95-138, :195-270):
     runs them too).
 `make_multi_step` runs k steps per call on a stack of k batches.
 
+On CUDA a call of the step (one step, or make_multi_step's k) runs as one
+replay of a captured CUDA graph (`GraphedStep`), the counterpart of the
+JAX package's jax.jit(step) (octave_tpu/train/trainer.py:326) and of the
+one dispatch of its k-step call (:422-454); `graph_blocker` says which
+configurations stay eager. The same step body is captured: its forwards
+run under autocast without the cast cache (a captured cast would not be
+redone), the optimizers take their learning rates from the device
+(`train.schedule.Optimizer`) and the critic draws from the state's
+generator, which the graph advances on each replay.
+
 With `data_parallel` each rank runs the step on its shard of the global
 batch (:233-239, 344-346, 398-400): the WPCE class counts are global, each
 player's gradients are all-reduced to their mean between backward and its
@@ -70,6 +80,7 @@ from octave_tpu_torch.losses.segmentor import (
 )
 from octave_tpu_torch.models.resnest import dense_groups_include, lower_grouped_convs_
 from octave_tpu_torch.ops import remat
+from octave_tpu_torch.ops.kernels import add_launches, record_launches
 from octave_tpu_torch.parallel import ddp
 from octave_tpu_torch.train.state import TrainState
 from octave_tpu_torch.utils.metrics import (
@@ -193,8 +204,9 @@ def make_train_step(cfg: StepConfig) -> Callable[[TrainState, Dict[str, Any]],
         critics = _critics(state.critic) if cfg.use_discriminator else []
 
         def amp():
+            # without the cast cache, which a captured step may not use
             return torch.autocast(batch["image"].device.type, dtype=cdtype or torch.bfloat16,
-                                  enabled=cdtype is not None)
+                                  enabled=cdtype is not None, cache_enabled=False)
 
         def judged(pyramids, name):
             return list(pyramids[_CRITIC_PYRAMID[name]][: depth_of[name] + 1])
@@ -302,6 +314,96 @@ def make_multi_step(train_step, k: int):
         return {n: v / k for n, v in total.items()}
 
     return multi_step
+
+
+def graph_blocker(cfg: StepConfig) -> Optional[str]:
+    """Why a step of this configuration runs eagerly on CUDA, or None when
+    `GraphedStep` captures it. Every `remat` mode and `compute_dtype`
+    captures; `data_parallel` stays eager. Raises on a remat mode or dtype
+    the step does not know."""
+    step_remat(cfg.remat)
+    compute_dtype(cfg.compute_dtype)
+    if cfg.data_parallel:
+        return ("data_parallel: its all-reduces and synchronised batch norm run eagerly "
+                "(ROADMAP A.11c)")
+    return None
+
+
+# eager calls before the capture: the first builds the optimizer states and
+# the gradients, compiles the Triton kernels and picks cuDNN's algorithms,
+# which a capture must find done
+GRAPH_WARMUP_CALLS = 1
+
+
+class GraphedStep:
+    """Each call of `step` (a train step, or make_multi_step's k steps) on
+    CUDA as one replay of a captured CUDA graph.
+
+    The first GRAPH_WARMUP_CALLS calls run the step eagerly, on the side
+    stream that then captures; the next call is captured, with the state's
+    noise generator registered so that every replay draws fresh noise, and
+    replayed; every later call replays. The first call's batch becomes the
+    static input (`inputs`), which every later call must pass again, written
+    with its new data (`Trainer.call_batch(out=...)`). Before a
+    call each optimizer loads the learning rates of its k updates; after a
+    replay the host counts the k updates and steps, and the kernel launches
+    that the capture recorded. A call returns a copy of its losses, which the
+    next replay overwrites. A failed capture raises; nothing falls back.
+
+    The graph reads the state's tensors where they were at capture: replace
+    none of them (`utils.checkpoint.load_state_dict_into` drops the graph)."""
+
+    def __init__(self, step: Callable, k: int = 1):
+        self.step, self.k = step, k
+        self.calls = 0
+        self.graph = self.inputs = self.losses = None
+        self.launches: dict = {}  # {kernel wrapper: launches in one replay}
+        self.stream = torch.cuda.Stream()
+
+    def __call__(self, state: TrainState, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        opts = [opt for opt in (state.seg_opt, state.critic_opt) if opt is not None]
+        for opt in opts:
+            opt.load_lrs(self.k)
+        if self.inputs is None:
+            self.inputs = batch
+        elif batch is not self.inputs:
+            raise ValueError("a graphed call reads its static input: pass `inputs`, "
+                             "written with the call's batch (Trainer.call_batch(out=...))")
+        self.calls += 1
+        if self.graph is not None:
+            self.graph.replay()
+            add_launches(self.launches)
+            for opt in opts:
+                opt.advance(self.k)
+            state.step += self.k
+            return _copied(self.losses)
+        main = torch.cuda.current_stream()
+        self.stream.wait_stream(main)
+        if self.calls <= GRAPH_WARMUP_CALLS:
+            with torch.cuda.stream(self.stream):
+                losses = self.step(state, self.inputs)
+            main.wait_stream(self.stream)
+            return losses
+        graph = torch.cuda.CUDAGraph()
+        if state.generator is not None:
+            graph.register_generator_state(state.generator)
+        with record_launches() as launches, torch.cuda.graph(graph, stream=self.stream):
+            self.losses = self.step(state, self.inputs)
+        self.graph, self.launches = graph, launches
+        graph.replay()
+        add_launches(launches)
+        return _copied(self.losses)
+
+    def close(self) -> None:
+        """Wait for the device, then drop the graph and its buffers."""
+        torch.cuda.synchronize(self.stream.device)
+        self.graph = self.inputs = self.losses = None
+
+
+def _copied(losses: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The losses as new device tensors (one copy, no host sync)."""
+    stacked = torch.stack(list(losses.values()))
+    return dict(zip(losses, stacked.unbind(0)))
 
 
 def _eval_forward(segmentor, image: torch.Tensor) -> torch.Tensor:

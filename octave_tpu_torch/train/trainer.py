@@ -15,7 +15,11 @@ segmentor's grouped convs lowered when it is built), `optim.moment_dtype`
 k batches per call, the step advancing by k, the log, checkpoint and eval
 cadences by `_crossed`). The host never waits for a call unless it is
 `dispatch_ahead` calls ahead of the device, or logs; it reads the SIGTERM
-flag of a data-parallel run once per call.
+flag of a data-parallel run once per call. On CUDA each call of the step is
+one replay of a captured CUDA graph (`train.steps.GraphedStep`; k steps per
+graph with steps_per_call = k): a fit's first call runs eagerly and its
+second is captured, after any restore; `graph_blocker` names the
+configurations that stay eager, and the CPU is eager.
 
 With `train.data_parallel` the trainer is one rank of a process group that
 already exists (`cli train` spawns one, or torchrun describes one): every
@@ -52,7 +56,9 @@ from octave_tpu_torch.serve import resolve_device
 from octave_tpu_torch.train.schedule import make_optimizer, moment_dtype_of, polynomial_decay
 from octave_tpu_torch.train.state import TrainState
 from octave_tpu_torch.train.steps import (
+    GraphedStep,
     StepConfig,
+    graph_blocker,
     make_eval_accumulate_step,
     make_multi_step,
     make_train_step,
@@ -151,9 +157,13 @@ def build_dataset(cfg: Config, split: str = "train"):
 class Trainer:
     """Weak supervision (WPCE + ILD) and, with model.discriminator_depth > 0,
     the LS-GAN critic over each attention pyramid, on `device` (CUDA unless
-    the caller passes "cpu")."""
+    the caller passes "cpu"). `graphed`: whether `fit` runs each call of the
+    step as a CUDA-graph replay; None captures wherever `graph_blocker`
+    allows on CUDA, False keeps the step eager, True raises where it cannot
+    be captured."""
 
-    def __init__(self, cfg: Config, device: str | torch.device = "cuda"):
+    def __init__(self, cfg: Config, device: str | torch.device = "cuda",
+                 graphed: Optional[bool] = None):
         m, t = cfg.model, cfg.train
         # the remat and lowering specs raise the JAX ValueErrors here, before
         # any model is built
@@ -218,6 +228,13 @@ class Trainer:
         )
         self.train_step = make_multi_step(make_train_step(self.step_cfg), self.steps_per_call)
         self.eval_step = make_eval_accumulate_step(m.num_classes)
+        blocker = graph_blocker(self.step_cfg)
+        if self.device.type != "cuda":
+            blocker = f"no CUDA graphs on {self.device.type}"
+        if graphed and blocker:
+            raise ValueError(f"graphed=True, but the step cannot be captured: {blocker}")
+        self.graphed = blocker is None if graphed is None else graphed
+        self.eager_reason = "graphed=False" if graphed is False else blocker
 
     # ------------------------------------------------------------------
     def init_state(self) -> TrainState:
@@ -313,14 +330,16 @@ class Trainer:
             device=self.device)
 
     def call_batch(self, host_batches: list, first_step: int,
-                   aug_gen: Optional[torch.Generator] = None) -> Dict[str, object]:
+                   aug_gen: Optional[torch.Generator] = None,
+                   out: Optional[Dict[str, object]] = None) -> Dict[str, object]:
         """The device batch of one call of `train_step`: step first_step + i
         takes host_batches[i] (this rank's rows of it) with, when `aug_gen`
         is given, its augmentation draws from that generator seeded with
         (train.seed + 7919, the step), so that a resumed run, or one with
         another steps_per_call, draws what an uninterrupted one would. With
         several steps per call each leaf is the (k, b, ...) stack of the
-        steps' batches."""
+        steps' batches. With `out` (a captured step's static input, of the
+        same structure) the leaves are written into it and `out` returned."""
         cfg = self.cfg
         batches = []
         for i, host in enumerate(host_batches):
@@ -330,15 +349,32 @@ class Trainer:
                 draws = augment.draw(aug_gen, host["image"].shape[0],
                                      cfg.data.augment_intensity)
             batches.append(self.device_batch(*self.shard(host, draws)))
-        if len(batches) == 1:
-            return batches[0]
 
-        def stack(leaves):
+        def stack(leaves, into):
             if isinstance(leaves[0], (list, tuple)):
-                return [torch.stack(level) for level in zip(*leaves)]
-            return torch.stack(leaves)
+                return [stack(level, None if into is None else into[i])
+                        for i, level in enumerate(zip(*leaves))]
+            if into is None:
+                return leaves[0] if len(leaves) == 1 else torch.stack(leaves)
+            return into.copy_(leaves[0]) if len(leaves) == 1 else torch.stack(leaves, out=into)
 
-        return {k: stack([b[k] for b in batches]) for k in batches[0]}
+        if out is None and len(batches) == 1:
+            return batches[0]
+        stacked = {k: stack([b[k] for b in batches], None if out is None else out[k])
+                   for k in batches[0]}
+        return stacked if out is None else out
+
+    def step_call(self, state: TrainState):
+        """What runs one call of the train step on `state` in `fit`: the
+        eager step, or the state's `GraphedStep` of this trainer's step (a
+        new one when the state has none, or one of another step)."""
+        if not self.graphed:
+            return self.train_step
+        if not (isinstance(state.graph, GraphedStep) and state.graph.step is self.train_step):
+            if state.graph is not None:
+                state.graph.close()
+            state.graph = GraphedStep(self.train_step, self.steps_per_call)
+        return state.graph
 
     # ------------------------------------------------------------------
     def fit(self, state: Optional[TrainState] = None) -> TrainState:
@@ -384,6 +420,10 @@ class Trainer:
             # a cadence boundary crossed by this call: step % every == 0 at k = 1
             return every > 0 and step // every > (step - k) // every
 
+        run = self.step_call(state)
+        if lead:
+            log.info("train step: %s", f"one CUDA graph replay per call of {k} step(s)"
+                     if self.graphed else f"eager ({self.eager_reason})")
         mlog = MetricsLogger(cfg.train.log_dir) if cfg.train.log_dir and lead else None
         timer = StepTimer()
         ahead = max(0, int(cfg.train.dispatch_ahead))
@@ -400,8 +440,9 @@ class Trainer:
                         log.warning("SIGTERM received: saving and stopping at step %d",
                                     state.step)
                         break
-                    losses = self.train_step(state, self.call_batch(host_batches, state.step,
-                                                                    aug_gen))
+                    losses = run(state, self.call_batch(
+                        host_batches, state.step, aug_gen,
+                        out=run.inputs if self.graphed else None))
                     if cfg.train.debug_nans:
                         bad = [n for n, v in losses.items() if not bool(torch.isfinite(v))]
                         if bad:

@@ -71,10 +71,14 @@ def load_state_dict_into(state, saved: Dict[str, Any]):
     the existing ones, the optimizers move their moments to their
     parameters' device in the dtype each was saved in (a bf16 `exp_avg`
     stays bf16), and a schedule takes only its counters (its lambda was
-    rebuilt from the config)."""
+    rebuilt from the config). A step captured on the state is dropped: the
+    next call captures anew."""
     for name in ("critic", "critic_opt", "generator"):
         if (saved[name] is None) != (getattr(state, name) is None):
             raise ValueError(f"checkpoint and state disagree on having a {name}")
+    if state.graph is not None:  # it reads the tensors the optimizers replace
+        state.graph.close()
+        state.graph = None
     state.segmentor.load_state_dict(saved["segmentor"])
     if state.critic is not None:
         state.critic.load_state_dict(saved["critic"])

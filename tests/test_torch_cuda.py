@@ -1,7 +1,7 @@
 """The port's Triton kernels against their plain PyTorch versions, its int8
 convs against the CPU's, its deployment path (augmentation, checkpoints,
-the pipelined server, the int8 Predictor) and the gated dual decoders with
-their two critics, on a GPU.
+the pipelined server, the int8 Predictor), the gated dual decoders with
+their two critics and the train step captured as a CUDA graph, on a GPU.
 
 Every case skips without CUDA. The file imports neither JAX nor the JAX
 package, so on a GPU host without JAX it runs on its own:
@@ -15,6 +15,8 @@ plain result (rtol 2^-7) plus 1e-3 (atol), because kernel and plain version
 both compute in float32 and round once, and can fall on either side of a
 rounding boundary; float16 likewise one float16 ulp (rtol 2^-10) plus 1e-3.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -743,3 +745,129 @@ def test_predictor_takes_device_input_in_place(cuda, monkeypatch):
             np.testing.assert_allclose(got, want, atol=2**-7, rtol=0)
             np.testing.assert_allclose(got_one, want_one, atol=2**-7, rtol=0)
             assert (got.argmax(-1) == want.argmax(-1)).mean() >= 0.999
+
+
+# -- the train step as a CUDA graph ---------------------------------------------
+def _graph_trainer(device, graphed, tmp, **extra):
+    """64², B = 2, noise on, a schedule that moves every step, float32;
+    each call's losses logged to tmp/metrics.jsonl."""
+    from octave_tpu_torch.train.trainer import Trainer
+    from octave_tpu_torch.utils.config import Config
+
+    cfg = Config().apply_overrides({
+        "data.image_size": "[64,64]", "data.synthetic_n": "8", "data.batch_size": "2",
+        "model.num_filters": "8", "optim.decay_steps": "6", "train.eval_every": "0",
+        "train.log_dir": str(tmp), **extra})
+    return Trainer(cfg, device=device, graphed=graphed)
+
+
+def _logged_losses(tmp):
+    return [{k: v for k, v in json.loads(line).items() if k.startswith("train/loss")}
+            for line in open(tmp / "metrics.jsonl")]
+
+
+@pytest.fixture
+def deterministic():
+    """float32 without TF32, deterministic algorithms where torch has them
+    (an op without one warns)."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    yield
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _assert_states_equal(got, want):
+    from octave_tpu_torch.utils.checkpoint import state_to_dict
+
+    def leaves(obj, path=""):
+        if isinstance(obj, dict):
+            for k, v in obj.items():
+                yield from leaves(v, f"{path}/{k}")
+        elif isinstance(obj, (list, tuple)):
+            for i, v in enumerate(obj):
+                yield from leaves(v, f"{path}/{i}")
+        else:
+            yield path, obj
+
+    a, b = dict(leaves(state_to_dict(got))), dict(leaves(state_to_dict(want)))
+    assert a.keys() == b.keys()
+    for k, v in b.items():
+        assert (torch.equal(a[k].cpu(), v.cpu()) if torch.is_tensor(v) else a[k] == v), k
+
+
+def test_graphed_step_equals_eager_bit_for_bit(cuda, tmp_path, deterministic):
+    """Trainer.fit at steps_per_call = 2 for 4 calls, the step captured
+    (call 2) and replayed (calls 3, 4) against the eager step: the same
+    losses in every call and the same state after, bit for bit (parameters,
+    BN statistics, spectral u/v, Adam moments and counts, the schedule, the
+    noise generator); 5 AAG launches per step through the replays."""
+    from octave_tpu_torch.ops.kernels import launch_counts
+    from octave_tpu_torch.train.steps import GraphedStep
+
+    runs = {}
+    for graphed in (False, True):
+        tmp = tmp_path / str(graphed)
+        tr = _graph_trainer(cuda, graphed, tmp, **{"train.steps_per_call": "2",
+                                                   "train.steps": "8", "train.log_every": "2"})
+        launch_counts(reset=True)
+        state = tr.fit()
+        torch.cuda.synchronize()
+        runs[graphed] = (state, _logged_losses(tmp), launch_counts()["aag"])
+    (eager, le, ne), (graph, lg, ng) = runs[False], runs[True]
+    assert eager.graph is None and isinstance(graph.graph, GraphedStep)
+    assert graph.graph.graph is not None and graph.graph.calls == 4
+    assert len(lg) == 4 and lg == le
+    assert ne == ng == 5 * 8
+    _assert_states_equal(graph, eager)
+
+
+def test_registered_generator_draws_fresh_noise_each_replay(cuda):
+    """A generator registered with a graph draws anew on each replay, what it
+    would draw eagerly, and its state advances as an eager run's does."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    out = torch.empty(5, device=cuda)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream()):
+        out.copy_(torch.randn(5, device=cuda, generator=gen) + torch.rand((), device=cuda,
+                                                                          generator=gen))
+    draws = []
+    for _ in range(3):
+        graph.replay()
+        draws.append(out.clone())
+    ref = torch.Generator(device=cuda).manual_seed(7)
+    want = [torch.randn(5, device=cuda, generator=ref) + torch.rand((), device=cuda, generator=ref)
+            for _ in range(3)]
+    assert not torch.equal(draws[0], draws[1]) and not torch.equal(draws[1], draws[2])
+    assert all(torch.equal(a, b) for a, b in zip(draws, want))
+    assert torch.equal(gen.get_state(), ref.get_state())
+
+
+def test_restore_after_capture_drops_the_graph(cuda, tmp_path, deterministic):
+    """A restore replaces the optimizers' states, which a captured step
+    reads: it drops the graph, and the next fit captures anew. Restored to
+    step 2 of a graphed run and trained on to step 4, the state equals that
+    run's checkpoint at step 4."""
+    from octave_tpu_torch.utils.checkpoint import CheckpointManager, load_state_dict_into
+
+    ckpt = tmp_path / "ckpt"
+    tr = _graph_trainer(cuda, None, tmp_path / "log", **{
+        "train.steps": "4", "train.log_every": "1", "train.checkpoint_dir": str(ckpt),
+        "train.checkpoint_every": "2"})
+    state = tr.fit()
+    runner = state.graph
+    assert runner.graph is not None and CheckpointManager(str(ckpt)).all_steps() == [2, 4]
+    step2 = torch.load(ckpt / "step_00000002" / "state.pt", map_location="cpu",
+                       weights_only=True)
+    load_state_dict_into(state, step2)
+    assert state.graph is None and runner.graph is None and state.step == 2
+    again = _graph_trainer(cuda, None, tmp_path / "log2", **{"train.steps": "4",
+                                                             "train.log_every": "1"})
+    state = again.fit(state)
+    assert state.step == 4 and state.graph.graph is not None
+    want = again.init_state()
+    CheckpointManager(str(ckpt)).restore_latest(want)
+    _assert_states_equal(state, want)
+

@@ -104,3 +104,27 @@ def test_decoder_epilogue_rejects_bad_input(rng):
         fused_decoder_epilogue(z, attn[:, :8], res, rs, rb, w, b)
     with pytest.raises(ValueError):
         fused_decoder_epilogue(z, attn, res.permute(0, 3, 1, 2), rs, rb, w, b)
+
+
+def test_recorded_launches_count_once_per_replay():
+    """Inside `record_launches` (a CUDA-graph capture, whose kernels do not
+    run) a launch goes to the tally; each replay adds the tally once."""
+    from octave_tpu_torch.ops import kernels
+
+    class Wrapper:
+        launches = 0
+
+    w = Wrapper()
+    kernels.count_launch(w)
+    with kernels.record_launches() as tally:
+        kernels.count_launch(w)
+        kernels.count_launch(w)
+        with pytest.raises(RuntimeError, match="already"):
+            with kernels.record_launches():
+                pass
+    assert w.launches == 1 and tally == {w: 2}
+    kernels.add_launches(tally)
+    kernels.add_launches(tally)
+    kernels.count_launch(w)
+    assert w.launches == 6
+

@@ -144,6 +144,24 @@ def test_save_convs_recomputes_no_convolution(mode, lowering):
 
 
 
+@pytest.mark.parametrize("mode", [True, "conv", "block", "block:012+conv"])
+def test_remat_regions_draw_no_random_numbers(batch, mode):
+    """`ops.remat.run` does not stash the RNG state (putting a CUDA
+    generator's state back is refused inside a CUDA-graph capture), which is
+    exact because no region draws: the segmentor's train forward and
+    backward under each mode leave torch's generator where it was."""
+    from octave_tpu_torch.ops import remat
+    from octave_tpu_torch.train.steps import adapt_segmentor_output, step_remat
+
+    trainer = ttrainer.Trainer(_cfg(**{"train.remat": str(mode).lower()}), device="cpu")
+    seg = trainer.init_state().segmentor
+    before = torch.get_rng_state()
+    _, agg_maps = adapt_segmentor_output(remat.run(step_remat(mode), seg, batch["image"]))
+    agg_maps[0].square().sum().backward()
+    assert seg.encoder_1[0].conv1.weight.grad is not None
+    assert torch.equal(torch.get_rng_state(), before)
+
+
 # -- steps_per_call -------------------------------------------------------------------
 def test_multi_step_averages_the_losses():
     seen = []

@@ -273,6 +273,68 @@ def test_bf16_moment_matches_optax(weight_decay, grad_clip):
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(jparam), rtol=1e-6, atol=1e-9)
 
 
+def _host_moment_adam(params, grads, lrs, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0):
+    """MomentAdam as it formed its bias corrections and -lr on the host (numpy
+    float32 pow), before they moved to the device: the updated params and
+    (exp_avg, exp_avg_sq) per parameter."""
+    f32 = np.float32
+    mus = [torch.zeros_like(p, dtype=torch.bfloat16) for p in params]
+    nus = [torch.zeros_like(p) for p in params]
+    params = [p.clone() for p in params]
+    b1_mu = float(torch.tensor(b1, dtype=torch.bfloat16))
+    for t, (step_grads, lr) in enumerate(zip(grads, lrs), start=1):
+        mu = torch._foreach_mul(step_grads, 1 - b1)
+        torch._foreach_add_(mu, torch._foreach_mul(mus, b1_mu))
+        torch._foreach_copy_(mus, mu)
+        g2 = torch._foreach_mul(step_grads, step_grads)
+        torch._foreach_mul_(g2, 1 - b2)
+        torch._foreach_mul_(nus, b2)
+        torch._foreach_add_(nus, g2)
+        torch._foreach_div_(mu, float(f32(1) - f32(b1) ** f32(t)))
+        denom = torch._foreach_div(nus, float(f32(1) - f32(b2) ** f32(t)))
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, eps)
+        torch._foreach_div_(mu, denom)
+        if weight_decay > 0:
+            torch._foreach_add_(mu, torch._foreach_mul(params, weight_decay))
+        torch._foreach_mul_(mu, float(f32(-lr)))
+        torch._foreach_add_(params, mu)
+    return params, list(zip(mus, nus))
+
+
+@pytest.mark.parametrize("weight_decay", [0.0, 0.01])
+@pytest.mark.parametrize("device_lr", [False, True], ids=["float-lr", "tensor-lr"])
+def test_bf16_moment_equals_its_host_arithmetic(weight_decay, device_lr):
+    """MomentAdam with its update count and bias corrections on the
+    parameters' device (and, as on CUDA, its rate from a one-element tensor)
+    equals its former host arithmetic: the moments bit for bit (the bias
+    corrections do not enter them), the parameters within 1e-6 relative
+    (numpy's and torch's float32 pow may differ in the last bit), as
+    test_bf16_moment_matches_optax holds them to optax."""
+    rng = np.random.default_rng(5)
+    shapes = [(3, 4), (7,), (2, 3, 5)]
+    init = [rng.uniform(-1, 1, s).astype(np.float32) for s in shapes]
+    grads = [[torch.from_numpy((rng.standard_normal(s) * (3.0 if i % 2 else 0.05))
+                               .astype(np.float32)) for s in shapes] for i in range(5)]
+    sched = tsched.polynomial_decay(1e-2, 1e-6, 10, 0.9)
+    tp = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in init]
+    opt = tsched.make_optimizer(tp, schedule=sched, weight_decay=weight_decay,
+                                moment_dtype="bfloat16")
+    if device_lr:
+        opt.lrs = torch.zeros(1)  # the CPU stands in for the device
+    for step_grads in grads:
+        for p, g in zip(tp, step_grads):
+            p.grad = g.clone()
+        opt.step()
+    want, moments = _host_moment_adam([torch.from_numpy(p) for p in init], grads,
+                                      [sched(i) for i in range(5)], weight_decay=weight_decay)
+    for p, w, (mu, nu) in zip(tp, want, moments):
+        st = opt.opt.state[p]
+        assert float(st["step"]) == 5 and st["step"].device == p.device
+        assert torch.equal(st["exp_avg"], mu) and torch.equal(st["exp_avg_sq"], nu)
+        np.testing.assert_allclose(p.detach().numpy(), w.numpy(), rtol=1e-6, atol=1e-9)
+
+
 def test_moment_dtype_values():
     p = torch.nn.Parameter(torch.zeros(2))
     assert isinstance(tsched.make_optimizer([p], moment_dtype="float32").opt, torch.optim.Adam)

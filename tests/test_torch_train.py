@@ -261,6 +261,71 @@ def test_schedule_matches_optax():
         tsched.make_optimizer([p], moment_dtype="float16")
 
 
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_device_learning_rates_follow_lambdalr(k):
+    """On CUDA an update reads its rate from the optimizer's `lrs` tensor,
+    loaded before each call of k updates (`load_lrs`): the table equals
+    LambdaLR's sequence over the calls (the schedule at each update's count
+    before the update), each update reads its own entry in float32, an
+    update no call loaded loads its own rate, and `advance` counts a
+    replayed call's updates as LambdaLR does. A CPU tensor stands in for the
+    device's here."""
+    sched = tsched.polynomial_decay(1e-2, 1e-4, 6, 0.9)
+    p, q = torch.nn.Parameter(torch.zeros(2)), torch.nn.Parameter(torch.zeros(2))
+    plain = tsched.make_optimizer([p], schedule=sched)
+    dev = tsched.make_optimizer([q], schedule=sched)
+    assert plain.lrs is None
+    dev.lrs = torch.zeros(1)
+    read = []
+    dev.opt.register_step_pre_hook(
+        lambda opt, args, kwargs: read.append(float(opt.param_groups[0]["lr"])))
+    for call in range(3):
+        table = dev.lr_table(k)
+        dev.load_lrs(k)
+        assert dev.lrs.numel() >= k
+        for _ in range(k):
+            assert plain.opt.param_groups[0]["lr"] == table[len(read) - call * k]
+            p.grad, q.grad = torch.ones(2), torch.ones(2)
+            plain.step()
+            dev.step()
+        assert read[-k:] == [float(np.float32(lr)) for lr in table]
+        assert isinstance(dev.opt.param_groups[0]["lr"], float)  # the tensor only in the update
+    p.grad, q.grad = torch.ones(2), torch.ones(2)
+    want = plain.opt.param_groups[0]["lr"]
+    plain.step()
+    dev.step()  # no call loaded it
+    assert read[-1] == float(np.float32(want)) == float(np.float32(sched(3 * k)))
+    plain.sched.step()
+    plain.sched.step()
+    dev.advance(2)
+    assert dev.sched.last_epoch == plain.sched.last_epoch == 3 * k + 3
+    assert dev.opt.param_groups[0]["lr"] == plain.opt.param_groups[0]["lr"] == sched(3 * k + 3)
+
+
+def test_device_path_zeroes_gradients_in_place():
+    """With `lrs` (CUDA) zero_grad keeps each gradient tensor and zeroes it,
+    so a captured step writes the same tensors every replay; on the CPU it
+    drops them. Both train alike."""
+    rng = np.random.default_rng(2)
+    init = rng.standard_normal((3, 4)).astype(np.float32)
+    p, q = (torch.nn.Parameter(torch.from_numpy(init.copy())) for _ in range(2))
+    plain, dev = (tsched.make_optimizer([t], schedule=tsched.polynomial_decay(1e-2, 1e-4, 4, 0.9),
+                                        grad_clip=1.0) for t in (p, q))
+    dev.lrs = torch.zeros(1)
+    for i in range(3):
+        g = torch.from_numpy(rng.standard_normal((3, 4)).astype(np.float32))
+        for opt, t in ((plain, p), (dev, q)):
+            opt.zero_grad()
+            (t * g).sum().backward()
+        kept = q.grad
+        plain.step()
+        dev.step()
+        dev.zero_grad()
+        plain.zero_grad()
+        assert q.grad is kept and not kept.any() and p.grad is None
+    np.testing.assert_allclose(q.detach().numpy(), p.detach().numpy(), rtol=1e-6, atol=1e-7)
+
+
 # --- data path ---------------------------------------------------------------
 
 @pytest.mark.parametrize("size", [(32, 32), (40, 24)])

@@ -5,6 +5,7 @@ the `train` command line, the options the port does not have (each must
 raise) and those it has, the CUDA default, the bf16 step under
 CPU autocast, and the metric accumulators against the JAX package's.
 """
+import itertools
 import json
 import os
 import subprocess
@@ -108,6 +109,94 @@ def test_ported_options_are_accepted(override):
     longer raises at construction (tests/test_torch_switches.py trains
     each switch)."""
     Trainer(_cfg(**override), device="cpu")
+
+
+# -- the graphed step: which configurations it captures, and its host side ------
+REMAT_MODES = [False, True, "conv", "block", "block-enc", "block:012", "block:01e34",
+               "block:012+conv"]
+GRAPH_TABLE = [(dp, remat, dtype) for dp in (False, True) for remat in REMAT_MODES
+               for dtype in (None, "float32", "bfloat16", "float16")]
+
+
+@pytest.mark.parametrize("data_parallel,remat,dtype", GRAPH_TABLE,
+                         ids=lambda v: str(v).lower())
+def test_graph_table(data_parallel, remat, dtype):
+    """On CUDA every single-device configuration is captured, in every remat
+    mode and compute dtype; data parallelism stays eager."""
+    from octave_tpu_torch.train.steps import StepConfig, graph_blocker
+
+    reason = graph_blocker(StepConfig(remat=remat, compute_dtype=dtype,
+                                      data_parallel=data_parallel))
+    if data_parallel:
+        assert reason is not None and "data_parallel" in reason
+    else:
+        assert reason is None
+
+
+def test_graph_table_refuses_unknown_values():
+    from octave_tpu_torch.train.steps import StepConfig, graph_blocker
+
+    with pytest.raises(ValueError, match="remat"):
+        graph_blocker(StepConfig(remat="bogus"))
+    with pytest.raises(ValueError, match="compute_dtype"):
+        graph_blocker(StepConfig(compute_dtype="int8"))
+
+
+def test_cpu_trainer_is_eager(caplog):
+    """The CPU runs the step eagerly and says so once per fit; asking it for
+    a graph raises."""
+    trainer = Trainer(_cfg(), device="cpu")
+    assert trainer.graphed is False and "cpu" in trainer.eager_reason
+    assert Trainer(_cfg(), device="cpu", graphed=False).eager_reason == "graphed=False"
+    with pytest.raises(ValueError, match="cannot be captured"):
+        Trainer(_cfg(), device="cpu", graphed=True)
+    state = trainer.init_state()
+    assert trainer.step_call(state) is trainer.train_step and state.graph is None
+    with caplog.at_level("INFO", logger="octave_tpu_torch"):
+        trainer.fit(state)
+    assert [r.getMessage() for r in caplog.records if "train step" in r.getMessage()] == [
+        "train step: eager (no CUDA graphs on cpu)"]
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_call_batch_writes_into_static_inputs(k):
+    """`call_batch(out=...)` writes a call's batch into a captured step's
+    static input, leaf by leaf (the pyramid's levels too), and returns it."""
+    trainer = Trainer(_cfg(**{"train.steps_per_call": str(k), "data.augment": "true"}),
+                      device="cpu")
+    hosts = list(itertools.islice(ds.batch_iterator(build_dataset(trainer.cfg), 2, seed=0),
+                                  2 * k))
+    gen = torch.Generator()
+    want = trainer.call_batch(hosts[k:], k, gen)
+    static = trainer.call_batch(hosts[:k], 0, gen)
+    leaves = {name: (v if torch.is_tensor(v) else list(v)) for name, v in static.items()}
+    got = trainer.call_batch(hosts[k:], k, gen, out=static)
+    assert got is static
+    for name, v in want.items():
+        if torch.is_tensor(v):
+            assert got[name] is leaves[name] and torch.equal(got[name], v)
+        else:
+            assert all(a is b and torch.equal(a, c)
+                       for a, b, c in zip(got[name], leaves[name], v, strict=True))
+
+
+def test_graphed_losses_are_copies():
+    """A replay overwrites the graph's loss tensors in place: what a call
+    returns (and `fit` keeps in its log window) is a copy that no later
+    replay touches, one device copy for all the losses."""
+    from octave_tpu_torch.train.steps import _copied
+
+    static = {"loss_sup": torch.tensor(1.0), "loss_disc": torch.tensor(2.0)}
+    first = _copied(static)
+    for v in static.values():
+        v.add_(10.0)  # the next replay
+    second = _copied(static)
+    assert {k: float(v) for k, v in first.items()} == {"loss_sup": 1.0, "loss_disc": 2.0}
+    assert {k: float(v) for k, v in second.items()} == {"loss_sup": 11.0, "loss_disc": 12.0}
+    ptrs = {v.untyped_storage().data_ptr() for v in static.values()}
+    assert ptrs.isdisjoint(v.untyped_storage().data_ptr() for v in first.values())
+    assert first["loss_sup"].untyped_storage().data_ptr() != \
+        second["loss_sup"].untyped_storage().data_ptr()
 
 
 def test_default_device_needs_cuda():
