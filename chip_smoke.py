@@ -150,9 +150,10 @@ Phases, each printing its own lines:
                per-call and 7 x 4 dispatched) and no AAG launch, the served
                Predictor and the agreement; the k = 4 dispatch's first batch
                against one call (argmax agreement >= 0.9999, the largest
-               probability difference); peak memory of one B = 256 call of
-               the int8 and of the bf16 Predictor; their img/s in turns; the
-               phase's seconds;
+               probability difference); their img/s in turns; the memory
+               the process reserves with the two Predictors side by side,
+               graphed (a pool each) and eager (one cache); the phase's
+               seconds;
  13. graph    - the train step as one CUDA-graph replay per call (on CUDA
                every `Trainer.fit` of phases 5-12 runs so, data parallelism
                excepted): C.8 on the card (a fresh ResnestUNet's 87 backbone
@@ -172,7 +173,31 @@ Phases, each printing its own lines:
                Config, `unet` and `parallel_head_gate`: eager and graphed
                step ms and img/s in turns, peak memory, one profiled call's
                device idle share, and Trainer.fit img/s at steps_per_call
-               1, 2 and 4.
+               1, 2 and 4;
+ 14. graphed  - serving and evaluation as CUDA-graph replays (on CUDA every
+               Predictor, BatchServer and Trainer.evaluate of phases 4-13
+               runs so, calibration excepted): float32 (TF32 off,
+               deterministic algorithms) graphed Predictors against eager
+               ones at 304², B = 8, bit for bit, predict_many at k = 1, 2, 4
+               and __call__, fused and unfused, 5 kernel launches per
+               forward through the replays, one capture per k; the mesh
+               (cuda:0, cuda:0) likewise; two back-to-back
+               predict_many_device results, each its own, and an unseen k's
+               warm-up result beside a k = 1 replay; Trainer.evaluate
+               graphed against eager for `unet` and `parallel_head_gate`
+               (float32, 128², a ragged last batch) in every batch's counts
+               and in the metrics, after a fit step and after a restore;
+               bf16, float16 and int8 graphed against eager (argmax
+               agreement >= 0.999, the largest difference, launches and
+               int8 GEMMs as eager's) and the 0.995 / 0.99 floors; a
+               BatchServer flood of 1,280 equal to the eager server's with
+               no capture after warmup, and a server without warm-up
+               capturing in its worker; in turns with eager: __call__ and
+               predict_many k = 4 img/s at B = 32, one profiled call's idle
+               share, the flood's img/s and a lone request's latency, the
+               bench's int8 and bf16 Predictors at B = 256, k = 4 with each
+               one's peak and reserved memory, and Trainer.evaluate's seconds over the
+               synthetic test split.
 Exits non-zero, before printing any result, without CUDA or outside a
 checkout of the repository; any failed check
 raises. The last three lines are the kernels JSON, the card's name and power
@@ -182,6 +207,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import io
 import json
 import logging
@@ -656,7 +682,7 @@ def main() -> int:
 
     # -- 6. deployment -----------------------------------------------------
     del serve_mask, serve_aag, plain, probs, many, mask, probs_aag, stack
-    torch.cuda.empty_cache()
+    release(torch, "before phase 6")
     by_path = {"aag": {"serve, use_fused_decoder=False": aag_launches["aag"]},
                "decoder_epilogue": {"serve, __call__": main_launches["decoder_epilogue"]}}
     deploy_tmp = tempfile.mkdtemp(prefix="octave_deploy_")  # phase 9 reads it too
@@ -669,17 +695,17 @@ def main() -> int:
             by_path[name].update(paths)
 
         # -- 7. the rest of the model family ---------------------------------
-        torch.cuda.empty_cache()
+        release(torch, "before phase 7")
         for name, paths in phase_family(torch, smi).items():
             by_path[name].update(paths)
 
         # -- 8. the native loader and data parallelism ------------------------
-        torch.cuda.empty_cache()
+        release(torch, "before phase 8")
         for name, paths in phase_parallel(torch, smi).items():
             by_path[name].update(paths)
 
         # -- 9. int8 post-training quantised serving --------------------------
-        torch.cuda.empty_cache()
+        release(torch, "before phase 9")
         for name, paths in phase_int8(torch, smi, serve, weights, images,
                                       predict_args, deploy_tmp).items():
             by_path[name].update(paths)
@@ -687,24 +713,29 @@ def main() -> int:
         shutil.rmtree(deploy_tmp, ignore_errors=True)
 
     # -- 10. the memory and lowering switches -------------------------------
-    torch.cuda.empty_cache()
+    release(torch, "before phase 10")
     for name, paths in phase_switches(torch, smi, weights, images, serve).items():
         by_path[name].update(paths)
 
     # -- 11. the rest of the surface: float16, the fan-out, ConvTranspose ----
-    torch.cuda.empty_cache()
+    release(torch, "before phase 11")
     for name, paths in phase_surface(torch, smi, weights, images, serve).items():
         by_path[name].update(paths)
 
     # -- 12. cli bench: the JAX package's headline serving configuration ----
     del serve
-    torch.cuda.empty_cache()
+    release(torch, "before phase 12")
     for name, paths in phase_bench(torch, smi).items():
         by_path[name].update(paths)
 
     # -- 13. the train step as one CUDA-graph replay per call ----------------
-    torch.cuda.empty_cache()
+    release(torch, "before phase 13")
     for name, paths in phase_graph(torch, smi).items():
+        by_path[name].update(paths)
+
+    # -- 14. serving and evaluation as CUDA-graph replays ---------------------
+    release(torch, "before phase 14")
+    for name, paths in phase_graphed(torch, smi, weights, images).items():
         by_path[name].update(paths)
 
     line = {"kernels": [
@@ -722,6 +753,7 @@ def main() -> int:
         "ms": bench_totals["ms"], "plain_ms": bench_totals["plain_ms"],
         "bound_ms": bench_totals["bound_ms"],
         "bound_by": "bytes" if bench_totals["by"] == {"bytes"} else "operations"}
+    release(torch, "after phase 14")
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps(line))
     print(smi)
@@ -2411,8 +2443,9 @@ def phase_int8(torch, smi, serve, weights, images, predict_args, deploy_tmp):
         peaks[label] = torch.cuda.max_memory_allocated() / 2**30
     log(f"[int8] 304² trained weights, B={SERVE_B}, uint8 in, prob_f32 out, on {smi}: "
         f"bf16 __call__ {', '.join(f'{r:.1f}' for r in rates['bf16'])} img/s, int8 (scope "
-        f"decoder, prepacked) {', '.join(f'{r:.1f}' for r in rates['int8'])} img/s; peak "
-        f"memory of one call bf16 {peaks['bf16']:.2f} GiB, int8 {peaks['int8']:.2f} GiB")
+        f"decoder, prepacked) {', '.join(f'{r:.1f}' for r in rates['int8'])} img/s (graph "
+        f"replays); peak memory of one replayed call (the graphs' pools hold the activations "
+        f"outside it) bf16 {peaks['bf16']:.2f} GiB, int8 {peaks['int8']:.2f} GiB")
 
     from torch.profiler import record_function
 
@@ -2429,6 +2462,11 @@ def phase_int8(torch, smi, serve, weights, images, predict_args, deploy_tmp):
                 return fn(*a, **k)
         return run
 
+    # the labels are host annotations of eager calls (a graph replay carries
+    # none): an eager twin of `int8`, calibrated alike, is profiled
+    int8_eager = Predictor(weights, int8_decoder=True, calibration_batches=[calib],
+                           graphed=False)
+    int8_eager(images)
     for label, fn in stages.items():
         setattr(quant, fn, labelled(label, originals[fn]))
     try:
@@ -2437,7 +2475,7 @@ def phase_int8(torch, smi, serve, weights, images, predict_args, deploy_tmp):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            int8(images)
+            int8_eager(images)
             torch.cuda.synchronize()
             t_prof = (time.perf_counter() - t0) * 1e3
     finally:
@@ -2456,7 +2494,8 @@ def phase_int8(torch, smi, serve, weights, images, predict_args, deploy_tmp):
             groups[int8_group(ev.name)] = groups.get(int8_group(ev.name), 0.0) + ms
             busy += ms
     check(busy > 0, "the profiler saw no device time")
-    log(f"[int8] profile of one int8 __call__ (B={SERVE_B}): wall {t_prof:.1f} ms, device "
+    del int8_eager
+    log(f"[int8] profile of one eager int8 __call__ (B={SERVE_B}): wall {t_prof:.1f} ms, device "
         f"kernels {busy:.1f} ms; by group: "
         + ", ".join(f"{g} {v:.2f} ms" for g, v in sorted(groups.items(), key=lambda x: -x[1]))
         + "; the int8 convs' device ms by stage: "
@@ -3232,9 +3271,12 @@ def phase_bench(torch, smi):
     and the two Predictors' img/s in turns. Returns the launches by path."""
     from octave_tpu_torch import bench
     from octave_tpu_torch.ops.kernels import launch_counts
+    from octave_tpu_torch.serve import Predictor
 
     t_phase = time.time()
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_reserved = torch.cuda.memory_reserved() / 2**30
     torch.cuda.reset_peak_memory_stats()
     out = io.StringIO()
     launch_counts(reset=True)
@@ -3280,14 +3322,6 @@ def phase_bench(torch, smi):
     check(agree >= BENCH_DISPATCH_AGREEMENT, f"k={BENCH_K} dispatch disagrees with one call")
     del one, first
 
-    for name, p in (("int8", run.int8), ("bf16", run.bf16)):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        resident = torch.cuda.memory_allocated() / 2**30
-        p.predict_many_device(xs[None]).tensor[0, 0, 0, 0].cpu()
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        log(f"[bench] {name} Predictor, one B={BENCH_B} call: peak {peak:.2f} GiB "
-            f"({resident:.2f} GiB resident before it: both Predictors, the inputs)")
     rates = {"int8": [], "bf16": []}
     for name in ("int8", "bf16", "bf16", "int8"):
         dt = bench.median_dispatch_s(getattr(run, name), xk, calls=4, warmup=1)
@@ -3295,7 +3329,37 @@ def phase_bench(torch, smi):
     log(f"[bench] k={BENCH_K} x B={BENCH_B} dispatch in turns on {smi}: int8 "
         f"{' / '.join(f'{r:.1f}' for r in rates['int8'])} img/s, bf16 "
         f"{' / '.join(f'{r:.1f}' for r in rates['bf16'])} img/s")
-    del run, pred, xs, xk
+
+    # what the process reserves with the bench's two Predictors serving
+    # side by side, graphed (each replica's graphs keep a memory pool of
+    # their own for as long as it lives) and eager (one general cache,
+    # shared): the cache emptied, then each Predictor's k = 1 and k = BENCH_K
+    # dispatches, and what stays reserved after them
+    def serving_gib(preds):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        for p in preds:
+            bench.median_dispatch_s(p, xs[None], calls=1, warmup=0)
+            bench.median_dispatch_s(p, xk, calls=1, warmup=0)
+        torch.cuda.synchronize()
+        return (torch.cuda.memory_reserved() / 2**30 - base_reserved,
+                torch.cuda.memory_allocated() / 2**30)
+
+    held = {"graphed": serving_gib((run.int8, run.bf16))}
+    del run, pred
+    calibration = bench.phantom_batch(BENCH_B, 304)[:bench.CALIBRATION_IMAGES]
+    weights = bench.load_trained_variables()
+    eager = [Predictor(weights, graphed=False, int8_decoder=True,
+                       calibration_batches=[calibration], dense_groups="decoder"),
+             Predictor(weights, graphed=False)]
+    held["eager"] = serving_gib(eager)
+    log(f"[bench] memory reserved over the phase's start ({base_reserved:.2f} GiB) by the int8 "
+        f"and the bf16 Predictor of the bench side by side after their B={BENCH_B} k=1 and "
+        f"k={BENCH_K} dispatches, the cache emptied before them: "
+        + "; ".join(f"{m} {r:.2f} GiB ({a:.2f} GiB allocated)" for m, (r, a) in held.items())
+        + f" on {smi}")
+    del eager, xs, xk
     log(f"[bench] phase 12 took {time.time() - t_phase:.1f} s")
     return {"decoder_epilogue": {f"cli bench (B={BENCH_B}, k={BENCH_K})":
                                  want["decoder_epilogue"]}}
@@ -3613,6 +3677,497 @@ def _graph(torch, smi, tmp):
     log(f"[graph] phase 13 took {time.time() - t_phase:.1f} s")
     log(json.dumps({"graph": summary}))
     return paths
+
+
+# graphed-serving settings (phase 14). The float32 bit-for-bit cases run at
+# 304², B = GRAPHED_B; the dtypes, the server and the speeds at SERVE_B.
+GRAPHED_B = 8
+GRAPHED_FLOOD = 1280
+# graphed against eager in bf16, float16 and int8: the same kernels on the
+# same inputs, so any difference is the device's own order of work
+GRAPHED_AGREEMENT = 0.999
+# Trainer.evaluate, float32: GRAPH_HW², B = 2 over 5 test phantoms (a ragged
+# last batch of 1)
+EVAL_N = 5
+
+
+def phase_graphed(torch, smi, weights, images):
+    """Phase 14: serving and evaluation as CUDA-graph replays. Returns
+    {kernel: {path: launches}} of its graphed runs."""
+    tmp = tempfile.mkdtemp(prefix="octave_graphed_")
+    try:
+        with cached_datasets():
+            return _graphed(torch, smi, weights, images, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _graphed(torch, smi, weights, images, tmp):
+    import warnings
+
+    import numpy as np
+
+    from octave_tpu_torch import bench
+    from octave_tpu_torch.ops import quant
+    from octave_tpu_torch.ops.kernels import launch_counts
+    from octave_tpu_torch.serve import BatchServer, Predictor
+    from octave_tpu_torch.train import trainer as trainer_mod
+    from octave_tpu_torch.train.trainer import Trainer
+    from octave_tpu_torch.utils.checkpoint import CheckpointManager
+    from octave_tpu_torch.utils.config import Config
+
+    t_phase = time.time()
+    paths = {"aag": {}, "decoder_epilogue": {}}
+    summary = {"device": smi}
+    dev0 = torch.device("cuda", 0)
+
+    def twins(**kw):
+        """(eager, graphed) Predictors of one configuration."""
+        return Predictor(weights, graphed=False, **kw), Predictor(weights, **kw)
+
+    def counted(fn):
+        """(fn(), {kernel: launches, "int8_gemm": int8 GEMMs}) with the
+        counts zeroed just before fn and read just after."""
+        launch_counts(reset=True)
+        quant.int8_mm.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {**launch_counts(), "int8_gemm": quant.int8_mm.launches}
+
+    def held(label, eager_fn, graphed_fn, per_call, exact=True, floor=GRAPHED_AGREEMENT):
+        """eager_fn() once against graphed_fn() at its warm-up, capture and
+        replay: bit for bit (exact) or argmax agreement >= floor; the same
+        launch and int8 GEMM counts, `per_call` of them. Returns (graphed
+        output, its counts, the largest |difference|)."""
+        want, n_eager = counted(eager_fn)
+        check(n_eager == per_call, f"{label}: eager counts {n_eager}, expected {per_call}")
+        worst, low = 0.0, 1.0
+        for call in ("warm-up", "capture", "replay"):
+            got, n = counted(graphed_fn)
+            check(n == n_eager, f"{label} {call}: counts {n} graphed, {n_eager} eager")
+            diff = float(np.abs(got.astype(np.float64) - want.astype(np.float64)).max())
+            agree = float((got.argmax(-1) == want.argmax(-1)).mean())
+            worst, low = max(worst, diff), min(low, agree)
+            if exact:
+                check(np.array_equal(got, want), f"{label} {call}: graphed differs from eager "
+                      f"by {diff:.3g}")
+            else:
+                check(agree >= floor, f"{label} {call}: argmax agreement {agree} < {floor}")
+        log(f"[graphed] {label}: graphed (warm-up, capture, replay) against eager: "
+            + ("bit for bit" if exact else f"argmax agreement >= {low:.6f}")
+            + f", max |diff| {worst:.3g}; counts per call {n} through the replays")
+        return got, n, worst, low
+
+    # 14.1 float32 (TF32 off, deterministic algorithms): graphed equals eager
+    # bit for bit, __call__ and predict_many at k = 1, 2, 4, fused and
+    # unfused; 14.3 the mesh; 14.4 no result overwritten; 14.6 evaluate
+    x8 = images[:GRAPHED_B]
+    stacks = {k: np.stack([np.roll(x8, i, axis=0) for i in range(k)]) for k in (1, 2, 4)}
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    bits = {}
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for fused, kernel in ((True, "decoder_epilogue"), (False, "aag")):
+                name = "fused" if fused else "unfused"
+                eager, graphed = twins(dtype=torch.float32, use_fused_decoder=fused)
+                zero = {"aag": 0, "decoder_epilogue": 0, "int8_gemm": 0}
+                for k, stack in stacks.items():
+                    label = f"float32 {name} predict_many k={k} (304², B={GRAPHED_B})"
+                    held(label, lambda: eager.predict_many(stack),
+                         lambda: graphed.predict_many(stack), {**zero, kernel: 5 * k})
+                    paths[kernel][f"graphed Predictor, {label}"] = 5 * k
+                held(f"float32 {name} __call__ (the k=1 graph)", lambda: eager(x8),
+                     lambda: graphed(x8), {**zero, kernel: 5})
+                check(graphed.captures == 3, f"{name}: {graphed.captures} captures, expected 3")
+                bits[name] = {"ks": [1, 2, 4], "captures": graphed.captures}
+                if fused:
+                    # 14.4 two stacks dispatched back to back, downloaded in
+                    # the other order
+                    a, b = stacks[2], stacks[2][:, ::-1].copy()
+                    ra, rb = graphed.predict_many_device(a), graphed.predict_many_device(b)
+                    got_b, got_a = np.asarray(rb), np.asarray(ra)
+                    check(np.array_equal(got_a, eager.predict_many(a))
+                          and np.array_equal(got_b, eager.predict_many(b))
+                          and not np.array_equal(got_a, got_b),
+                          "a back-to-back dispatch's result was overwritten")
+                    log("[graphed] two predict_many_device stacks (k=2) dispatched back to "
+                        "back without a wait, downloaded in the other order: each equals its "
+                        "own eager result bit for bit")
+                    # a fresh Predictor's k = 1 graph captured, then without a
+                    # wait an unseen k (its eager warm-up runs in the pool the
+                    # k = 1 graph reuses at every replay) and a k = 1 replay
+                    fresh = Predictor(weights, dtype=torch.float32)
+                    fresh.warmup(GRAPHED_B, (304, 304), ks=(1,))
+                    other = stacks[1][:, ::-1].copy()
+                    rk, r1 = fresh.predict_many_device(stacks[4]), fresh.predict_many_device(other)
+                    got_k, got_1 = np.asarray(rk), np.asarray(r1)
+                    check(np.array_equal(got_k, eager.predict_many(stacks[4]))
+                          and np.array_equal(got_1, eager.predict_many(other))
+                          and fresh.captures == 1,
+                          "an unseen k's warm-up result beside a k=1 replay was overwritten")
+                    log("[graphed] the k=1 graph captured, then without a wait k=4 (its eager "
+                        "warm-up in the graphs' pool) and a k=1 replay of other images: each "
+                        "equals its own eager result bit for bit")
+                    del fresh
+                del eager, graphed
+            # 14.3 Predictor(mesh=(cuda:0, cuda:0)) against its eager self
+            eager, graphed = twins(dtype=torch.float32, mesh=(dev0, dev0))
+            per = {"aag": 0, "decoder_epilogue": 2 * 5 * 2, "int8_gemm": 0}
+            held("float32 Predictor(mesh=(cuda:0, cuda:0)) predict_many k=2",
+                 lambda: eager.predict_many(stacks[2]), lambda: graphed.predict_many(stacks[2]),
+                 per)
+            held("float32 Predictor(mesh=(cuda:0, cuda:0)) __call__", lambda: eager(x8),
+                 lambda: graphed(x8), {**per, "decoder_epilogue": 10})
+            check(graphed.captures == 4, f"mesh: {graphed.captures} captures, expected 2 x 2")
+            paths["decoder_epilogue"]["graphed Predictor(mesh=(cuda:0, cuda:0)), k=2"] = 20
+            bits["mesh"] = {"captures": graphed.captures}
+            del eager, graphed
+            torch.cuda.empty_cache()
+
+            # 14.6 Trainer.evaluate graphed against eager: counts as integers
+            recorded = []
+            unpack = trainer_mod.unpack_counts
+
+            def recording(packed):
+                recorded.append(np.array(packed))
+                return unpack(packed)
+
+            trainer_mod.unpack_counts = recording
+            eval_rows = {}
+            try:
+                for arch, per_batch in GRAPH_AAG.items():
+                    over = {"data.image_size": f"[{GRAPH_HW},{GRAPH_HW}]",
+                            "data.batch_size": "2", "data.synthetic_n": str(EVAL_N),
+                            "model.architecture": arch, "train.steps": "1",
+                            "train.eval_every": "0", "train.log_every": "0"}
+                    eager_tr = Trainer(Config().apply_overrides(over), device="cuda",
+                                       graphed=False)
+                    graph_tr = Trainer(Config().apply_overrides(over), device="cuda")
+                    state = graph_tr.init_state()
+
+                    def pair(label):
+                        del recorded[:]
+                        want = eager_tr.evaluate(state)
+                        n_want = len(recorded)
+                        launch_counts(reset=True)
+                        got = graph_tr.evaluate(state)
+                        torch.cuda.synchronize()
+                        n_aag = launch_counts()["aag"]
+                        e, g = recorded[:n_want], recorded[n_want:]
+                        check(len(e) == len(g) == 3 and all(np.array_equal(x, y)
+                                                            for x, y in zip(e, g)),
+                              f"{arch} {label}: graphed eval counts differ from eager")
+                        check(got == want, f"{arch} {label}: metrics {got} against {want}")
+                        check(n_aag == per_batch * 3, f"{arch} {label}: {n_aag} AAG launches, "
+                              f"expected {per_batch} per batch")
+                        return got, n_aag
+
+                    for label in ("warm-up", "capture", "replay"):
+                        got, n_aag = pair(label)
+                    graphs = state.eval_graphs
+                    check(graphs is not None and graphs.captures == 2,
+                          f"{arch}: eval graphs {graphs and graphs.captures}, expected 2 "
+                          "(B = 2 and the ragged B = 1)")
+                    ckpt = CheckpointManager(os.path.join(tmp, f"ckpt_{arch}"))
+                    ckpt.save(0, state)
+                    ckpt.wait()
+                    graph_tr.fit(state)  # one graphed-trainer step: weights move in place
+                    check(state.step == 1 and state.eval_graphs is graphs,
+                          f"{arch}: the fit replaced the eval graphs")
+                    after, _ = pair("after a fit step")
+                    check(after != got, f"{arch}: the fit step did not move the metrics")
+                    ckpt.restore_latest(state)
+                    ckpt.close()
+                    check(state.eval_graphs is None and state.step == 0,
+                          f"{arch}: the restore kept the eval graphs")
+                    for label in ("warm-up after a restore", "capture after a restore"):
+                        restored, _ = pair(label)
+                    check(restored == got, f"{arch}: restored metrics {restored} against {got}")
+                    eval_rows[arch] = {"metrics": got, "after_fit": after,
+                                       "aag_per_evaluate": n_aag}
+                    paths["aag"][f"graphed Trainer.evaluate, {arch}, float32 {GRAPH_HW}², "
+                                 f"3 batches"] = n_aag
+                    log(f"[graphed] Trainer.evaluate {arch} float32 {GRAPH_HW}², {EVAL_N} "
+                        f"phantoms in batches of 2 (ragged last batch of 1): graphed equals "
+                        f"eager in every batch's confusion counts and ROC histograms (integers) "
+                        f"and in Dice/AUC at the warm-up, the captures, a replay, after a fit "
+                        f"step (weights moved in place: dice {got['dice']:.6f} -> "
+                        f"{after['dice']:.6f}) and after a restore (the graphs dropped and "
+                        f"captured anew); {n_aag} AAG launches per evaluate "
+                        f"({per_batch} per batch through the replays)")
+                    del eager_tr, graph_tr, state, graphs
+            finally:
+                trainer_mod.unpack_counts = unpack
+        nondeterministic = sorted({str(w.message).split(".")[0][:120] for w in caught
+                                   if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.allow_tf32 = True
+    summary["bit_for_bit"] = bits
+    summary["evaluate"] = eval_rows
+    summary["nondeterministic_ops"] = nondeterministic
+    log(f"[graphed] ops without a deterministic variant: {nondeterministic or 'none'} "
+        f"(14.1-14.6 float32 took {time.time() - t_phase:.1f} s)")
+    torch.cuda.empty_cache()
+
+    # 14.2 bf16 (the default), float16 and int8 (decoder, prepacked): graphed
+    # against eager, and the floors against float32 and bf16
+    plain = Predictor(weights, dtype=torch.float32, graphed=False)
+    torch.backends.cudnn.allow_tf32 = False
+    ref32 = plain(images)
+    torch.backends.cudnn.allow_tf32 = True
+    del plain
+    stack2 = np.stack([images, images[::-1]])
+    one = {"aag": 0, "decoder_epilogue": 5}
+    variants = {}
+    for name, kw in (("bf16", {}), ("float16", {"dtype": torch.float16}),
+                     ("int8", {"int8_decoder": True,
+                               "calibration_batches": [phantoms(SERVE_B, 304, seed=31)]})):
+        eager, graphed = twins(**kw)
+        gemms = len(graphed.int8_scales) if graphed.int8_scales else 0
+        probs, _, worst, low = held(f"{name} __call__ (304², B={SERVE_B})", lambda: eager(images),
+                                    lambda: graphed(images), {**one, "int8_gemm": gemms},
+                                    exact=False)
+        _, _, worst2, low2 = held(f"{name} predict_many k=2", lambda: eager.predict_many(stack2),
+                                  lambda: graphed.predict_many(stack2),
+                                  {"aag": 0, "decoder_epilogue": 10, "int8_gemm": 2 * gemms},
+                                  exact=False)
+        paths["decoder_epilogue"][f"graphed Predictor, {name} __call__ (B={SERVE_B})"] = 5
+        variants[name] = {"agreement": min(low, low2), "max_abs_diff": max(worst, worst2),
+                          "int8_gemms_per_call": gemms, "probs": probs}
+        if name == "bf16":
+            serving = (eager, graphed)  # kept for the speeds below
+        del eager, graphed
+    mask32 = ref32[..., 1] >= 0.5
+    floors = {
+        "bf16 mask vs float32": float(((variants["bf16"]["probs"][..., 1] >= 0.5) == mask32)
+                                      .mean()),
+        "float16 mask vs float32": float(((variants["float16"]["probs"][..., 1] >= 0.5)
+                                          == mask32).mean()),
+        "int8 argmax vs bf16": float((variants["int8"]["probs"].argmax(-1)
+                                      == variants["bf16"]["probs"].argmax(-1)).mean()),
+    }
+    log(f"[graphed] floors held by the graphed Predictors (304², B={SERVE_B}): "
+        + ", ".join(f"{k} {v:.6f}" for k, v in floors.items())
+        + f" (floors {MASK_AGREEMENT_FLOOR}, {MASK_AGREEMENT_FLOOR}, {INT8_AGREEMENT_FLOOR})")
+    check(floors["bf16 mask vs float32"] >= MASK_AGREEMENT_FLOOR
+          and floors["float16 mask vs float32"] >= MASK_AGREEMENT_FLOOR
+          and floors["int8 argmax vs bf16"] >= INT8_AGREEMENT_FLOOR, f"floors {floors}")
+    for v in variants.values():
+        del v["probs"]
+    summary["variants"], summary["floors"] = variants, floors
+    del ref32
+
+    # 14.7 speed, bf16, B = 32: __call__ and predict_many k = 4 in turns, and
+    # one profiled call of each
+    eager, graphed = serving
+    stack4 = np.broadcast_to(images[None], (4, *images.shape)).copy()
+    graphed.predict_many(stack4)  # warm-up; the timing's first call captures
+    eager.predict_many(stack4)
+
+    def median_s(fn, reps):
+        fn()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    rates = {"eager": {"call": [], "many": []}, "graphed": {"call": [], "many": []}}
+    preds = {"eager": eager, "graphed": graphed}
+    for mode in ("eager", "graphed", "graphed", "eager"):
+        p = preds[mode]
+        rates[mode]["call"].append(SERVE_B / median_s(lambda: p(images), 10))
+        rates[mode]["many"].append(4 * SERVE_B / median_s(lambda: p.predict_many(stack4), 5))
+    profile_rows = {}
+    for mode, p in preds.items():
+        wall_ms, prof = profiled(torch, lambda: p(images))
+        _, groups, _ = profile_groups(torch, None, kernel_group, prof)
+        busy = device_busy_ms(torch, prof)
+        check(busy > 0, f"{mode}: the profiler saw no device time")
+        profile_rows[mode] = {"wall_ms": wall_ms, "busy_ms": busy, "idle": 1 - busy / wall_ms,
+                              "groups": groups}
+        log(f"[graphed] profile of one {mode} __call__ (304² bf16 B={SERVE_B}) on {smi}: wall "
+            f"{wall_ms:.1f} ms, device busy {busy:.1f} ms (union of kernel intervals), idle "
+            f"{1 - busy / wall_ms:.1%}; " + ", ".join(
+                f"{g} {v:.2f} ms" for g, v in sorted(groups.items(), key=lambda x: -x[1])))
+    log(f"[graphed] 304² bf16 trained weights, B={SERVE_B}, uint8 in, prob_f32 out, on {smi}, "
+        f"in turns (eager, graphed, graphed, eager; medians of 10 / 5 calls): __call__ img/s "
+        + "; ".join(f"{m} {', '.join(f'{r:.1f}' for r in v['call'])}" for m, v in rates.items())
+        + "; predict_many k=4 img/s "
+        + "; ".join(f"{m} {', '.join(f'{r:.1f}' for r in v['many'])}" for m, v in rates.items()))
+    summary["serving"] = {"img_s": rates, "profile": profile_rows}
+
+    # 14.5 BatchServer over the graphed Predictor: a flood of GRAPHED_FLOOD
+    # against the eager server's, no capture after warmup; a server without
+    # warm-up captures in its worker
+    base = phantoms(64, 304, seed=12)
+    flood = [np.roll(base[i % 64], i, axis=1) for i in range(GRAPHED_FLOOD)]  # all distinct
+    servers = {mode: BatchServer(p, batch=SERVE_B, image_hw=(304, 304), ks=(1, 2, 4))
+               for mode, p in preds.items()}
+    dispatched = []
+    dispatch = graphed.predict_many_device
+    graphed.predict_many_device = lambda stack: (dispatched.append(stack.shape[0]),
+                                                 dispatch(stack))[1]
+    try:
+        after_warmup = graphed.captures
+        outs = {}
+        for mode in ("graphed", "eager"):
+            launch_counts(reset=True)
+            outs[mode] = np.stack(list(servers[mode].map(iter(flood))))
+            torch.cuda.synchronize()
+            if mode == "graphed":
+                flood_launches = launch_counts()["decoder_epilogue"]
+                check(flood_launches == 5 * sum(dispatched) and sum(dispatched) * SERVE_B
+                      >= GRAPHED_FLOOD, f"graphed flood: {flood_launches} epilogue launches, "
+                      f"dispatched k {dispatched}")
+        diff = float(np.abs(outs["graphed"] - outs["eager"]).max())
+        check(np.array_equal(outs["graphed"], outs["eager"]),
+              f"graphed flood differs from the eager server's by {diff}")
+        check(graphed.captures == after_warmup, f"the flood captured "
+              f"{graphed.captures - after_warmup} graphs after warmup")
+        del outs
+        flood_rates = {"eager": [], "graphed": []}
+        for mode in ("eager", "graphed", "graphed", "eager"):
+            t0 = time.perf_counter()
+            n = sum(1 for _ in servers[mode].map(iter(flood)))
+            flood_rates[mode].append(n / (time.perf_counter() - t0))
+        latency = {}
+        for mode, srv in servers.items():
+            lat = []
+            for img in flood[:10]:
+                t0 = time.perf_counter()
+                srv.submit(img).result(timeout=120)
+                lat.append((time.perf_counter() - t0) * 1e3)
+            latency[mode] = statistics.median(lat)
+        check(graphed.captures == after_warmup, "the timed floods captured")
+    finally:
+        for srv in servers.values():
+            srv.close()
+        del graphed.predict_many_device
+    log(f"[graphed] BatchServer flood of {GRAPHED_FLOOD} (304² bf16, B={SERVE_B}, ks (1,2,4)) "
+        f"over the graphed Predictor: every result equal to the eager server's (max |diff| "
+        f"{diff:.3g}); {flood_launches} epilogue launches through the replays (5 x the sum of "
+        f"the dispatched k); {after_warmup} graphs captured by warmup, none after; on {smi}, "
+        f"in turns: "
+        + "; ".join(f"{m} {', '.join(f'{r:.1f}' for r in v)} img/s"
+                    for m, v in flood_rates.items())
+        + "; a lone request's latency (median of 10) "
+        + ", ".join(f"{m} {v:.1f} ms" for m, v in latency.items()))
+    paths["decoder_epilogue"][f"graphed BatchServer flood of {GRAPHED_FLOOD}"] = flood_launches
+    fresh = Predictor(weights)
+    n_worker = 8 * SERVE_B
+    with BatchServer(fresh, batch=SERVE_B, image_hw=(304, 304), ks=(1, 2, 4),
+                     warmup=False) as srv:
+        for _ in range(3):
+            got = np.stack(list(srv.map(iter(flood[:n_worker]))))
+            check(np.array_equal(got, np.concatenate([eager(np.stack(flood[i:i + SERVE_B]))
+                                                      for i in range(0, n_worker, SERVE_B)])),
+                  "a server capturing in its worker differs from the eager Predictor")
+    check(fresh.captures >= 1, "the server without warm-up captured nothing in its worker")
+    log(f"[graphed] BatchServer without warm-up: its worker captured {fresh.captures} graphs "
+        f"(thread_local captures beside the resolver's downloads); three floods of {n_worker} "
+        f"equal the eager Predictor bit for bit")
+    summary["server"] = {"img_s": flood_rates, "lone_latency_ms": latency,
+                         "captures_after_warmup": graphed.captures - after_warmup,
+                         "captured_in_worker": fresh.captures}
+    del fresh, eager, graphed, serving, preds, servers
+    torch.cuda.empty_cache()
+
+    # 14.7 the bench's Predictors (B = 256, k = 4, inputs on the card): graphed
+    # and eager in turns, and each one's peak memory from its build through
+    # its first k = 1 and k = 4 calls. The eager int8 Predictor's cache at
+    # B = 256 (~38 GiB reserved for 26 GiB allocated) and the int8 graphs'
+    # pool (~40 GiB) do not fit the card together: int8 builds each mode
+    # anew at its turn, the other one deleted
+    xs = torch.from_numpy(bench.phantom_batch(BENCH_B, 304)).to("cuda", torch.bfloat16)
+    xk = xs.unsqueeze(0).expand(BENCH_K, *xs.shape).contiguous()
+    calib = bench.phantom_batch(BENCH_B, 304)[:bench.CALIBRATION_IMAGES]
+    bench_rows = {}
+    for name, kw in (("int8", {"int8_decoder": True, "calibration_batches": [calib],
+                               "dense_groups": "decoder"}), ("bf16", {})):
+        row, live = {}, {}
+        rates_ = {"eager": [], "graphed": []}
+        for mode in ("eager", "graphed", "graphed", "eager"):
+            if mode not in live:
+                if name == "int8":
+                    live.clear()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                p = live[mode] = Predictor(weights, graphed=mode == "graphed", **kw)
+                for _ in range(3 if mode == "graphed" else 1):  # warm-up, capture, replay
+                    bench.median_dispatch_s(p, xs[None], calls=1, warmup=0)
+                    bench.median_dispatch_s(p, xk, calls=1, warmup=0)
+                torch.cuda.synchronize()
+                del p
+                row.setdefault(f"{mode}_peak_gib",
+                               (torch.cuda.max_memory_allocated() - before) / 2**30)
+                row.setdefault(f"{mode}_reserved_gib", torch.cuda.memory_reserved() / 2**30)
+            rates_[mode].append(BENCH_B * BENCH_K / bench.median_dispatch_s(
+                live[mode], xk, calls=4, warmup=1))
+        del live
+        row["img_s"] = rates_
+        row["peak_ratio"] = row["graphed_peak_gib"] / row["eager_peak_gib"]
+        bench_rows[name] = row
+        log(f"[graphed] bench {name} Predictor, B={BENCH_B}, k={BENCH_K} dispatch of inputs on "
+            f"the card, on {smi}, in turns (eager, graphed, graphed, eager"
+            + ("; int8 rebuilt at each switch" if name == "int8" else "") + "): "
+            + "; ".join(f"{m} {', '.join(f'{r:.1f}' for r in v)} img/s" for m, v in rates_.items())
+            + f"; peak allocated from its build through k=1 and k=4 calls: eager "
+            f"{row['eager_peak_gib']:.2f} GiB, graphed {row['graphed_peak_gib']:.2f} GiB "
+            f"({row['peak_ratio'] - 1:+.1%}; reserved then {row['eager_reserved_gib']:.2f} / "
+            f"{row['graphed_reserved_gib']:.2f} GiB)")
+        torch.cuda.empty_cache()
+    summary["bench"] = bench_rows
+    del xs, xk
+
+    # 14.7 Trainer.evaluate over the default Config's synthetic test split
+    # (304², B = 8, 64 phantoms, float32), eager and graphed in turns
+    over = {"train.eval_every": "0", "train.log_every": "0"}
+    trainers = {"eager": Trainer(Config().apply_overrides(over), device="cuda", graphed=False),
+                "graphed": Trainer(Config().apply_overrides(over), device="cuda")}
+    state = trainers["graphed"].init_state()
+    for tr in trainers.values():  # the phantoms generated; the graphed: warm-up, capture
+        tr.evaluate(state)
+    trainers["graphed"].evaluate(state)
+    eval_s = {"eager": [], "graphed": []}
+    results = {}
+    for mode in ("eager", "graphed", "graphed", "eager"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[mode] = trainers[mode].evaluate(state)
+        eval_s[mode].append(time.perf_counter() - t0)
+    check(results["graphed"] == results["eager"], f"evaluate at 304²: graphed {results}")
+    log(f"[graphed] Trainer.evaluate over the synthetic test split "
+        f"({trainers['eager'].cfg.data.synthetic_n} phantoms, 304², B=8, float32, unet, the "
+        f"phantoms cached) on {smi}, in turns: "
+        + "; ".join(f"{m} {', '.join(f'{s:.3f}' for s in v)} s" for m, v in eval_s.items())
+        + "; the metrics equal")
+    summary["evaluate_s"] = eval_s
+    del trainers, state
+    torch.cuda.empty_cache()
+    log(f"[graphed] phase 14 took {time.time() - t_phase:.1f} s")
+    log(json.dumps({"graphed": summary}))
+    return paths
+
+
+def release(torch, label):
+    """Collect Python's garbage, empty the caching allocator and log what
+    the process still reserves on the card, and how much of it lies in
+    CUDA-graph memory pools (what a graph or a tensor still alive holds)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pools = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+    log(f"[memory] {label}: reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB, of which "
+        f"{pools / 2**30:.2f} GiB in graph pools; allocated "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
 
 def nudge_(torch, module, seed=0):

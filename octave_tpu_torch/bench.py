@@ -27,7 +27,9 @@ The configuration is the JAX package's production serving path
     median) and as k = 4 batches in one `predict_many_device` dispatch (2
     warm-ups, median of 5), on inputs uploaded once in the compute dtype;
     each timed call reads back one pixel's probabilities, which must be
-    finite and sum to 1.
+    finite and sum to 1. On CUDA the two excluded calls of each are the
+    Predictor's eager warm-up and its graph capture, so every timed call
+    is one graph replay, as every timed JAX call runs the compiled program.
 A failure anywhere raises: the JAX bench's fallbacks (to random weights, to
 bf16 when the int8 build fails, to per-call timing when the dispatch fails)
 are not ported, and the record has no `degraded` key.

@@ -65,8 +65,11 @@ def quantize_weight(w: torch.Tensor, transpose: bool = False):
     dims = tuple(d for d in range(wf.ndim) if d != out_dim)
     # a true division on every device: CUDA divides by a Python scalar as a
     # multiply by its reciprocal, which may land one rounding off the
-    # quotient the CPU and the JAX package take
-    ws = wf.abs().amax(dim=dims).clamp_min(1e-12) / wf.new_tensor(127.0)
+    # quotient the CPU and the JAX package take. The divisor is filled on
+    # the device, not copied from the host, which a CUDA-graph capture of a
+    # per-call int8 conv refuses
+    ws = wf.abs().amax(dim=dims).clamp_min(1e-12) / torch.full((), 127.0, dtype=wf.dtype,
+                                                             device=wf.device)
     shape = [1] * wf.ndim
     shape[out_dim] = -1
     return torch.round(wf * (1.0 / ws).view(shape)).to(torch.int8), ws

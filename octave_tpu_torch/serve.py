@@ -28,9 +28,25 @@ their downloads have finished, so the caching allocator cannot hand their
 blocks to a later forward. A batch that is already a tensor on a CUDA device
 is not uploaded: each replica takes its rows where they lie (in place on its
 own device), as the JAX package's `predict_many_device` takes a device array.
+
+On CUDA every dispatch is one replay of a captured CUDA graph per replica,
+the counterpart of the JAX package's jax.jit(fwd) (octave_tpu/serve.py:
+119-144) and of its k-batch program (:257-285): one graph per (k, batch,
+image shape, wire dtype, `train.steps.graph_context()`) on each replica
+(`train.steps.StaticGraphs`), its k forwards in order on one stream, so
+that their activations reuse each other's memory. `__call__` is a stack of
+k = 1. The first dispatch at a shape runs eagerly (it compiles the Triton
+kernels, lets cuDNN pick its algorithms and fills the int8 convs' caches)
+and the second captures; `warmup` does both for every k it is given. The
+rows go into the graph's static input on the device's current stream after
+the upload's event, and the output (the replay's, or the eager warm-up's)
+is copied out of the graphs' pool there, so a `DeviceResult` holds memory
+that no later replay touches, and the graphs of one replica share one
+memory pool. `graphed=False` keeps every dispatch eager.
 """
 from __future__ import annotations
 
+import functools
 import queue
 import re
 import threading
@@ -47,6 +63,7 @@ from octave_tpu_torch.models.segmentor import ResnestUNet
 from octave_tpu_torch.ops import quant
 from octave_tpu_torch.ops.norm import fold_batch_stats, folded_inference
 from octave_tpu_torch.parallel.mesh import as_mesh, replicate, split_rows
+from octave_tpu_torch.train.steps import GRAPH_WARMUP_CALLS, StaticGraphs
 from octave_tpu_torch.utils.convert import load_reference_state_dict
 
 OUTPUT_FORMATS = ("prob_f32", "prob_f16", "mask_u8")
@@ -95,6 +112,7 @@ class Predictor:
         dense_groups: Optional[str] = None,
         einsum_groups: Optional[str] = None,
         mesh: Optional[Sequence[torch.device]] = None,
+        graphed: Optional[bool] = None,
     ):
         """state_dict: reference-named weights with raw BN stats (e.g. from
         `utils.convert.from_jax_variables`). fold_bn folds the stats in
@@ -127,7 +145,17 @@ class Predictor:
         are shared, the prepacked int8 weights are buffers and move with
         their replica). Every call splits the batch rows evenly over the
         replicas (a ValueError unless the mesh size divides them) and returns
-        the rows in order."""
+        the rows in order.
+
+        graphed: whether each dispatch runs as a CUDA-graph replay on every
+        replica (see the module docstring); None captures on CUDA, False
+        keeps every dispatch eager, True raises a ValueError off CUDA. The
+        process-wide switches a forward reads (`train.steps.graph_context`:
+        the ConvTranspose lowering, TF32, deterministic algorithms) are part
+        of a graph's key, so changing one captures anew. Each replica's
+        graphs keep one memory pool, which holds their activations for as
+        long as the Predictor lives: two graphed Predictors in one process
+        hold two pools, where eager ones share the general cache."""
         # cheap argument checks first, before any model build or BN fold
         for spec in (dense_groups, einsum_groups):
             if spec is not None:
@@ -148,9 +176,16 @@ class Predictor:
             device = mesh[0]
         self.device = resolve_device("cuda" if device is None else device)
         self.mesh = (self.device,) if mesh is None else mesh
+        if graphed and self.device.type != "cuda":
+            raise ValueError(f"graphed=True needs CUDA: CUDA graphs cannot run on {self.device}")
+        self.graphed = self.device.type == "cuda" if graphed is None else bool(graphed)
         self.method = method
         self.dtype = dtype
         self.output_format = output_format
+        # the stack forward in this Predictor's settings; it holds no
+        # reference to the Predictor, whose replicas' graphs keep it
+        self._run = functools.partial(_stack_forward, dtype=dtype, method=method,
+                                      output_format=output_format)
         if fold_bn:
             state_dict = fold_batch_stats(
                 {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v) else v
@@ -164,27 +199,23 @@ class Predictor:
         self.replicas: Tuple[_Replica, ...] = (_Replica(self.model, self.device),)
         self.int8_scales: Optional[Dict[str, float]] = None
         if int8_decoder:
+            # eager, with its hooks: the replicas have no graphs yet
             with torch.inference_mode():
                 stats = quant.calibrate(self.model, calibration_batches, lambda batch:
-                                        self._fan_out(batch, 0, self._forward))
+                                        self._dispatch(_stacked(batch)))
             self.int8_scales = quant.scales_from_stats(stats, INT8_SCOPES[int8_scope])
             quant.quantize_(self.model, self.int8_scales, prepack=int8_prepack)
         if len(self.mesh) > 1:
             self.replicas += tuple(_Replica(m, d) for m, d in
                                    zip(replicate(self.model, self.mesh[1:]), self.mesh[1:]))
+        if self.graphed:
+            for rep in self.replicas:
+                rep.graphs = StaticGraphs(functools.partial(self._run, rep.model), rep.device)
 
-    def _forward(self, model: torch.nn.Module, batch: torch.Tensor) -> torch.Tensor:
-        """Device forward of one (B,H,W,3) batch already on the device, by
-        `model` (a replica's)."""
-        if batch.dtype == torch.uint8:
-            batch = batch.to(self.dtype) / 255.0  # uint8 wire format, normalised here
-        _, pred = model.predict(batch, self.method)
-        if self.output_format == "mask_u8":
-            vessel = pred[..., 1] if pred.shape[-1] > 1 else pred[..., 0]
-            return (vessel >= 0.5).to(torch.uint8) * 255
-        if self.output_format == "prob_f16":
-            return pred.to(torch.float16)
-        return pred.to(torch.float32)
+    @property
+    def captures(self) -> int:
+        """The graphs captured so far, over every replica."""
+        return sum(rep.graphs.captures for rep in self.replicas if rep.graphs is not None)
 
     @classmethod
     def initialize(cls, image_hw: Tuple[int, int] = (304, 304), seed: int = 0, **kw):
@@ -205,45 +236,46 @@ class Predictor:
                           pin_memory=self.device.type == "cuda")
         return raw.numpy().view(dtype).reshape(tuple(shape))
 
-    def _fan_out(self, batch, axis: int, run) -> "DeviceResult":
-        """run(model, device batch) on every replica for its rows of `batch`
-        (a numpy array or a tensor) along `axis`; the shards in row order.
-        A host batch goes up on each replica's upload stream and its forward
-        runs on the device's current stream, after the upload's event. A
-        batch already on a CUDA device stays there: each replica takes its
+    def _dispatch(self, stack) -> "DeviceResult":
+        """The forwards of a (k, B, ...) stack (a numpy array or a tensor) on
+        every replica for its rows along the batch axis; the shards in row
+        order. A host stack goes up on each replica's upload stream and its
+        forwards run on the device's current stream, after the upload's
+        event: a replay of the replica's graph of this shape, or eagerly. A
+        stack already on a CUDA device stays there: each replica takes its
         rows in place on its own device, or as a device-to-device copy."""
         parts = []
-        if not torch.is_tensor(batch):
-            batch = torch.from_numpy(np.ascontiguousarray(batch))  # no copy if contiguous
-        elif batch.device.type == "cpu":
-            batch = batch.contiguous()
-        for rep, t in zip(self.replicas, split_rows(batch, len(self.replicas), axis)):
+        if not torch.is_tensor(stack):
+            stack = torch.from_numpy(np.ascontiguousarray(stack))  # no copy if contiguous
+        elif stack.device.type == "cpu":
+            stack = stack.contiguous()
+        for rep, t in zip(self.replicas, split_rows(stack, len(self.replicas), 1)):
             # uint8 stays uint8 on the wire; floats go up in the compute dtype
             # (a device tensor is cast on its device)
             if t.dtype != torch.uint8:
                 t = t.to(self.dtype)
             if rep.device.type != "cuda":
-                parts.append((run(rep.model, t.to(rep.device)), None, None))
+                parts.append((self._run(rep.model, t.to(rep.device)), None, None))
                 continue
             with torch.cuda.device(rep.device):
                 if t.device.type == "cuda":
                     x = t.to(rep.device, non_blocking=True)  # no copy on its own device
                 else:
                     x = rep.put(t)
-                out = run(rep.model, x)
+                out = rep.graphs(x) if rep.graphs is not None else self._run(rep.model, x)
                 compute = torch.cuda.current_stream(rep.device)
                 done = torch.cuda.Event()
                 done.record(compute)
             parts.append((out, done, rep.download))
-        return DeviceResult(parts, axis)
+        return DeviceResult(parts, 1)
 
     @torch.inference_mode()
     def __call__(self, batch) -> np.ndarray:
         """(B,H,W,3) uint8 or float in [0,1] -> (B,H,W,K) probabilities, or
         a (B,H,W) uint8 mask for output_format='mask_u8'. `batch` is a numpy
         array or a tensor; one already on a CUDA device is not copied to
-        the host (`_fan_out`)."""
-        return np.asarray(self._fan_out(batch, 0, self._forward))
+        the host (`_dispatch`). A stack of one batch."""
+        return np.asarray(self._dispatch(_stacked(batch)))[0]
 
     def predict_many(self, stack) -> np.ndarray:
         """A (k,B,H,W,3) stack of batches: one upload, k forwards in order,
@@ -257,21 +289,24 @@ class Predictor:
         tensor, as the JAX package's `predict_many_device` takes a device
         array) is used where it lies. `.tensor` is the (k, B, ...) device
         tensor, for work that stays on the device; `np.asarray(result)` waits
-        and downloads. The k forwards are a loop on one stream, so their
-        activations reuse each other's memory. With a mesh, axis 1 (the
-        batch) is split over the replicas."""
-        return self._fan_out(stack, 1, lambda m, xs: torch.stack(
-            [self._forward(m, xs[i]) for i in range(xs.shape[0])]))
+        and downloads. The k forwards run in order on one stream (one graph
+        replay on CUDA), so their activations reuse each other's memory.
+        With a mesh, axis 1 (the batch) is split over the replicas."""
+        return self._dispatch(stack)
 
     def warmup(self, batch: int, image_hw: Tuple[int, int], ks: Sequence[int] = (1,),
                in_channels: int = 3, wire_dtype=np.uint8) -> None:
-        """Run one forward at (batch, image_hw, wire_dtype) so that the first
-        request pays neither the Triton kernels' compilation nor cuDNN's
-        algorithm choice. Both depend on the batch's shape and dtype, not on
-        the aggregation depth: the k forwards of a stack are a loop, so `ks`
-        needs no warm-up of its own."""
-        np.asarray(self.predict_many_device(
-            np.zeros((1, batch, *image_hw, in_channels), wire_dtype)))
+        """Prepare (batch, image_hw, wire_dtype) so that no request meets a
+        compilation, cuDNN's algorithm choice or a capture. On CUDA each k in
+        `ks` is its own graph: each is run eagerly and then captured, as the
+        JAX package compiles each aggregation depth (octave_tpu/serve.py:
+        287-297). Eagerly one forward does (the kernels and algorithms
+        depend on the batch's shape and dtype, not on k)."""
+        ks, calls = (tuple(ks), GRAPH_WARMUP_CALLS + 1) if self.graphed else ((1,), 1)
+        for k in ks:
+            for _ in range(calls):
+                np.asarray(self.predict_many_device(
+                    np.zeros((k, batch, *image_hw, in_channels), wire_dtype)))
 
     def predict_stream(self, batches: Iterable[np.ndarray],
                        depth: int = 2) -> Iterator[np.ndarray]:
@@ -288,6 +323,34 @@ class Predictor:
             yield np.asarray(inflight.popleft())[0]
 
 
+def _forward(model: torch.nn.Module, batch: torch.Tensor, dtype: torch.dtype, method: str,
+             output_format: str) -> torch.Tensor:
+    """Device forward of one (B,H,W,3) batch already on the device, by
+    `model` (a replica's)."""
+    if batch.dtype == torch.uint8:
+        batch = batch.to(dtype) / 255.0  # uint8 wire format, normalised here
+    _, pred = model.predict(batch, method)
+    if output_format == "mask_u8":
+        vessel = pred[..., 1] if pred.shape[-1] > 1 else pred[..., 0]
+        return (vessel >= 0.5).to(torch.uint8) * 255
+    if output_format == "prob_f16":
+        return pred.to(torch.float16)
+    return pred.to(torch.float32)
+
+
+def _stack_forward(model: torch.nn.Module, stack: torch.Tensor, **kw) -> torch.Tensor:
+    """The forwards (`_forward`) of a (k, B, H, W, C) stack on the device,
+    in order on one stream (their activations reuse each other's memory)."""
+    if stack.shape[0] == 1:
+        return _forward(model, stack[0], **kw).unsqueeze(0)
+    return torch.stack([_forward(model, x, **kw) for x in stack])
+
+
+def _stacked(batch):
+    """A (B, ...) batch, numpy or tensor, as a stack of one (1, B, ...)."""
+    return (batch if torch.is_tensor(batch) else np.asarray(batch))[None]
+
+
 def _same_device(a: torch.device, b: torch.device) -> bool:
     """a and b name one device (cuda = cuda:<current device>)."""
     if a.type == b.type == "cuda" and a.index is None:
@@ -297,13 +360,14 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
 
 class _Replica:
     """A mesh device's copy of the model, with its upload and download
-    streams on CUDA."""
+    streams on CUDA and, when the Predictor is graphed, its graphs."""
 
     def __init__(self, model: torch.nn.Module, device: torch.device):
         self.model, self.device = model, device
         cuda = device.type == "cuda"
         self.upload = torch.cuda.Stream(device) if cuda else None
         self.download = torch.cuda.Stream(device) if cuda else None
+        self.graphs: Optional[StaticGraphs] = None
 
     def put(self, host: torch.Tensor) -> torch.Tensor:
         """`host` copied to this replica's CUDA device on its upload stream,
@@ -387,9 +451,12 @@ class BatchServer:
 
     Shapes are static: every request must be exactly `image_hw` + `channels`
     in `wire_dtype` (resize upstream), and every dispatch uses the batch
-    shape that `warmup` ran, so serving never compiles a kernel or picks a
-    cuDNN algorithm again. Zero-padded slots ride along and are dropped on
-    the way out: at k = 1 a single request costs one full batch of device
+    shape that `warmup` ran at every k of `ks`, so serving never compiles a
+    kernel, picks a cuDNN algorithm or (on CUDA) captures a graph again: the
+    worker only replays. Without the warm-up the worker captures where it
+    first meets a k, while the resolver thread downloads (the captures
+    allow other threads' device work). Zero-padded slots ride along and are
+    dropped on the way out: at k = 1 a single request costs one full batch of device
     time, the price of static shapes; pick `batch` for the latency target and
     let k scale throughput.
 

@@ -9,7 +9,9 @@ critic's noise layers. The step mutates them in place.
 
 `graph` holds the step captured on this state (`train.steps.GraphedStep`,
 on CUDA): it reads the state's tensors where they were at capture, so a
-restore, which replaces optimizer states, drops it.
+restore, which replaces optimizer states, drops it. `eval_graphs` holds the
+eval step captured on the state's segmentor (`train.steps.StaticGraphs`,
+one graph per batch shape); a restore drops it too.
 
 `critic` is one DiscriminatorBlock, or, for the dual decoders' two
 pyramids, an `nn.ModuleDict` {"main", "c"} of them under one optimizer (the
@@ -36,3 +38,4 @@ class TrainState:
     generator: Optional[torch.Generator] = None
     step: int = 0
     graph: Any = None
+    eval_graphs: Any = None

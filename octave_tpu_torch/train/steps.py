@@ -51,7 +51,13 @@ configurations stay eager. The same step body is captured: its forwards
 run under autocast without the cast cache (a captured cast would not be
 redone), the optimizers take their learning rates from the device
 (`train.schedule.Optimizer`) and the critic draws from the state's
-generator, which the graph advances on each replay.
+generator, which the graph advances on each replay. `CapturedCall` is the
+capture itself (warm-up, capture, replay, launch counts), which
+`GraphedStep` and `StaticGraphs` share: the latter runs a function of
+tensors as one replay per call of a graph per input shape, with inputs
+copied in and outputs copied out, as `serve.Predictor`'s forwards and
+`Trainer.evaluate`'s eval step (`eval_counts`, the counterpart of
+octave_tpu/train/trainer.py:328 jax.jit(acc)) run on CUDA.
 
 With `data_parallel` each rank runs the step on its shard of the global
 batch (:233-239, 344-346, 398-400): the WPCE class counts are global, each
@@ -64,7 +70,10 @@ Spectral u/v need nothing: every rank iterates them from the same weights.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import threading
 import weakref
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -80,6 +89,7 @@ from octave_tpu_torch.losses.segmentor import (
 )
 from octave_tpu_torch.models.resnest import dense_groups_include, lower_grouped_convs_
 from octave_tpu_torch.ops import remat
+from octave_tpu_torch.ops.common import conv_transpose_impl
 from octave_tpu_torch.ops.kernels import add_launches, record_launches
 from octave_tpu_torch.parallel import ddp
 from octave_tpu_torch.train.state import TrainState
@@ -325,40 +335,117 @@ def graph_blocker(cfg: StepConfig) -> Optional[str]:
     compute_dtype(cfg.compute_dtype)
     if cfg.data_parallel:
         return ("data_parallel: its all-reduces and synchronised batch norm run eagerly "
-                "(ROADMAP A.11c)")
+                "until the captured step can be held to the eager one on a machine with "
+                "two cards (ROADMAP A.5b)")
     return None
 
 
 # eager calls before the capture: the first builds the optimizer states and
-# the gradients, compiles the Triton kernels and picks cuDNN's algorithms,
-# which a capture must find done
+# the gradients, compiles the Triton kernels, picks cuDNN's algorithms and
+# fills what a module caches on its first call, which a capture must find done
 GRAPH_WARMUP_CALLS = 1
+# one capture at a time in the process: a capture's kernel launches go to one
+# tally (`ops.kernels.record_launches`)
+_CAPTURE_LOCK = threading.Lock()
 
 
-class GraphedStep:
+@contextlib.contextmanager
+def _own_cublas_workspaces():
+    """Drop the process's cached cuBLAS workspaces (one per handle and
+    stream, kept for good) before and after a warm-up or a capture, as
+    torch's own graph trees do. The ones made inside are then allocated in
+    the pool and freed back into it: none holds a block of the pool beyond
+    the pool's life, and the graph uses no workspace of another pool or of
+    the general cache, which a later drop would free under it."""
+    torch._C._cuda_clearCublasWorkspaces()
+    try:
+        yield
+    finally:
+        torch._C._cuda_clearCublasWorkspaces()
+
+
+class CapturedCall:
+    """fn() on CUDA as one replay of a captured CUDA graph per call.
+
+    The first GRAPH_WARMUP_CALLS calls run fn eagerly on a side stream; the
+    next call captures fn on that stream and replays it; every later call
+    replays. fn reads and writes only tensors that stay where they are (its
+    static inputs, parameters and buffers); after a replay its output is the
+    graph's static output, which the next replay overwrites. The capture
+    registers `generator` (None: none), so that every replay draws fresh
+    numbers from it, and records the kernel launches that each replay then
+    adds to the wrappers' counts.
+
+    The warm-up and the capture allocate in one `torch.cuda.MemPool`, `pool`
+    (None: a pool of its own), so that the capture reuses the blocks the
+    warm-up freed instead of holding a second copy of them beside the
+    warm-up's in the general cache. Calls that share a pool share their side
+    `stream` too (the caching allocator reuses a freed block only on the
+    stream it was allocated on), and must run one at a time: a block of one
+    graph is free to the others' warm-ups and captures. The capture lets
+    other threads work on the device meanwhile ("thread_local"). A failed
+    capture raises; nothing falls back to eager."""
+
+    def __init__(self, fn: Optional[Callable[[], Any]], pool: Optional[torch.cuda.MemPool] = None,
+                 stream: Optional[torch.cuda.Stream] = None):
+        self.fn, self.pool, self.stream = fn, pool, stream
+        self.generator = None
+        self.calls = 0
+        self.graph = self.out = None
+        self.launches: dict = {}  # {kernel wrapper: launches in one replay}
+
+    def __call__(self):
+        self.calls += 1
+        if self.graph is None:
+            main = torch.cuda.current_stream()
+            if self.pool is None:
+                self.pool, self.stream = torch.cuda.MemPool(), torch.cuda.Stream()
+            self.stream.wait_stream(main)
+            if self.calls <= GRAPH_WARMUP_CALLS:
+                with _own_cublas_workspaces(), torch.cuda.stream(self.stream), \
+                        torch.cuda.use_mem_pool(self.pool):
+                    out = self.fn()
+                main.wait_stream(self.stream)
+                return out
+            graph = torch.cuda.CUDAGraph()
+            if self.generator is not None:
+                graph.register_generator_state(self.generator)
+            with _CAPTURE_LOCK, record_launches() as launches, _own_cublas_workspaces(), \
+                    torch.cuda.graph(graph, pool=self.pool.id, stream=self.stream,
+                                     capture_error_mode="thread_local"):
+                out = self.fn()
+            self.graph, self.out, self.launches = graph, out, launches
+        self.graph.replay()
+        add_launches(self.launches)
+        return self.out
+
+    def close(self) -> None:
+        """Wait for the device, then drop the graph and its buffers."""
+        if self.stream is not None:
+            torch.cuda.synchronize(self.stream.device)
+        self.graph = self.out = None
+
+
+class GraphedStep(CapturedCall):
     """Each call of `step` (a train step, or make_multi_step's k steps) on
-    CUDA as one replay of a captured CUDA graph.
+    CUDA as one replay of a captured CUDA graph (`CapturedCall`), the
+    state's noise generator registered so that every replay draws fresh
+    noise.
 
-    The first GRAPH_WARMUP_CALLS calls run the step eagerly, on the side
-    stream that then captures; the next call is captured, with the state's
-    noise generator registered so that every replay draws fresh noise, and
-    replayed; every later call replays. The first call's batch becomes the
-    static input (`inputs`), which every later call must pass again, written
-    with its new data (`Trainer.call_batch(out=...)`). Before a
-    call each optimizer loads the learning rates of its k updates; after a
-    replay the host counts the k updates and steps, and the kernel launches
-    that the capture recorded. A call returns a copy of its losses, which the
-    next replay overwrites. A failed capture raises; nothing falls back.
+    The first call's batch becomes the static input (`inputs`), which every
+    later call must pass again, written with its new data
+    (`Trainer.call_batch(out=...)`). Before a call each optimizer loads the
+    learning rates of its k updates; after a replay the host counts the k
+    updates and steps. A call returns a copy of its losses (the graph's, or
+    the warm-up's, which lie in the graph's memory pool).
 
     The graph reads the state's tensors where they were at capture: replace
     none of them (`utils.checkpoint.load_state_dict_into` drops the graph)."""
 
     def __init__(self, step: Callable, k: int = 1):
+        super().__init__(None)
         self.step, self.k = step, k
-        self.calls = 0
-        self.graph = self.inputs = self.losses = None
-        self.launches: dict = {}  # {kernel wrapper: launches in one replay}
-        self.stream = torch.cuda.Stream()
+        self.inputs = None
 
     def __call__(self, state: TrainState, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         opts = [opt for opt in (state.seg_opt, state.critic_opt) if opt is not None]
@@ -366,38 +453,22 @@ class GraphedStep:
             opt.load_lrs(self.k)
         if self.inputs is None:
             self.inputs = batch
+            self.fn = functools.partial(self.step, state, batch)
+            self.generator = state.generator
         elif batch is not self.inputs:
             raise ValueError("a graphed call reads its static input: pass `inputs`, "
                              "written with the call's batch (Trainer.call_batch(out=...))")
-        self.calls += 1
-        if self.graph is not None:
-            self.graph.replay()
-            add_launches(self.launches)
+        replaying = self.graph is not None
+        losses = super().__call__()
+        if replaying:  # the eager and the capturing call count in the step itself
             for opt in opts:
                 opt.advance(self.k)
             state.step += self.k
-            return _copied(self.losses)
-        main = torch.cuda.current_stream()
-        self.stream.wait_stream(main)
-        if self.calls <= GRAPH_WARMUP_CALLS:
-            with torch.cuda.stream(self.stream):
-                losses = self.step(state, self.inputs)
-            main.wait_stream(self.stream)
-            return losses
-        graph = torch.cuda.CUDAGraph()
-        if state.generator is not None:
-            graph.register_generator_state(state.generator)
-        with record_launches() as launches, torch.cuda.graph(graph, stream=self.stream):
-            self.losses = self.step(state, self.inputs)
-        self.graph, self.launches = graph, launches
-        graph.replay()
-        add_launches(launches)
-        return _copied(self.losses)
+        return _copied(losses)
 
     def close(self) -> None:
-        """Wait for the device, then drop the graph and its buffers."""
-        torch.cuda.synchronize(self.stream.device)
-        self.graph = self.inputs = self.losses = None
+        super().close()
+        self.fn = self.inputs = None
 
 
 def _copied(losses: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -406,16 +477,95 @@ def _copied(losses: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return dict(zip(losses, stacked.unbind(0)))
 
 
+def graph_context() -> tuple:
+    """The process-wide switches that a captured forward reads while it runs
+    and a graph would freeze: the ConvTranspose lowering, TF32 in matmuls
+    and in cuDNN, and the deterministic-algorithm settings."""
+    return (conv_transpose_impl(), torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
+            torch.are_deterministic_algorithms_enabled())
+
+
+class StaticGraphs:
+    """fn(*tensors) on a CUDA device, one `CapturedCall` per signature: the
+    inputs' shapes and dtypes, and `graph_context()` (a change of those
+    switches captures anew, as jax.jit compiles anew when its precision
+    settings change).
+
+    A call copies its inputs into that signature's static inputs on the
+    current stream (so a replay still in flight keeps its own inputs), runs
+    the CapturedCall (eager at first, then captured and replayed), and
+    returns fn's output (a tensor or a tuple of tensors) copied out of the
+    pool on the current stream: tensors that no later replay, warm-up or
+    capture touches. So every graph of one object shares one memory pool and
+    one side stream (each reuses the memory the others freed) and their
+    calls run in order: a lock makes each call's copy, run and copy-out one
+    step for the threads that share the object, and a capture lets other
+    threads work on the device meanwhile (a BatchServer's resolver downloads
+    while its worker captures). `captures` counts the graphs captured."""
+
+    def __init__(self, fn: Callable, device: torch.device):
+        device = torch.device(device)
+        if device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, got {device}")
+        self.fn, self.device = fn, device
+        self.graphs: Dict[tuple, Tuple[tuple, CapturedCall]] = {}
+        self.pool = self.stream = None
+        self.captures = 0
+        self._lock = threading.Lock()
+
+    def __call__(self, *inputs: torch.Tensor):
+        ok = all(torch.is_tensor(t) and t.device.type == "cuda" for t in inputs)
+        if ok:
+            index = self.device.index
+            ok = all(t.device.index == (torch.cuda.current_device() if index is None else index)
+                     for t in inputs)
+        if not ok:
+            raise ValueError(f"a graphed call on {self.device} copies its inputs into static "
+                             "inputs there: pass tensors on that device, got " + ", ".join(
+                                 str(t.device) if torch.is_tensor(t) else type(t).__name__
+                                 for t in inputs))
+        key = (tuple((tuple(t.shape), t.dtype) for t in inputs), graph_context())
+        with self._lock, torch.cuda.device(self.device):
+            if key not in self.graphs:
+                if self.pool is None:
+                    self.pool, self.stream = torch.cuda.MemPool(), torch.cuda.Stream()
+                static = tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                               for t in inputs)
+                self.graphs[key] = static, CapturedCall(
+                    functools.partial(self.fn, *static), self.pool, self.stream)
+            static, run = self.graphs[key]
+            for dst, src in zip(static, inputs):
+                dst.copy_(src)
+            captured = run.graph is not None
+            # the warm-up's output lies in the pool too, maybe in blocks that
+            # an earlier graph of the pool reuses at every replay: copied out
+            out = run()
+            if run.graph is not None and not captured:
+                self.captures += 1
+            return out.clone() if torch.is_tensor(out) else tuple(t.clone() for t in out)
+
+    def close(self) -> None:
+        """Wait for the device, then drop every graph and its buffers."""
+        with self._lock:
+            for _, run in self.graphs.values():
+                run.close()
+            self.graphs.clear()
+
+
 def _eval_forward(segmentor, image: torch.Tensor) -> torch.Tensor:
     """Softmax of the main head's agg map (head 0 of the dual decoders), from
-    the eval forward, in float32; the segmentor's mode is put back."""
+    the eval forward, in float32 (float64 for a float64 model, as the JAX
+    forward computes in the model's dtype); the segmentor's mode is put
+    back."""
     was_training = segmentor.training
     segmentor.eval()
     try:
         _, agg_maps = adapt_segmentor_output(segmentor(image))
     finally:
         segmentor.train(was_training)
-    return torch.softmax(agg_maps[0].float(), dim=-1)
+    agg = agg_maps[0]
+    return torch.softmax(agg.to(torch.promote_types(agg.dtype, torch.float32)), dim=-1)
 
 
 def make_eval_step(num_classes: int = 2):
@@ -451,3 +601,20 @@ def make_eval_accumulate_step(num_classes: int = 2, threshold: float = 0.5):
         return pred, conf, auc
 
     return eval_step
+
+
+def eval_counts(eval_step, segmentor, image: torch.Tensor, mask_onehot: torch.Tensor,
+                sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One batch's confusion counts and ROC histograms from `eval_step` (of
+    make_eval_accumulate_step), packed into one int64 vector: tp, fp, fn,
+    tn, then the positive and the negative histogram (`unpack_counts`)."""
+    _, conf, auc = eval_step(segmentor, {"image": image, "mask_onehot": mask_onehot,
+                                         "sample_weight": sample_weight})
+    return torch.cat([torch.stack(list(conf)), *auc])
+
+
+def unpack_counts(packed) -> Tuple[ConfusionAccumulator, AucAccumulator]:
+    """`eval_counts`'s vector (a tensor or a numpy array) as accumulators."""
+    bins = (len(packed) - 4) // 2
+    return (ConfusionAccumulator(*packed[:4]),
+            AucAccumulator(packed[4:4 + bins], packed[4 + bins:]))

@@ -19,7 +19,11 @@ flag of a data-parallel run once per call. On CUDA each call of the step is
 one replay of a captured CUDA graph (`train.steps.GraphedStep`; k steps per
 graph with steps_per_call = k): a fit's first call runs eagerly and its
 second is captured, after any restore; `graph_blocker` names the
-configurations that stay eager, and the CPU is eager.
+configurations that stay eager, and the CPU is eager. On CUDA `evaluate`
+scores each batch as one replay of a graph of the eval step
+(`train.steps.StaticGraphs`, one graph per batch shape, the ragged last
+batch its own), data parallelism included: the step has no collective
+inside, and the counts are all-reduced after it.
 
 With `train.data_parallel` the trainer is one rank of a process group that
 already exists (`cli train` spawns one, or torchrun describes one): every
@@ -33,6 +37,7 @@ exact counts over ranks.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import logging
 import signal
@@ -57,11 +62,14 @@ from octave_tpu_torch.train.schedule import make_optimizer, moment_dtype_of, pol
 from octave_tpu_torch.train.state import TrainState
 from octave_tpu_torch.train.steps import (
     GraphedStep,
+    StaticGraphs,
     StepConfig,
+    eval_counts,
     graph_blocker,
     make_eval_accumulate_step,
     make_multi_step,
     make_train_step,
+    unpack_counts,
 )
 from octave_tpu_torch.utils import convert
 from octave_tpu_torch.utils.checkpoint import CheckpointManager
@@ -158,9 +166,10 @@ class Trainer:
     """Weak supervision (WPCE + ILD) and, with model.discriminator_depth > 0,
     the LS-GAN critic over each attention pyramid, on `device` (CUDA unless
     the caller passes "cpu"). `graphed`: whether `fit` runs each call of the
-    step as a CUDA-graph replay; None captures wherever `graph_blocker`
-    allows on CUDA, False keeps the step eager, True raises where it cannot
-    be captured."""
+    step, and `evaluate` each batch of the eval step, as a CUDA-graph
+    replay; None captures wherever `graph_blocker` allows on CUDA (the eval
+    step everywhere on CUDA), False keeps both eager, True raises where the
+    train step cannot be captured."""
 
     def __init__(self, cfg: Config, device: str | torch.device = "cuda",
                  graphed: Optional[bool] = None):
@@ -235,6 +244,7 @@ class Trainer:
             raise ValueError(f"graphed=True, but the step cannot be captured: {blocker}")
         self.graphed = blocker is None if graphed is None else graphed
         self.eager_reason = "graphed=False" if graphed is False else blocker
+        self.graphed_eval = self.device.type == "cuda" and graphed is not False
 
     # ------------------------------------------------------------------
     def init_state(self) -> TrainState:
@@ -376,6 +386,22 @@ class Trainer:
             state.graph = GraphedStep(self.train_step, self.steps_per_call)
         return state.graph
 
+    def eval_call(self, state: TrainState):
+        """What scores one batch on `state` in `evaluate`: score(image,
+        mask_onehot[, sample_weight]) -> the batch's packed counts
+        (`train.steps.eval_counts`): eager, or the state's `StaticGraphs` of
+        it (a new one when the state has none, or one of another segmentor
+        or eval step)."""
+        score = functools.partial(eval_counts, self.eval_step, state.segmentor)
+        if not self.graphed_eval:
+            return score
+        graphs = state.eval_graphs
+        if not (isinstance(graphs, StaticGraphs) and graphs.fn.args == score.args):
+            if graphs is not None:
+                graphs.close()
+            state.eval_graphs = graphs = StaticGraphs(score, self.device)
+        return graphs
+
     # ------------------------------------------------------------------
     def fit(self, state: Optional[TrainState] = None) -> TrainState:
         cfg = self.cfg
@@ -503,6 +529,7 @@ class Trainer:
         cfg = self.cfg
         conf = ConfusionAccumulator.empty_host()
         auc = AucAccumulator.empty_host()
+        score = self.eval_call(state)
         for host_batch in ds.batch_iterator(build_dataset(cfg, "test"), cfg.data.batch_size,
                                             shuffle=False, epochs=1, drop_last=False):
             b = host_batch["image"].shape[0]
@@ -514,16 +541,16 @@ class Trainer:
                 weight = np.r_[np.ones(b, np.float32), np.zeros(pad, np.float32)]
             host_batch, _ = self.shard(host_batch)
             batch = self.device_batch(host_batch)
+            inputs = [batch["image"], batch["mask_onehot"]]
             if weight is not None:
                 rows = ddp.shard_rows(b + pad, self.rank, self.world)
-                batch["sample_weight"] = torch.as_tensor(weight[rows], device=self.device)
-            _, c, a = self.eval_step(state.segmentor, batch)
+                inputs.append(torch.as_tensor(weight[rows], device=self.device))
+            counts = score(*inputs)
             if self.data_parallel:
-                packed = ddp.all_reduce_sum(torch.cat([torch.stack(list(c)), *a]))
-                c = ConfusionAccumulator(*packed[:4])
-                a = AucAccumulator(*packed[4:].chunk(2))
-            conf = ConfusionAccumulator(*(x + y for x, y in zip(conf, c.astype64())))
-            auc = AucAccumulator(*(x + y for x, y in zip(auc, a.astype64())))
+                counts = ddp.all_reduce_sum(counts)
+            c, a = unpack_counts(counts.cpu().numpy())
+            conf = ConfusionAccumulator(*(x + y for x, y in zip(conf, c)))
+            auc = AucAccumulator(*(x + y for x, y in zip(auc, a)))
         agg = {
             "dice": float(conf.dice()),
             "iou": float(conf.iou()),

@@ -71,14 +71,17 @@ def load_state_dict_into(state, saved: Dict[str, Any]):
     the existing ones, the optimizers move their moments to their
     parameters' device in the dtype each was saved in (a bf16 `exp_avg`
     stays bf16), and a schedule takes only its counters (its lambda was
-    rebuilt from the config). A step captured on the state is dropped: the
-    next call captures anew."""
+    rebuilt from the config). A step and eval steps captured on the state
+    are dropped: the next calls capture anew."""
     for name in ("critic", "critic_opt", "generator"):
         if (saved[name] is None) != (getattr(state, name) is None):
             raise ValueError(f"checkpoint and state disagree on having a {name}")
     if state.graph is not None:  # it reads the tensors the optimizers replace
         state.graph.close()
         state.graph = None
+    if state.eval_graphs is not None:  # they read the tensors the restore rewrites
+        state.eval_graphs.close()
+        state.eval_graphs = None
     state.segmentor.load_state_dict(saved["segmentor"])
     if state.critic is not None:
         state.critic.load_state_dict(saved["critic"])

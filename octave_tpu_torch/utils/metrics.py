@@ -105,15 +105,21 @@ class AucAccumulator(NamedTuple):
     def update(self, scores: torch.Tensor, target: torch.Tensor,
                weight: Optional[torch.Tensor] = None) -> "AucAccumulator":
         bins = self.pos_hist.shape[0]
-        s = scores.reshape(-1).float().clamp(0.0, 1.0)
+        # binned in the scores' own dtype, as the JAX accumulator bins them
+        # (x bins, a power of two, is exact in every float dtype)
+        s = scores.reshape(-1).clamp(0.0, 1.0)
         t = target.reshape(-1).long()
         idx = (s * bins).long().clamp(0, bins - 1)
-        # one bincount over [negatives | positives | dropped samples]
+        # one histogram over [negatives | positives | dropped samples], of a
+        # fixed length (a bincount's length would depend on the data, a host
+        # sync that a CUDA-graph capture refuses); integer adds are exact in
+        # any order
         key = idx + bins * t
         if weight is not None:
             keep = torch.broadcast_to(_sample_weight(weight, scores), scores.shape).reshape(-1)
             key = torch.where(keep > 0, key, 2 * bins)
-        counts = torch.bincount(key, minlength=2 * bins + 1)
+        counts = torch.zeros(2 * bins + 1, dtype=torch.int64, device=key.device)
+        counts.index_add_(0, key, torch.ones_like(key))
         return AucAccumulator(self.pos_hist + counts[bins:2 * bins],
                               self.neg_hist + counts[:bins])
 

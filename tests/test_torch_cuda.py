@@ -871,3 +871,193 @@ def test_restore_after_capture_drops_the_graph(cuda, tmp_path, deterministic):
     CheckpointManager(str(ckpt)).restore_latest(want)
     _assert_states_equal(state, want)
 
+
+
+# -- serving and evaluation as CUDA graphs ----------------------------------------
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "aag"])
+def test_graphed_predictor_equals_eager_bit_for_bit(cuda, gen, deterministic, fused):
+    """float32 (TF32 off, deterministic algorithms), 64², B = 2: predict_many
+    at k = 1, 2, 4 and __call__ graphed against eager, bit for bit, over the
+    warm-up, the capture and a replay; 5 kernel launches per forward through
+    the replays; one graph per k, __call__ the k = 1 stack's."""
+    from octave_tpu_torch.ops.kernels import launch_counts
+    from octave_tpu_torch.serve import Predictor
+
+    kw = dict(image_hw=(64, 64), dtype=torch.float32, use_fused_decoder=fused, device=cuda)
+    eager, graphed = Predictor.initialize(graphed=False, **kw), Predictor.initialize(**kw)
+    assert graphed.graphed and not eager.graphed and eager.replicas[0].graphs is None
+    kernel = "decoder_epilogue" if fused else "aag"
+    for k in (1, 2, 4):
+        stack = gen.integers(0, 256, (k, 2, 64, 64, 3), dtype=np.uint8)
+        want = eager.predict_many(stack)
+        for _ in range(3):  # eager warm-up, capture, replay
+            launch_counts(reset=True)
+            got = graphed.predict_many(stack)
+            torch.cuda.synchronize()
+            assert launch_counts()[kernel] == 5 * k
+            np.testing.assert_array_equal(got, want)
+    one = gen.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
+    np.testing.assert_array_equal(graphed(one), eager(one))
+    assert graphed.captures == 3
+
+
+# Predictor configurations beside the default bf16 one (the float32 fused and
+# unfused ones are above); einsum_conv_transpose switches the process-wide
+# ConvTranspose lowering for its run
+PREDICTOR_VARIANTS = {
+    "unfolded_bn": {"fold_bn": False},
+    "prob_f16": {"output_format": "prob_f16"},
+    "mask_u8": {"output_format": "mask_u8"},
+    "float16": {"dtype": torch.float16},
+    "int8_per_call": {"int8_decoder": True, "int8_prepack": False},
+    "int8_dense": {"int8_decoder": True, "int8_scope": "dense"},
+    "dense_groups": {"dense_groups": "decoder"},
+    "einsum_groups": {"einsum_groups": "decoder+enc"},
+    "einsum_conv_transpose": {},
+}
+
+
+@pytest.mark.parametrize("variant", sorted(PREDICTOR_VARIANTS))
+def test_every_predictor_variant_captures(cuda, gen, variant):
+    """Each Predictor configuration captures on the card (64², B = 2, k = 1
+    and 2) and its warm-up, capture and replay equal its eager twin's
+    outputs bit for bit: the replay runs the eager call's kernels."""
+    from octave_tpu_torch.ops import common
+    from octave_tpu_torch.serve import Predictor
+
+    kw = dict(PREDICTOR_VARIANTS[variant], image_hw=(64, 64), device=cuda)
+    if kw.get("int8_decoder"):
+        kw["calibration_batches"] = [gen.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)]
+    common.set_conv_transpose_impl("einsum" if variant == "einsum_conv_transpose" else "native")
+    try:
+        eager, graphed = Predictor.initialize(graphed=False, **kw), Predictor.initialize(**kw)
+        for k in (1, 2):
+            stack = gen.integers(0, 256, (k, 2, 64, 64, 3), dtype=np.uint8)
+            want = eager.predict_many(stack)
+            for _ in range(3):  # eager warm-up, capture, replay
+                np.testing.assert_array_equal(graphed.predict_many(stack), want)
+        assert graphed.captures == 2
+    finally:
+        common.set_conv_transpose_impl("native")
+
+
+def test_graphed_results_are_not_overwritten(cuda, gen, deterministic):
+    """Two predict_many_device stacks of other images dispatched back to back
+    without a wait, then downloaded in the other order: each equals its own
+    eager result, and their device tensors are two copies out of the graph."""
+    from octave_tpu_torch.serve import Predictor
+
+    kw = dict(image_hw=(64, 64), dtype=torch.float32, device=cuda)
+    eager, graphed = Predictor.initialize(graphed=False, **kw), Predictor.initialize(**kw)
+    graphed.warmup(2, (64, 64), ks=(2,))
+    assert graphed.captures == 1
+    a, b = (gen.integers(0, 256, (2, 2, 64, 64, 3), dtype=np.uint8) for _ in range(2))
+    ra, rb = graphed.predict_many_device(a), graphed.predict_many_device(b)
+    assert ra.tensor.data_ptr() != rb.tensor.data_ptr()
+    got_b, got_a = np.asarray(rb), np.asarray(ra)
+    np.testing.assert_array_equal(got_a, eager.predict_many(a))
+    np.testing.assert_array_equal(got_b, eager.predict_many(b))
+    assert graphed.captures == 1
+
+
+def test_warmup_result_survives_a_replay(cuda, gen, deterministic):
+    """The k = 1 graph captured, then without a wait a stack at a k not seen
+    yet (its eager warm-up runs in the pool whose blocks the k = 1 graph
+    reuses at every replay) and a k = 1 replay of other images: downloaded
+    after both, each equals its own eager result bit for bit."""
+    from octave_tpu_torch.serve import Predictor
+
+    kw = dict(image_hw=(64, 64), dtype=torch.float32, device=cuda)
+    eager, graphed = Predictor.initialize(graphed=False, **kw), Predictor.initialize(**kw)
+    graphed.warmup(2, (64, 64), ks=(1,))
+    assert graphed.captures == 1
+    for k in (4, 2):  # each unseen: its warm-up follows the k = 1 capture
+        stack = gen.integers(0, 256, (k, 2, 64, 64, 3), dtype=np.uint8)
+        other = gen.integers(0, 256, (1, 2, 64, 64, 3), dtype=np.uint8)
+        fresh, replay = graphed.predict_many_device(stack), graphed.predict_many_device(other)
+        got, got_other = np.asarray(fresh), np.asarray(replay)
+        np.testing.assert_array_equal(got, eager.predict_many(stack))
+        np.testing.assert_array_equal(got_other, eager.predict_many(other))
+    assert graphed.captures == 1
+
+
+def test_batch_server_captures_in_its_worker(cuda, gen, deterministic):
+    """Without the warm-up the server's worker meets each k first: it runs
+    it eagerly and then captures it while the resolver thread downloads (a
+    thread_local capture). Every result equals the eager Predictor's
+    (float32), and once every k is captured a flood captures nothing."""
+    from octave_tpu_torch.serve import BatchServer, Predictor
+
+    kw = dict(image_hw=(64, 64), dtype=torch.float32, device=cuda)
+    eager, graphed = Predictor.initialize(graphed=False, **kw), Predictor.initialize(**kw)
+    imgs = [gen.integers(0, 256, (64, 64, 3), dtype=np.uint8) for _ in range(64)]
+    want = np.concatenate([eager(np.stack(imgs[i:i + 4])) for i in range(0, 64, 4)])
+    with BatchServer(graphed, batch=4, image_hw=(64, 64), ks=(1, 2, 4), warmup=False) as srv:
+        for _ in range(4):
+            np.testing.assert_array_equal(np.stack(list(srv.map(iter(imgs)))), want)
+        assert graphed.captures >= 1  # in the worker: k = 4 met more than once
+        graphed.warmup(4, (64, 64), ks=(1, 2, 4))
+        assert graphed.captures == 3
+        np.testing.assert_array_equal(np.stack(list(srv.map(iter(imgs)))), want)
+    assert graphed.captures == 3
+
+
+def test_auc_histogram_on_card_equals_cpu(cuda):
+    """The fixed-length ROC histogram under deterministic algorithms (no
+    warn_only: an op without a deterministic variant raises) and inside a
+    CUDA-graph capture equals the CPU's, integer for integer."""
+    from octave_tpu_torch.train.steps import StaticGraphs
+    from octave_tpu_torch.utils.metrics import AucAccumulator
+
+    rng = np.random.default_rng(3)
+    scores = rng.uniform(0, 1, (4, 64, 64)).astype(np.float32)
+    scores[0, :8] = np.arange(8)[:, None] / 4096  # bin edges
+    scores[1, 0] = 1.0
+    target = (rng.uniform(size=scores.shape) > 0.7).astype(np.float32)
+    weight = np.array([1, 1, 1, 0], np.float32)
+    host = [torch.from_numpy(a) for a in (scores, target, weight)]
+    want = torch.cat(list(AucAccumulator.empty(device="cpu").update(*host)))
+
+    def hist(s, t, w):
+        return torch.cat(list(AucAccumulator.empty(device=s.device).update(s, t, w)))
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        dev = [t.to(cuda) for t in host]
+        assert torch.equal(hist(*dev).cpu(), want)
+        graphs = StaticGraphs(hist, cuda)
+        for _ in range(3):  # eager warm-up, capture, replay
+            assert torch.equal(graphs(*dev).cpu(), want)
+        assert graphs.captures == 1
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def test_graphed_evaluate_equals_eager(cuda, tmp_path, deterministic):
+    """Trainer.evaluate with the eval step graphed against eager, float32, on
+    5 test phantoms in batches of 2 (a ragged last batch of 1, its own
+    graph): equal metrics at the warm-up, the captures and the replays;
+    after a fit step (the weights updated in place the graphs keep
+    reading); after a restore, which drops the graphs."""
+    from octave_tpu_torch.utils.checkpoint import CheckpointManager
+
+    extra = {"data.synthetic_n": "5", "train.steps": "1", "train.log_every": "1"}
+    eager = _graph_trainer(cuda, False, tmp_path / "e", **extra)
+    graphed = _graph_trainer(cuda, None, tmp_path / "g", **extra)
+    assert graphed.graphed_eval and not eager.graphed_eval
+    state = graphed.init_state()
+    for _ in range(3):
+        assert graphed.evaluate(state) == eager.evaluate(state)
+    graphs = state.eval_graphs
+    assert graphs is not None and graphs.captures == 2
+    before = graphed.evaluate(state)
+    ckpt = CheckpointManager(str(tmp_path / "ckpt"))
+    ckpt.save(0, state)
+    graphed.fit(state)
+    assert state.step == 1 and state.eval_graphs is graphs
+    after = graphed.evaluate(state)
+    assert after == eager.evaluate(state) != before and graphs.captures == 2
+    ckpt.restore_latest(state)
+    assert state.eval_graphs is None and state.step == 0
+    for _ in range(2):
+        assert graphed.evaluate(state) == eager.evaluate(state) == before
