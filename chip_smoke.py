@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
-"""GPU smoke test of octave_tpu_torch: builds its kernels and drives its
-serving and training paths on one NVIDIA GPU. Run from the repository root:
+"""GPU smoke test of octave_tpu_torch: builds its kernels (Triton and CUDA
+C++) and drives its serving and training paths on one NVIDIA GPU. Run from
+the repository root:
 
     python3 chip_smoke.py
 
 Phases, each printing its own lines:
-  1. build   - compile both Triton kernels from this checkout's sources into
-               build/triton (emptied first) in float32, bfloat16 and float16
-               and time the build;
+  1. build   - compile the CUDA C++ int8 conv kernel from this checkout's
+               csrc/ into build/cuda (emptied first; one nvcc per source,
+               started together, then linked; registers and spills of each
+               instance logged) while both Triton kernels compile into
+               build/triton (emptied first) in float32, bfloat16 and
+               float16, and time the builds;
   2. kernels - each kernel against its plain PyTorch version at the five
                decoder shapes of the 304² forward, in float32 with B = 8,
                in bfloat16 with B = 8 and B = 32 (the serving batch) and in
@@ -96,12 +100,15 @@ Phases, each printing its own lines:
                scope all >= 0.98) through the fused epilogue (5 launches per
                __call__, 5 x k in predict_many), at int8_scope="all", with
                use_fused_decoder=False (5 AAG launches) and at B = 1 and 8,
-               each with its int8 GEMMs counted against its scales; `cli
-               predict --int8` on phase 6's PNG folder and checkpoint against
-               an int8 Predictor called directly (calibrated on the same first
-               batch); int8 and bf16 img/s in turns, the peak memory of one
-               call, the calibration time and a profile of one int8 call with
-               the device ms of its quantise, im2col and GEMM passes;
+               each with its int8 conv kernel launches counted (25 per
+               decoder-scope forward: five convs a decoder, a pair in one
+               launch; one per int8 conv in scope all) and no library int8
+               GEMM; `cli predict --int8` on phase 6's PNG folder and
+               checkpoint against an int8 Predictor called directly
+               (calibrated on the same first batch); int8 and bf16 img/s in
+               turns, the peak memory of one call, the calibration time and
+               a profile of one int8 call with the device ms of the int8
+               conv kernel, of the sites around it and of no cuBLASLt GEMM;
  10. switches - the memory and lowering switches: every grouped conv shape
                of the 304² UNet's train forward at B = 8 through the dense
                and einsum lowerings against cuDNN's grouped conv (forward
@@ -147,7 +154,9 @@ Phases, each printing its own lines:
                prepacked and dense-lowered behind the 0.99 agreement gate,
                B = 256, k = 4, inputs on the device): its JSON record, 195
                epilogue launches (5 per forward: 1 calibration, 2 gate, 8
-               per-call and 7 x 4 dispatched) and no AAG launch, the served
+               per-call and 7 x 4 dispatched), 925 int8 conv kernel launches
+               (25 per int8 forward: 1 gate, 8 per-call, 7 x 4) and no AAG
+               launch or library int8 GEMM, the served
                Predictor and the agreement; the k = 4 dispatch's first batch
                against one call (argmax agreement >= 0.9999, the largest
                probability difference); their img/s in turns; the memory
@@ -188,8 +197,9 @@ Phases, each printing its own lines:
                (float32, 128², a ragged last batch) in every batch's counts
                and in the metrics, after a fit step and after a restore;
                bf16, float16 and int8 graphed against eager (argmax
-               agreement >= 0.999, the largest difference, launches and
-               int8 GEMMs as eager's) and the 0.995 / 0.99 floors; a
+               agreement >= 0.999, the largest difference, launches as
+               eager's, the int8 conv kernel's 25 per forward among them)
+               and the 0.995 / 0.99 floors; a
                BatchServer flood of 1,280 equal to the eager server's with
                no capture after warmup, and a server without warm-up
                capturing in its worker; in turns with eager: __call__ and
@@ -197,7 +207,19 @@ Phases, each printing its own lines:
                share, the flood's img/s and a lone request's latency, the
                bench's int8 and bf16 Predictors at B = 256, k = 4 with each
                one's peak and reserved memory, and Trainer.evaluate's seconds over the
-               synthetic test split.
+               synthetic test split;
+ 15. int8 kernel - the CUDA C++ int8 conv kernel at the exact inputs of the
+               int8 Predictor's sites: every `int8_conv_nhwc` call of one
+               eager forward (scope decoder and scope all at B = 32, the
+               bench's Predictor at B = 256) held to the plain version bit
+               for bit; per decoder depth at B = 32 and 256 the kernel's,
+               the plain version's and cuDNN's bf16 conv's median times (L2
+               flushed; cuDNN a yardstick for another function) beside the
+               bound (int8 operations at 1,979 TOP/s, bytes at 3.35 TB/s);
+               the graphed int8 Predictor's whole forward (scope decoder
+               and all) against a twin whose sites run the plain version,
+               bit for bit; a profile of one eager int8 forward at
+               B = 256 by kernel group.
 Exits non-zero, before printing any result, without CUDA or outside a
 checkout of the repository; any failed check
 raises. The last three lines are the kernels JSON, the card's name and power
@@ -212,11 +234,13 @@ import io
 import json
 import logging
 import os
+import re
 import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -245,6 +269,13 @@ def log(*parts):
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+def launches_of(want):
+    """`want`, a {kernel: launches} expectation, with every registered
+    kernel it leaves out at 0: `launch_counts()` reports the Triton kernels'
+    and the int8 conv kernel's counts side by side."""
+    return {"aag": 0, "decoder_epilogue": 0, "int8_conv": 0, **want}
 
 
 class Timer:
@@ -470,7 +501,7 @@ def main() -> int:
 
     from goldens import fill_state_dict, input_array, load_fixture
     from octave_tpu_torch.models.segmentor import ResnestUNet
-    from octave_tpu_torch.ops.kernels import BUILD_DIR, kernel_tolerance, triton_build_dir
+    from octave_tpu_torch.ops.kernels import BUILD_DIR, cuda_build, kernel_tolerance, triton_build_dir
     from octave_tpu_torch.ops.kernels.aag import fused_aag, fused_aag_plain
     from octave_tpu_torch.ops.kernels.decoder_epilogue import (
         fused_decoder_epilogue,
@@ -498,7 +529,23 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     # -- 1. build ---------------------------------------------------------
+    # the CUDA C++ kernel: one nvcc per source under csrc/, started
+    # together, then linked (build/cuda, emptied first); nvcc runs while
+    # Triton compiles its kernels (build/triton, emptied first)
+    shutil.rmtree(cuda_build.BUILD_DIR, ignore_errors=True)
     shutil.rmtree(BUILD_DIR, ignore_errors=True)
+    built = {}
+
+    def build_cuda():
+        t0 = time.time()
+        try:
+            cuda_build.load()
+        except RuntimeError as e:
+            built["error"] = e
+        built["s"] = time.time() - t0
+
+    nvcc_thread = threading.Thread(target=build_cuda)
+    nvcc_thread.start()
     triton_build_dir()
     for name, kern in kernels.items():
         t0 = time.time()
@@ -510,6 +557,23 @@ def main() -> int:
         log(f"[build] {name}: {len(DEPTHS) * len(dtypes)} variants built in "
             f"{time.time() - t0:.1f} s into {BUILD_DIR}")
     check(any(BUILD_DIR.rglob("*.cubin")), f"no compiled kernels under {BUILD_DIR}")
+    nvcc_thread.join()
+    if "error" in built:
+        raise built["error"]
+    log(f"[build] int8_conv (CUDA C++): {len(cuda_build.sources())} sources compiled in "
+        f"parallel and linked in {built['s']:.1f} s into {cuda_build.library_path()} "
+        f"(nvcc {' '.join(cuda_build.ARCH + cuda_build.FLAGS)})")
+    entry = None
+    for line in cuda_build.build_log.splitlines():
+        if "Compiling entry function" in line:
+            # the mangled template arguments: dtype, (vec,) tile
+            found = re.search(r"(int8_conv(?:_halo)?_kernel)I(.*?)EEEv", line)
+            entry = found and f"{found.group(1)}<{found.group(2)}>"
+        elif entry and "Used" in line and "registers" in line:
+            log(f"[build]   {entry}: {line.split(':', 1)[1].strip()}")
+        elif entry and "spill" in line:
+            log(f"[build]   {entry}: {line.strip()}")
+    check(cuda_build.library_path().is_file(), "no CUDA kernel library was built")
 
     # -- 2. kernels against their plain versions ---------------------------
     timer = Timer(torch)
@@ -684,7 +748,8 @@ def main() -> int:
     del serve_mask, serve_aag, plain, probs, many, mask, probs_aag, stack
     release(torch, "before phase 6")
     by_path = {"aag": {"serve, use_fused_decoder=False": aag_launches["aag"]},
-               "decoder_epilogue": {"serve, __call__": main_launches["decoder_epilogue"]}}
+               "decoder_epilogue": {"serve, __call__": main_launches["decoder_epilogue"]},
+               "int8_conv": {}}
     deploy_tmp = tempfile.mkdtemp(prefix="octave_deploy_")  # phase 9 reads it too
     try:
         deploy, predict_args = phase_deploy(torch, smi, serve, weights,
@@ -738,6 +803,10 @@ def main() -> int:
     for name, paths in phase_graphed(torch, smi, weights, images).items():
         by_path[name].update(paths)
 
+    # -- 15. the int8 conv kernel at the int8 Predictor's sites ---------------
+    release(torch, "before phase 15")
+    int8_kernel = phase_int8_kernel(torch, smi, weights, images)
+
     line = {"kernels": [
         {"name": name, "route": "triton", "source": kern["source"],
          "replaces": kern["replaces"], "launches": launches[name],
@@ -747,13 +816,32 @@ def main() -> int:
          "bound_by": "bytes" if totals[name]["by"] == {"bytes"} else "operations",
          "library_ms": None}
         for name, kern in kernels.items()]}
+    # the int8 conv kernel: its main path is the int8 Predictor's __call__
+    # (phase 9); its figures are phase 15's, summed over the 25 decoder
+    # convs at B = SERVE_B (and at the bench's B = BENCH_B). No one PyTorch
+    # call computes it (torch._int_mm is the GEMM alone): library_ms null;
+    # cuDNN's bf16 conv of the same shapes is a yardstick of another function
+    serve8, bench8 = int8_kernel["serve"][0], int8_kernel["bench"][0]
+
+    def int8_row(t):
+        return {"max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "yardstick_cudnn_bf16_ms": t["cudnn_bf16_ms"]}
+
+    line["kernels"].append({
+        "name": "int8_conv", "route": "cuda",
+        "source": "octave_tpu_torch/ops/kernels/csrc/int8_conv.cu",
+        "replaces": "octave_tpu/ops/quant.py:118 (int8_conv; XLA, not Pallas)",
+        "launches": by_path["int8_conv"]["int8 __call__ (decoder, fused)"],
+        "launches_by_path": by_path["int8_conv"], **int8_row(serve8), "library_ms": None,
+        "at_bench_batch": {"batch": BENCH_B, "dtype": "bfloat16", **int8_row(bench8)}})
     # the epilogue at the bench's batch too (phase 2's B = 256 case)
     next(k for k in line["kernels"] if k["name"] == "decoder_epilogue")["at_bench_batch"] = {
         "batch": BENCH_B, "dtype": "bfloat16", "max_abs_err": bench_totals["err"],
         "ms": bench_totals["ms"], "plain_ms": bench_totals["plain_ms"],
         "bound_ms": bench_totals["bound_ms"],
         "bound_by": "bytes" if bench_totals["by"] == {"bytes"} else "operations"}
-    release(torch, "after phase 14")
+    release(torch, "after phase 15")
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps(line))
     print(smi)
@@ -1051,7 +1139,7 @@ def _deploy(torch, smi, serve, weights, direct_rates, tmp):
         launch_counts(reset=True)
         result = fn()
         torch.cuda.synchronize()
-        got = launch_counts()
+        got, want = launch_counts(), launches_of(want)
         log(f"[deploy] {label}: launches {got} (expected {want})")
         check(got == want, f"{label}: launch counts {got}, expected {want}")
         for name, n in got.items():
@@ -1308,7 +1396,7 @@ def _deploy(torch, smi, serve, weights, direct_rates, tmp):
         torch.cuda.synchronize()
         got_counts = launch_counts()
         peak = torch.cuda.max_memory_allocated() / 2**30
-        want_counts = {"aag": 0, "decoder_epilogue": 5 * sum(dispatched)}
+        want_counts = launches_of({"decoder_epilogue": 5 * sum(dispatched)})
         log(f"[deploy] BatchServer flood of {n_flood}: dispatched k {dispatched}; launches "
             f"{got_counts} (expected {want_counts})")
         check(got_counts == want_counts, "flood: launches are not 5 x the sum of the k")
@@ -1431,7 +1519,7 @@ def _family(torch, smi, device, tmp):
         launch_counts(reset=True)
         result = fn()
         torch.cuda.synchronize()
-        got = launch_counts()
+        got, want = launch_counts(), launches_of(want)
         log(f"[family] {label}: launches {got} (expected {want})")
         check(got == want, f"{label}: launch counts {got}, expected {want}")
         for name, n in got.items():
@@ -2087,7 +2175,7 @@ def _parallel(torch, smi, tmp):
         finally:
             for k in env:
                 del os.environ[k]
-        want = {"aag": 5 * (3 + eval_batches), "decoder_epilogue": 0}
+        want = launches_of({"aag": 5 * (3 + eval_batches)})
         log(f"[parallel] cli train data.dataset=rose (TIFF) {label}, {DP_HW}², B={DP_B}, fp32 "
             f"TF32 off, noise off, 3 steps + evaluate: launches {got} (expected {want}), "
             f"{time.time() - t0:.1f} s; metrics {printed_metrics(text)}")
@@ -2280,17 +2368,27 @@ INT8_ALL_AGREEMENT_FLOOR = 0.98
 def int8_group(name):
     """Coarse layer of a device kernel in the int8 serving profile."""
     n = name.lower()
+    if "int8_conv_kernel" in n or "int8_conv_halo_kernel" in n:
+        return "int8 conv kernel (CUDA C++)"
     if any(s in n for s in ("s8", "i8", "int8", "imma")) and "gemm" in n:
         return "int8 GEMMs (cuBLASLt)"
     return kernel_group(name)
+
+
+def int8_sites(pred):
+    """The int8 convs of a Predictor's model: one kernel launch each per
+    forward (a decoder's pair in one launch)."""
+    from octave_tpu_torch.ops.quant import Int8Conv
+
+    return sum(isinstance(m, Int8Conv) for m in pred.model.modules())
 
 
 def phase_int8(torch, smi, serve, weights, images, predict_args, deploy_tmp):
     """Phase 9: the int8 Predictor on the committed trained weights at 304²,
     bf16, calibrated on a phantom batch: masks against the bf16 Predictor's
     on other phantoms (decoder scope through the fused epilogue, scope all,
-    the unfused AAG configuration, B = 1, 8 and 32), launch and int8 GEMM
-    counts, `cli predict --int8` on phase 6's PNG folder against a direct
+    the unfused AAG configuration, B = 1, 8 and 32), launch counts (the int8
+    conv kernel's too; no library int8 GEMM), `cli predict --int8` on phase 6's PNG folder against a direct
     int8 Predictor, img/s beside bf16, a profile of the int8 passes, the
     calibration time and peak memory. Returns {kernel: {path: launches}}."""
     import numpy as np
@@ -2304,21 +2402,21 @@ def phase_int8(torch, smi, serve, weights, images, predict_args, deploy_tmp):
     from octave_tpu_torch.utils.config import Config
     from octave_tpu_torch.utils.imageio import read_image
 
-    paths = {"aag": {}, "decoder_epilogue": {}}
+    paths = {"aag": {}, "decoder_epilogue": {}, "int8_conv": {}}
     calib = phantoms(SERVE_B, 304, seed=31)  # other phantoms than the requests'
     bf16_probs = serve(images)
 
-    def counted(label, fn, want, gemms):
-        """fn() with the kernel and int8 GEMM counts zeroed just before it
-        and read just after."""
+    def counted(label, fn, want):
+        """fn() with the kernel counts zeroed just before it and read just
+        after; no library int8 GEMM (the plain route's) may run."""
         launch_counts(reset=True)
         quant.int8_mm.launches = 0
         result = fn()
         torch.cuda.synchronize()
-        got, n_gemm = launch_counts(), quant.int8_mm.launches
-        log(f"[int8] {label}: launches {got}, int8 GEMMs {n_gemm} (expected {want}, {gemms})")
-        check(got == want and n_gemm == gemms,
-              f"{label}: launches {got} and {n_gemm} int8 GEMMs, expected {want} and {gemms}")
+        got, want, n_gemm = launch_counts(), launches_of(want), quant.int8_mm.launches
+        log(f"[int8] {label}: launches {got} (expected {want}), library int8 GEMMs {n_gemm}")
+        check(got == want and n_gemm == 0,
+              f"{label}: launches {got} and {n_gemm} library int8 GEMMs, expected {want}, 0")
         for name, n in got.items():
             if n:
                 paths[name][label] = n
@@ -2365,26 +2463,32 @@ def phase_int8(torch, smi, serve, weights, images, predict_args, deploy_tmp):
         f"unfused decoder {n_sites['aag']}; two more builds {time.perf_counter() - t0:.2f} s")
     check(n_sites["decoder"] == n_sites["aag"] == 33 and n_sites["all"] > 100,
           f"scale counts {n_sites}")
+    # one kernel launch per int8 conv: five convs a decoder, a pair's two
+    # halves in one launch (33 scales, 25 launches)
+    convs = {k: int8_sites(p) for k, p in (("decoder", int8), ("all", int8_all),
+                                           ("aag", int8_aag))}
+    check(convs["decoder"] == convs["aag"] == 25 and convs["all"] > 100,
+          f"int8 convs {convs}")
 
     # 9.2 agreement with bf16 and the launch counts of each path
     probs = counted("int8 __call__ (decoder, fused)", lambda: int8(images),
-                    {"aag": 0, "decoder_epilogue": 5}, n_sites["decoder"])
+                    {"decoder_epilogue": 5, "int8_conv": 25})
     stack = np.stack([images, images[::-1]])
     many = counted("int8 predict_many k=2", lambda: int8.predict_many(stack),
-                   {"aag": 0, "decoder_epilogue": 10}, 2 * n_sites["decoder"])
+                   {"decoder_epilogue": 10, "int8_conv": 50})
     check(np.array_equal(many[0], probs), "int8 predict_many differs from __call__")
     agreements = {"decoder": agreement(f"scope decoder, fused, B={SERVE_B}", probs, bf16_probs)}
     probs_all = counted("int8 __call__ (scope all)", lambda: int8_all(images),
-                        {"aag": 0, "decoder_epilogue": 5}, n_sites["all"])
+                        {"decoder_epilogue": 5, "int8_conv": convs["all"]})
     agreements["all"] = agreement(f"scope all, fused, B={SERVE_B}", probs_all, bf16_probs,
                                   INT8_ALL_AGREEMENT_FLOOR)
     probs_aag = counted("int8 __call__ (use_fused_decoder=False)", lambda: int8_aag(images),
-                        {"aag": 5, "decoder_epilogue": 0}, n_sites["aag"])
+                        {"aag": 5, "int8_conv": 25})
     agreements["aag"] = agreement(f"scope decoder, AAG kernel, B={SERVE_B}", probs_aag,
                                   bf16_probs)
     for b in (1, 8):
         small = counted(f"int8 __call__ B={b}", lambda: int8(images[:b]),
-                        {"aag": 0, "decoder_epilogue": 5}, n_sites["decoder"])
+                        {"decoder_epilogue": 5, "int8_conv": 25})
         agreements[f"B={b}"] = agreement(f"scope decoder, fused, B={b}", small,
                                          bf16_probs[:b])
 
@@ -2395,7 +2499,7 @@ def phase_int8(torch, smi, serve, weights, images, predict_args, deploy_tmp):
     files = sorted(os.path.join(test_dir, f) for f in os.listdir(test_dir))
     counted("cli predict --int8, 16 images in 2 batches",
             lambda: run_cli(["predict", "--out", out_dir, "--int8"] + predict_args),
-            {"aag": 0, "decoder_epilogue": 15}, 2 * n_sites["decoder"])
+            {"decoder_epilogue": 15, "int8_conv": 2 * 25})
     x = np.repeat((load_image_batch(files, (304, 304)).astype(np.float32) / 255.0)[..., None],
                   3, axis=-1)
     overrides = dict(a.split("=", 1) for a in predict_args[4:])
@@ -2449,14 +2553,14 @@ def phase_int8(torch, smi, serve, weights, images, predict_args, deploy_tmp):
 
     from torch.profiler import record_function
 
-    # the kernels conv_packed launches outside the three others: the float32
-    # dequantisation, bias, cast and layout of its output
-    stages = {"quantise": "quantize_activation", "im2col": "_im2col", "GEMM": "int8_mm",
-              "dequantise": "conv_packed"}
+    # the int8 conv sites (quant.conv_packed: the layout of their input and
+    # the kernel call) and the kernel call alone (int8_conv_nhwc); what the
+    # sites launch beside the kernel is layout
+    stages = {"int8 conv sites": "conv_packed", "kernel calls": "int8_conv_nhwc"}
     originals = {fn: getattr(quant, fn) for fn in stages.values()}
 
     def labelled(label, fn):
-        @functools.wraps(fn)  # int8_mm's `launches` too, for its count_launch
+        @functools.wraps(fn)
         def run(*a, **k):
             with record_function(f"int8:{label}"):
                 return fn(*a, **k)
@@ -2500,12 +2604,14 @@ def phase_int8(torch, smi, serve, weights, images, predict_args, deploy_tmp):
         + ", ".join(f"{g} {v:.2f} ms" for g, v in sorted(groups.items(), key=lambda x: -x[1]))
         + "; the int8 convs' device ms by stage: "
         + ", ".join(f"{k} {v:.2f}" for k, v in stage_ms.items()))
-    check(groups.get("int8 GEMMs (cuBLASLt)", 0.0) > 0 or stage_ms.get("GEMM", 0.0) > 0,
-          "the profile shows no int8 GEMM")
+    check(groups.get("int8 conv kernel (CUDA C++)", 0.0) > 0
+          and groups.get("int8 GEMMs (cuBLASLt)", 0.0) == 0,
+          f"the profile shows no int8 conv kernel, or a library int8 GEMM: {groups}")
     log(json.dumps({"int8": {
         "device": smi, "batch": SERVE_B, "agreement": agreements,
         "img_s": {k: v for k, v in rates.items()}, "peak_gib": peaks,
         "calibration_s": calib_s, "int8_build_s": build_s, "scales": n_sites,
+        "int8_convs": convs,
         "profile_ms": {"wall": t_prof, "device_kernels": busy, "groups": groups,
                        "stages": stage_ms}}}))
     return paths
@@ -2560,7 +2666,7 @@ def _switches(torch, smi, weights, images, serve, tmp):
         launch_counts(reset=True)
         result = fn()
         torch.cuda.synchronize()
-        got = launch_counts()
+        got, want = launch_counts(), launches_of(want)
         log(f"[switches] {label}: launches {got} (expected {want})")
         check(got == want, f"{label}: launch counts {got}, expected {want}")
         for name, n in got.items():
@@ -2962,7 +3068,7 @@ def _surface(torch, smi, weights, images, serve, tmp):
         launch_counts(reset=True)
         result = fn()
         torch.cuda.synchronize()
-        got = launch_counts()
+        got, want = launch_counts(), launches_of(want)
         log(f"[surface] {label}: launches {got} (expected {want})")
         check(got == want, f"{label}: launch counts {got}, expected {want}")
         for name, n in got.items():
@@ -3154,7 +3260,7 @@ def _surface(torch, smi, weights, images, serve, tmp):
 
     outs, t_flood, got_launches, dispatched = flood_through(fan)
     label = f"BatchServer flood of {SURFACE_FLOOD} over Predictor(mesh=(cuda:0, cuda:0))"
-    want = {"aag": 0, "decoder_epilogue": 5 * 2 * sum(dispatched)}
+    want = launches_of({"decoder_epilogue": 5 * 2 * sum(dispatched)})
     log(f"[surface] {label}: launches {got_launches} (expected {want}: 5 per replica per "
         f"batch, k = {dispatched})")
     check(got_launches == want, f"{label}: launch counts {got_launches}, expected {want}")
@@ -3270,6 +3376,7 @@ def phase_bench(torch, smi):
     k = 4 dispatch against one call, each Predictor's peak memory at B = 256
     and the two Predictors' img/s in turns. Returns the launches by path."""
     from octave_tpu_torch import bench
+    from octave_tpu_torch.ops import quant
     from octave_tpu_torch.ops.kernels import launch_counts
     from octave_tpu_torch.serve import Predictor
 
@@ -3280,10 +3387,11 @@ def phase_bench(torch, smi):
     torch.cuda.reset_peak_memory_stats()
     out = io.StringIO()
     launch_counts(reset=True)
+    quant.int8_mm.launches = 0
     with contextlib.redirect_stdout(out):
         run = bench.main()
     torch.cuda.synchronize()
-    counts = launch_counts()
+    counts, gemms = launch_counts(), quant.int8_mm.launches
     t_bench = time.time() - t_phase
     bench_peak = torch.cuda.max_memory_allocated() / 2**30
     printed = out.getvalue().splitlines()
@@ -3291,15 +3399,21 @@ def phase_bench(torch, smi):
     log(f"[bench] record: {printed[0]}")
     record = json.loads(printed[0])
     # one calibration forward, two gate forwards, 8 per-call forwards and 7
-    # dispatches of k forwards, 5 epilogues each
-    want = {"aag": 0, "decoder_epilogue": 5 * (1 + 2 + 8 + 7 * BENCH_K)}
-    log(f"[bench] launches {counts} (expected {want}); bench.main() took {t_bench:.1f} s, "
-        f"peak device memory {bench_peak:.2f} GiB")
-    check(counts == want, f"bench launches {counts}, expected {want}")
-    check(set(record) == BENCH_KEYS, f"bench record keys {sorted(record)}")
-    check(record["device"] == smi, f"bench device {record['device']!r}, nvidia-smi {smi!r}")
+    # dispatches of k forwards, 5 epilogues each; the int8 conv kernel 25
+    # times in each int8 forward: the gate's one and, if the int8 Predictor
+    # serves, the 8 + 7 k timed ones (no library int8 GEMM)
     agreement = record["int8_mask_agreement"]
     int8_served = run.served is run.int8
+    check(int8_sites(run.int8) == 25, f"the bench's int8 Predictor has {int8_sites(run.int8)} "
+          f"int8 convs, expected 25")
+    want = launches_of({"decoder_epilogue": 5 * (1 + 2 + 8 + 7 * BENCH_K),
+                        "int8_conv": 25 * (1 + (8 + 7 * BENCH_K) * int8_served)})
+    log(f"[bench] launches {counts} (expected {want}), library int8 GEMMs {gemms}; "
+        f"bench.main() took {t_bench:.1f} s, peak device memory {bench_peak:.2f} GiB")
+    check(counts == want and gemms == 0, f"bench launches {counts} and {gemms} library int8 "
+          f"GEMMs, expected {want} and 0")
+    check(set(record) == BENCH_KEYS, f"bench record keys {sorted(record)}")
+    check(record["device"] == smi, f"bench device {record['device']!r}, nvidia-smi {smi!r}")
     check(int8_served == (agreement >= bench.AGREEMENT_GATE)
           and ("int8 dense-lowered decoder" in record["metric"]) == int8_served,
           f"gate: agreement {agreement}, int8 served {int8_served}, {record['metric']}")
@@ -3361,8 +3475,8 @@ def phase_bench(torch, smi):
         + f" on {smi}")
     del eager, xs, xk
     log(f"[bench] phase 12 took {time.time() - t_phase:.1f} s")
-    return {"decoder_epilogue": {f"cli bench (B={BENCH_B}, k={BENCH_K})":
-                                 want["decoder_epilogue"]}}
+    label = f"cli bench (B={BENCH_B}, k={BENCH_K})"
+    return {name: {label: want[name]} for name in ("decoder_epilogue", "int8_conv")}
 
 
 # graph-phase settings (phase 13). The bit-for-bit cases: float32, TF32 off,
@@ -3717,7 +3831,7 @@ def _graphed(torch, smi, weights, images, tmp):
     from octave_tpu_torch.utils.config import Config
 
     t_phase = time.time()
-    paths = {"aag": {}, "decoder_epilogue": {}}
+    paths = {"aag": {}, "decoder_epilogue": {}, "int8_conv": {}}
     summary = {"device": smi}
     dev0 = torch.device("cuda", 0)
 
@@ -3726,19 +3840,22 @@ def _graphed(torch, smi, weights, images, tmp):
         return Predictor(weights, graphed=False, **kw), Predictor(weights, **kw)
 
     def counted(fn):
-        """(fn(), {kernel: launches, "int8_gemm": int8 GEMMs}) with the
-        counts zeroed just before fn and read just after."""
+        """(fn(), {kernel: launches}) with the counts zeroed just before fn
+        and read just after; no library int8 GEMM may run."""
         launch_counts(reset=True)
         quant.int8_mm.launches = 0
         out = fn()
         torch.cuda.synchronize()
-        return out, {**launch_counts(), "int8_gemm": quant.int8_mm.launches}
+        check(quant.int8_mm.launches == 0, f"{quant.int8_mm.launches} library int8 GEMMs")
+        return out, launch_counts()
 
     def held(label, eager_fn, graphed_fn, per_call, exact=True, floor=GRAPHED_AGREEMENT):
         """eager_fn() once against graphed_fn() at its warm-up, capture and
         replay: bit for bit (exact) or argmax agreement >= floor; the same
-        launch and int8 GEMM counts, `per_call` of them. Returns (graphed
-        output, its counts, the largest |difference|)."""
+        launch counts, `per_call` of them (the int8 conv kernel's among
+        them). Returns (graphed output, its counts, the largest
+        |difference|)."""
+        per_call = launches_of(per_call)
         want, n_eager = counted(eager_fn)
         check(n_eager == per_call, f"{label}: eager counts {n_eager}, expected {per_call}")
         worst, low = 0.0, 1.0
@@ -3772,7 +3889,7 @@ def _graphed(torch, smi, weights, images, tmp):
             for fused, kernel in ((True, "decoder_epilogue"), (False, "aag")):
                 name = "fused" if fused else "unfused"
                 eager, graphed = twins(dtype=torch.float32, use_fused_decoder=fused)
-                zero = {"aag": 0, "decoder_epilogue": 0, "int8_gemm": 0}
+                zero = launches_of({})
                 for k, stack in stacks.items():
                     label = f"float32 {name} predict_many k={k} (304², B={GRAPHED_B})"
                     held(label, lambda: eager.predict_many(stack),
@@ -3814,7 +3931,7 @@ def _graphed(torch, smi, weights, images, tmp):
                 del eager, graphed
             # 14.3 Predictor(mesh=(cuda:0, cuda:0)) against its eager self
             eager, graphed = twins(dtype=torch.float32, mesh=(dev0, dev0))
-            per = {"aag": 0, "decoder_epilogue": 2 * 5 * 2, "int8_gemm": 0}
+            per = launches_of({"decoder_epilogue": 2 * 5 * 2})
             held("float32 Predictor(mesh=(cuda:0, cuda:0)) predict_many k=2",
                  lambda: eager.predict_many(stacks[2]), lambda: graphed.predict_many(stacks[2]),
                  per)
@@ -3920,23 +4037,25 @@ def _graphed(torch, smi, weights, images, tmp):
     torch.backends.cudnn.allow_tf32 = True
     del plain
     stack2 = np.stack([images, images[::-1]])
-    one = {"aag": 0, "decoder_epilogue": 5}
     variants = {}
     for name, kw in (("bf16", {}), ("float16", {"dtype": torch.float16}),
                      ("int8", {"int8_decoder": True,
                                "calibration_batches": [phantoms(SERVE_B, 304, seed=31)]})):
         eager, graphed = twins(**kw)
-        gemms = len(graphed.int8_scales) if graphed.int8_scales else 0
+        convs = int8_sites(graphed)
+        check(convs == (25 if name == "int8" else 0), f"{name}: {convs} int8 convs")
         probs, _, worst, low = held(f"{name} __call__ (304², B={SERVE_B})", lambda: eager(images),
-                                    lambda: graphed(images), {**one, "int8_gemm": gemms},
-                                    exact=False)
+                                    lambda: graphed(images),
+                                    {"decoder_epilogue": 5, "int8_conv": convs}, exact=False)
         _, _, worst2, low2 = held(f"{name} predict_many k=2", lambda: eager.predict_many(stack2),
                                   lambda: graphed.predict_many(stack2),
-                                  {"aag": 0, "decoder_epilogue": 10, "int8_gemm": 2 * gemms},
+                                  {"decoder_epilogue": 10, "int8_conv": 2 * convs},
                                   exact=False)
         paths["decoder_epilogue"][f"graphed Predictor, {name} __call__ (B={SERVE_B})"] = 5
+        if convs:
+            paths["int8_conv"][f"graphed Predictor, {name} __call__ (B={SERVE_B})"] = convs
         variants[name] = {"agreement": min(low, low2), "max_abs_diff": max(worst, worst2),
-                          "int8_gemms_per_call": gemms, "probs": probs}
+                          "int8_convs_per_call": convs, "probs": probs}
         if name == "bf16":
             serving = (eager, graphed)  # kept for the speeds below
         del eager, graphed
@@ -4154,6 +4273,224 @@ def _graphed(torch, smi, weights, images, tmp):
     log(f"[graphed] phase 14 took {time.time() - t_phase:.1f} s")
     log(json.dumps({"graphed": summary}))
     return paths
+
+
+# int8-kernel-phase settings (phase 15): the card's published peaks the
+# kernel's bound is taken against (NVIDIA H100 SXM: dense int8 tensor-core
+# operations, device memory)
+INT8_OPS_PER_S = 1979e12
+
+
+def int8_site_bound(a, groups):
+    """(bound ms, "bytes" or "operations", ops, bytes) of one int8 conv call
+    (`a`: its arguments by name): the multiply-adds the conv needs (a
+    grouped conv's, not the zeros of its block-diagonal operand) at the
+    card's int8 rate, and each input read once (activations, the int8
+    weight, scales, bias) and the output written once at its memory rate."""
+    x, ws, bias, pair = a["x"], a["ws"], a["bias"], a["pair"]
+    b, h, w, c = x.shape
+    cout = ws.shape[0]
+    kh, kw_ = a["kernel"]
+    sources = [(x, c)] + ([(pair[0], pair[0].shape[3])] if pair is not None else [])
+    if a["transpose"]:
+        rows, n, out_hw = b * h * w, 4 * cout, (2 * h, 2 * w)
+        k_true = [c]
+    else:
+        (sh, sw), (ph, pw), (dh, dw) = a["stride"], a["padding"], a["dilation"]
+        ho = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+        wo = (w + 2 * pw - dw * (kw_ - 1) - 1) // sw + 1
+        rows, n, out_hw = b * ho * wo, cout, (ho, wo)
+        k_true = [kh * kw_ * cs // groups for _, cs in sources]
+    ops = 2 * rows * n * sum(k_true)
+    nbytes = sum(t.numel() * t.element_size() for t, _ in sources)
+    nbytes += sum(n * k for k in k_true) + 4 * n * len(sources) + 4 * len(sources)
+    nbytes += 0 if bias is None else bias.numel() * bias.element_size()
+    nbytes += b * out_hw[0] * out_hw[1] * cout * x.element_size()
+    t_ops, t_bytes = ops / INT8_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations", ops, nbytes) if t_ops >= t_bytes else (t_bytes, "bytes", ops,
+                                                                         nbytes)
+
+
+def phase_int8_kernel(torch, smi, weights, images):
+    """Phase 15: the int8 conv kernel at the exact inputs of the int8
+    Predictor's sites: every call of `int8_conv_nhwc` in one eager forward
+    (scope decoder and scope all at B = SERVE_B; the bench's configuration
+    at B = BENCH_B) recorded and held to the plain version on the same
+    inputs, bit for bit; per decoder depth at both batches the kernel's,
+    the plain version's and cuDNN's bf16 conv's times (the last a yardstick
+    for another function: no quantisation) beside the bound; the whole int8
+    forward of the graphed Predictor against a twin whose sites run the
+    plain version (patched here only), bit for bit. Returns the JSON line's
+    int8_conv figures."""
+    import inspect
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from octave_tpu_torch import bench
+    from octave_tpu_torch.ops import quant
+    from octave_tpu_torch.ops.kernels.int8_conv import int8_conv_nhwc_plain
+    from octave_tpu_torch.serve import Predictor
+
+    t_phase = time.time()
+    timer = Timer(torch)
+    kernel = quant.int8_conv_nhwc
+    signature = inspect.signature(kernel)
+    calib = phantoms(SERVE_B, 304, seed=31)
+
+    def yardstick(mod, a):
+        """ms of cuDNN's bf16 conv of the site's float shape (the pair's
+        concat), on random bf16 values."""
+        b, h, w, c = a["x"].shape
+        c += a["pair"][0].shape[3] if a["pair"] is not None else 0
+        xb = torch.randn(b, c, h, w, device="cuda", dtype=torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        bias = None if a["bias"] is None else a["bias"].to(torch.bfloat16)
+        cout = a["ws"].shape[0]
+        if mod.transpose:
+            wt = torch.randn(c, cout, 2, 2, device="cuda", dtype=torch.bfloat16)
+            return timer.ms(lambda: F.conv_transpose2d(xb, wt, bias, stride=2))
+        stride, padding, dilation = mod.geometry
+        wt = torch.randn(cout, c // mod.groups, *mod.kernel, device="cuda", dtype=torch.bfloat16)
+        return timer.ms(lambda: F.conv2d(xb, wt, bias, stride, padding, dilation, mod.groups))
+
+    def run_sites(pred, x, timed):
+        """One eager forward of `pred` on `x`, every int8 conv call's output
+        held to the plain version's on the same inputs; rows per call."""
+        rows, current = [], {}
+
+        def recorder(*args, **kw):
+            out = kernel(*args, **kw)
+            torch.cuda.synchronize()
+            want = int8_conv_nhwc_plain(*args, **kw)
+            mod, name = current["mod"], current["name"]
+            call = signature.bind(*args, **kw)
+            call.apply_defaults()
+            a = call.arguments
+            err = float((out.float() - want.float()).abs().max())
+            row = dict(site=name, equal=bool(torch.equal(out, want)), err=err,
+                       x=tuple(a["x"].shape), n=a["ws"].shape[0], dtype=str(out.dtype)[6:])
+            del want
+            b_ms, b_by, ops, nbytes = int8_site_bound(a, 1 if a["pair"] is not None
+                                                      else mod.groups)
+            row.update(bound_ms=b_ms, bound_by=b_by, ops=ops, bytes=nbytes)
+            if timed:
+                row["ms"] = timer.ms(lambda: kernel(*args, **kw))
+                row["plain_ms"] = timer.ms(lambda: int8_conv_nhwc_plain(*args, **kw), reps=5)
+                row["cudnn_bf16_ms"] = yardstick(mod, a)
+                log(f"[int8 kernel]   {name} x {row['x']}"
+                    + (f" + pair {tuple(a['pair'][0].shape)}" if a["pair"] is not None else "")
+                    + f" -> N {row['n']}, {'3x3' if a['kernel'] == (3, 3) else a['kernel']}"
+                    f"{' transpose' if a['transpose'] else ''}: kernel {row['ms']:.4f} ms, "
+                    f"plain {row['plain_ms']:.4f}, bound {b_ms:.4f} ({b_by}), cuDNN bf16 "
+                    f"{row['cudnn_bf16_ms']:.4f}")
+            rows.append(row)
+            return out
+
+        def enter(mod, args, name):
+            current.update(mod=mod, name=name)
+
+        handles = [m.register_forward_pre_hook(functools.partial(enter, name=name))
+                   for name, m in pred.model.named_modules() if isinstance(m, quant.Int8Conv)]
+        quant.int8_conv_nhwc = recorder
+        try:
+            pred(x)
+            torch.cuda.synchronize()
+        finally:
+            quant.int8_conv_nhwc = kernel
+            for h in handles:
+                h.remove()
+        bad = [r["site"] for r in rows if not r["equal"]]
+        check(not bad, f"the int8 conv kernel differs from its plain version at {bad}")
+        check(len(rows) == int8_sites(pred), f"{len(rows)} int8 conv calls, "
+              f"{int8_sites(pred)} int8 convs")
+        return rows
+
+    def by_depth(rows, label):
+        depths = {}
+        for r in rows:
+            d = depths.setdefault(r["site"].split(".")[0], dict(
+                sites=0, ms=0.0, plain_ms=0.0, bound_ms=0.0, cudnn_bf16_ms=0.0, ops=0,
+                bytes=0, by=set()))
+            d["sites"] += 1
+            for k in ("ms", "plain_ms", "bound_ms", "cudnn_bf16_ms", "ops", "bytes"):
+                d[k] += r[k]
+            d["by"].add(r["bound_by"])
+        for name, d in sorted(depths.items()):
+            d["by"] = "/".join(sorted(d["by"]))
+            log(f"[int8 kernel] {label} {name} ({d['sites']} convs): kernel {d['ms']:.4f} ms, "
+                f"plain {d['plain_ms']:.4f} ms, bound {d['bound_ms']:.4f} ms ({d['by']}; "
+                f"{d['ops'] / 1e9:.1f} GOP, {d['bytes'] / 1e6:.1f} MB) = "
+                f"{d['bound_ms'] / d['ms']:.1%} of bound; cuDNN bf16 conv of the same shapes "
+                f"{d['cudnn_bf16_ms']:.4f} ms (a yardstick: no quantisation)")
+        total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms",
+                                                       "cudnn_bf16_ms", "ops", "bytes")}
+        ops_ms = total["ops"] / INT8_OPS_PER_S * 1e3
+        total["bound_by"] = "operations" if ops_ms >= total["bytes"] / HBM_BYTES_PER_S * 1e3 \
+            else "bytes"
+        total["max_abs_err"] = max(r["err"] for r in rows)
+        log(f"[int8 kernel] {label}, all {len(rows)} convs: kernel {total['ms']:.4f} ms, plain "
+            f"{total['plain_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms "
+            f"({total['bound_ms'] / total['ms']:.1%}), cuDNN bf16 {total['cudnn_bf16_ms']:.4f} ms "
+            f"on {smi}")
+        return total, depths
+
+    # 15.1 scope decoder and scope all at B = SERVE_B: every site bit for bit,
+    # the decoder's timed per depth
+    results = {}
+    for scope in ("decoder", "all"):
+        pred = Predictor(weights, int8_decoder=True, calibration_batches=[calib],
+                         int8_scope=scope, graphed=False)
+        rows = run_sites(pred, images, timed=scope == "decoder")
+        log(f"[int8 kernel] scope {scope}, B={SERVE_B}: {len(rows)} int8 conv calls, each "
+            f"equal to the plain version on its inputs bit for bit ("
+            + ", ".join(sorted({r['dtype'] for r in rows})) + ")")
+        if scope == "decoder":
+            results["serve"] = by_depth(rows, f"B={SERVE_B} bf16")
+        del pred
+    # 15.2 the whole int8 forward, graphed (warm-up, capture, replay), against
+    # a twin whose sites run the plain version
+    for scope in ("decoder", "all"):
+        pred = Predictor(weights, int8_decoder=True, calibration_batches=[calib],
+                         int8_scope=scope)
+        got = [pred(images) for _ in range(3)]
+        quant.int8_conv_nhwc = int8_conv_nhwc_plain
+        try:
+            twin = Predictor(weights, int8_decoder=True, calibration_batches=[calib],
+                             int8_scope=scope, graphed=False)
+            want = twin(images)
+        finally:
+            quant.int8_conv_nhwc = kernel
+        check(all(np.array_equal(g, want) for g in got),
+              f"scope {scope}: the int8 forward differs from the plain route's")
+        log(f"[int8 kernel] scope {scope}: the graphed int8 Predictor's outputs (warm-up, capture, "
+            f"replay, B={SERVE_B}) equal a twin's whose int8 convs run the plain version "
+            f"(quantise, im2col, torch._int_mm, float32 dequantisation) bit for bit")
+        del pred, twin, got, want
+    release(torch, "phase 15 before B=256")
+    # 15.3 the bench's configuration at B = BENCH_B: its decoder's sites
+    xs = bench.phantom_batch(BENCH_B, 304)
+    pred = Predictor(weights, int8_decoder=True, graphed=False, dense_groups="decoder",
+                     calibration_batches=[xs[:bench.CALIBRATION_IMAGES]])
+    rows = run_sites(pred, xs, timed=True)
+    results["bench"] = by_depth(rows, f"B={BENCH_B} bf16 (the bench's Predictor)")
+    del rows
+    # 15.4 where the time of one eager int8 forward at B = BENCH_B goes
+    pred(xs)
+    t_prof, groups, _ = profile_groups(torch, lambda: pred(xs), int8_group)
+    busy = sum(groups.values())
+    check(groups.get("int8 conv kernel (CUDA C++)", 0.0) > 0
+          and groups.get("int8 GEMMs (cuBLASLt)", 0.0) == 0,
+          f"B={BENCH_B} profile: no int8 conv kernel, or a library int8 GEMM: {groups}")
+    log(f"[int8 kernel] profile of one eager int8 forward of the bench's Predictor "
+        f"(B={BENCH_B}, bf16, scope decoder): wall {t_prof:.1f} ms, device kernels {busy:.1f} "
+        f"ms; " + ", ".join(f"{g} {v:.2f} ms" for g, v in sorted(groups.items(),
+                                                            key=lambda x: -x[1]))
+        + f" on {smi}")
+    results["profile_bench"] = {"wall_ms": t_prof, "device_ms": busy, "groups": groups}
+    del pred
+    log(f"[int8 kernel] phase 15 took {time.time() - t_phase:.1f} s")
+    return results
 
 
 def release(torch, label):

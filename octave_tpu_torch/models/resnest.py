@@ -30,19 +30,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from octave_tpu_torch.ops import remat
-from octave_tpu_torch.ops.common import avg_pool2d, conv_transpose_2x2, max_pool2d
+from octave_tpu_torch.ops.common import (  # noqa: F401  (nchw: re-exported)
+    avg_pool2d,
+    conv_transpose_2x2,
+    max_pool2d,
+    nchw,
+    nhwc,
+)
 from octave_tpu_torch.ops.kernels.decoder_epilogue import fused_decoder_epilogue
 from octave_tpu_torch.ops.norm import BatchNorm2d
-
-
-def nhwc(t: torch.Tensor) -> torch.Tensor:
-    """NCHW tensor -> contiguous NHWC view (free for a channels_last tensor)."""
-    return t.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
-
-
-def nchw(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous NHWC tensor -> channels_last NCHW view."""
-    return t.permute(0, 3, 1, 2)
 
 
 class SplAtConv2d(nn.Module):

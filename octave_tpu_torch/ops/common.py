@@ -20,6 +20,16 @@ CONV_TRANSPOSE_IMPLS = ("einsum", "native")
 _CONV_TRANSPOSE_IMPL = "native"
 
 
+def nhwc(t: torch.Tensor) -> torch.Tensor:
+    """NCHW tensor -> contiguous NHWC view (free for a channels_last tensor)."""
+    return t.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+
+
+def nchw(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous NHWC tensor -> channels_last NCHW view."""
+    return t.permute(0, 3, 1, 2)
+
+
 def max_pool2d(x: torch.Tensor, kernel_size: int = 3, stride: int = 2,
                padding: int = 1) -> torch.Tensor:
     """The stem's MaxPool2d(3, 2, 1)."""

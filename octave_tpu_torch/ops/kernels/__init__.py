@@ -1,8 +1,14 @@
-"""Hand-written Hopper kernels (Triton) for the Pallas kernels of octave_tpu.
+"""Hand-written Hopper kernels of the port, by two routes:
 
-Triton is imported only inside the functions that launch a kernel: a host
-without it (or without a GPU) imports every module here and runs the plain
-PyTorch versions on CPU tensors.
+  * Triton, for the Pallas kernels of octave_tpu (`aag`, `decoder_epilogue`):
+    Triton is imported only inside the functions that launch a kernel;
+  * CUDA C++ for sm_90a (`int8_conv`, the int8 serving conv, which the JAX
+    package leaves to XLA): sources in `csrc/`, compiled by nvcc at first
+    use and bound with ctypes (`cuda_build`).
+
+A host without a GPU, Triton or nvcc imports every module here and runs the
+plain PyTorch versions on CPU tensors; on a CUDA tensor each wrapper
+launches its kernel or raises.
 """
 from __future__ import annotations
 

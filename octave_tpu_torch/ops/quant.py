@@ -12,8 +12,9 @@ wrappers at trace time; here the model's modules are swapped:
     `nn.Conv2d`, and the ConvTranspose2d of each selected `Upsampling`, by an
     `Int8Conv`: symmetric per-tensor activation quantisation with the static
     scale, symmetric per-output-channel weights (quantised once here with
-    `prepack`, else on every call), an int8 x int8 -> int32 GEMM, and the
-    dequantisation and bias in float32, cast back to the input's dtype.
+    `prepack`, else on every call), an int8 x int8 -> int32 implicit GEMM,
+    and the dequantisation and bias in float32, cast back to the input's
+    dtype.
 
 Scale keys are module names: `decoder_3.conv.3.conv` (a conv of one input),
 `upsampling_2.up`, and `decoder_3.conv.0:a` / `:b` for the skip and
@@ -22,11 +23,13 @@ upsampled halves of a decoder's first convs, which take one scale each
 the JAX package's keys to these. The state dict keeps its keys; prepacked
 weights are int8 under them.
 
-The convs lower to im2col on the NHWC activation and `torch._int_mm`, a
-library int8 GEMM (the JAX package computes them through XLA, outside any
-Pallas kernel). A grouped conv runs as one block-diagonal GEMM, exact in
-int32. CUDA's `_int_mm` wants more than 16 rows and K and N in multiples of
-8, so `int8_mm` pads with zeros (exact) and slices the padding off.
+Every int8 conv, ConvTranspose and decoder pair runs through one call of
+`ops/kernels/int8_conv.py::int8_conv_nhwc` on the NHWC activation: on the
+card a hand-written CUDA kernel (quantise as it loads, implicit GEMM on the
+int8 tensor cores, dequantise, bias and cast in its epilogue; the JAX
+package computes these through XLA, outside any Pallas kernel), on the CPU
+its plain version (quantise, im2col, `torch._int_mm`, dequantise). A grouped
+conv runs as one block-diagonal GEMM, exact in int32.
 """
 from __future__ import annotations
 
@@ -36,8 +39,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from octave_tpu_torch.ops import common
-from octave_tpu_torch.ops.kernels import count_launch
+from octave_tpu_torch.ops.common import nchw, nhwc
+from octave_tpu_torch.ops.kernels.int8_conv import int8_conv_nhwc, int8_mm  # noqa: F401
 
 Pair = Tuple[int, int]
 
@@ -75,35 +78,9 @@ def quantize_weight(w: torch.Tensor, transpose: bool = False):
     return torch.round(wf * (1.0 / ws).view(shape)).to(torch.int8), ws
 
 
-def quantize_activation(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
-    """clip(round(x / sx), -127, 127) as int8; `sx` is a float32 scalar on
-    x's device (a true division, not a multiply by 1 / sx)."""
-    return torch.clamp(torch.round(x.float() / sx), -127.0, 127.0).to(torch.int8)
-
-
 def _x_scale_tensor(x_scale: float, device=None) -> torch.Tensor:
     """The static activation scale as a float32 scalar: max(x_scale, 1e-12)."""
     return torch.tensor(max(float(x_scale), 1e-12), dtype=torch.float32, device=device)
-
-
-def int8_mm(a: torch.Tensor, b_t: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
-    """(M, K) int8 @ (N', K') int8 -> (M, n) int32, exact. `b_t` is the
-    weight operand row-major as (N, K), possibly already zero-padded
-    (K' >= K, N' >= n); `a` is padded to K' columns and more than 16 rows.
-    Counts its calls in `int8_mm.launches`."""
-    m, k = a.shape
-    n = b_t.shape[0] if n is None else n
-    if b_t.shape[1] % 8 or b_t.shape[0] % 8:
-        b_t = F.pad(b_t, (0, -b_t.shape[1] % 8, 0, -b_t.shape[0] % 8))
-    pad_m = max(17 - m, 0)
-    if pad_m or b_t.shape[1] != k:
-        a = F.pad(a, (0, b_t.shape[1] - k, 0, pad_m))
-    y = torch._int_mm(a, b_t.t())
-    count_launch(int8_mm)
-    return y[:m, :n] if pad_m or b_t.shape[0] != n else y
-
-
-int8_mm.launches = 0
 
 
 def pack_weight(wq: torch.Tensor, groups: int = 1, transpose: bool = False) -> torch.Tensor:
@@ -126,61 +103,37 @@ def pack_weight(wq: torch.Tensor, groups: int = 1, transpose: bool = False) -> t
     return F.pad(packed, (0, -packed.shape[1] % 8, 0, -packed.shape[0] % 8)).contiguous()
 
 
-def _im2col(xq: torch.Tensor, kernel: Pair, stride: Pair, padding: Pair,
-            dilation: Pair) -> Tuple[torch.Tensor, int, int]:
-    """(B, H, W, C) int8 -> ((B*Ho*Wo, kh*kw*C) columns in (kh, kw, C)
-    order, Ho, Wo)."""
-    b, h, w, c = xq.shape
-    (kh, kw), (sh, sw), (ph, pw), (dh, dw) = kernel, stride, padding, dilation
-    ho = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
-    wo = (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1
-    if (kh, kw, sh, sw, ph, pw) == (1, 1, 1, 1, 0, 0):
-        return xq.reshape(b * h * w, c), h, w
-    xp = F.pad(xq, (0, 0, pw, pw, ph, ph))
-    taps = [xp[:, i * dh: i * dh + sh * (ho - 1) + 1: sh, j * dw: j * dw + sw * (wo - 1) + 1: sw]
-            for i in range(kh) for j in range(kw)]
-    return torch.stack(taps, dim=3).reshape(b * ho * wo, kh * kw * c), ho, wo
+def _bias(bias: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tensor]:
+    """The bias as the kernel reads it: x's dtype or float32 (exact)."""
+    if bias is None or bias.dtype in (x.dtype, torch.float32):
+        return bias
+    return bias.float()
 
 
 def conv_packed(x: torch.Tensor, packed: torch.Tensor, sx: torch.Tensor, ws: torch.Tensor,
-                bias: Optional[torch.Tensor], kernel, stride=1, padding=0,
-                dilation=1) -> torch.Tensor:
-    """The int8 conv of an NCHW `x` with a `pack_weight` operand: quantise
-    x by `sx`, im2col, GEMM, y_i32 * (sx * ws) + bias in float32, cast to
-    x.dtype. Returns NCHW (a channels_last view)."""
-    xq = quantize_activation(x.permute(0, 2, 3, 1), sx)
-    cols, ho, wo = _im2col(xq, _pair(kernel), _pair(stride), _pair(padding), _pair(dilation))
-    n = ws.shape[0]
-    y = int8_mm(cols, packed, n).float() * (sx * ws)
-    if bias is not None:
-        y = y + bias.float()
-    return y.to(x.dtype).reshape(x.shape[0], ho, wo, n).permute(0, 3, 1, 2)
+                bias: Optional[torch.Tensor], kernel, stride=1, padding=0, dilation=1,
+                pair: Optional[tuple] = None) -> torch.Tensor:
+    """The int8 conv of an NCHW `x` with a `pack_weight` operand, one
+    `int8_conv_nhwc` call: x quantised by `sx`, the GEMM, y_i32 * (sx * ws)
+    + bias in float32, cast to x.dtype. `pair` = (x_b NCHW, packed_b, sx_b,
+    ws_b) adds a second input's conv, each dequantised and cast on its own.
+    Returns NCHW (a channels_last view)."""
+    if pair is not None:
+        xb, packed_b, sx_b, ws_b = pair
+        pair = (nhwc(xb), packed_b, ws_b, sx_b)
+    return nchw(int8_conv_nhwc(nhwc(x), packed, ws, sx, _bias(bias, x), _pair(kernel),
+                               _pair(stride), _pair(padding), _pair(dilation), pair=pair))
 
 
 def conv_transpose_packed(x: torch.Tensor, packed: torch.Tensor, sx: torch.Tensor,
                           ws: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
     """The int8 ConvTranspose2d(2, 2) of an NCHW `x`: one (B*H*W, C_in) x
-    (C_in, 4*C_out) GEMM and the 2x2 interleave, dequantised per output
-    channel. It follows `ops.common.set_conv_transpose_impl` as the JAX
-    package's int8 path does (:190-203): 'native' interleaves the int32 sums
-    into the strided output first, as XLA's conv_transpose writes it, then
-    dequantises; 'einsum' dequantises the GEMM's 2x2 blocks and interleaves
-    last. Both are exact in int32, so the values are the same. Returns NCHW
-    (a channels_last view)."""
-    b, _, h, w = x.shape
-    n = ws.shape[0]
-    xq = quantize_activation(x.permute(0, 2, 3, 1), sx).reshape(b * h * w, -1)
-    y = int8_mm(xq, packed, 4 * n).reshape(b, h, w, 2, 2, n)
-    native = common.conv_transpose_impl() == "native"
-    if native:
-        y = y.permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * h, 2 * w, n)
-    y = y.float() * (sx * ws)
-    if bias is not None:
-        y = y + bias.float()
-    y = y.to(x.dtype)
-    if not native:
-        y = y.permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * h, 2 * w, n)
-    return y.permute(0, 3, 1, 2)
+    (C_in, 4*C_out) GEMM with the 2x2 interleave in its store, dequantised
+    per output channel. The values are the same under both
+    `ops.common.set_conv_transpose_impl` settings (exact in int32; the
+    plain version follows the setting's order as the JAX package's int8
+    path does, :190-203). Returns NCHW (a channels_last view)."""
+    return nchw(int8_conv_nhwc(nhwc(x), packed, ws, sx, _bias(bias, x), transpose=True))
 
 
 def _operands(weight: torch.Tensor, x_scale, transpose: bool, groups: int, device):
@@ -218,9 +171,10 @@ class Int8Conv(nn.Module):
     ConvTranspose2d(2, 2), under the same `weight` / `bias` names.
 
     `x_scale` is a float, or the (skip, upsampled) pair of a decoder's first
-    conv, which then takes the pair `(a, b)` (`takes_pair`): each half runs
-    its own int8 conv against its slice of the weight's input channels, is
-    dequantised and cast to the input dtype, and the two are added. With
+    conv, which then takes the pair `(a, b)` (`takes_pair`): each half is
+    multiplied by its slice of the weight's input channels, dequantised and
+    cast to the input dtype, and the two are added, all in one
+    `int8_conv_nhwc` call (one kernel launch on the card). With
     `prepack` the weight is quantised once here (int8 under `weight`) and
     its GEMM operand packed; a pair's two operands are packed at the first
     call, once the skip's width is known. Without it, every call quantises
@@ -251,32 +205,30 @@ class Int8Conv(nn.Module):
             self.register_buffer("packed", pack_weight(wq, self.groups, self.transpose),
                                  persistent=False)
 
-    def _run(self, x, packed, sx, ws, bias):
+    def _run(self, x, packed, sx, ws, bias, pair=None):
         if self.transpose:
             return conv_transpose_packed(x, packed, sx, ws, bias)
-        return conv_packed(x, packed, sx, ws, bias, self.kernel, *self.geometry)
-
-    def _per_call(self, x, weight, sx, bias):
-        wq, ws = quantize_weight(weight, self.transpose)
-        groups = 1 if self.takes_pair else self.groups
-        return self._run(x, pack_weight(wq, groups, self.transpose), sx, ws, bias)
+        return conv_packed(x, packed, sx, ws, bias, self.kernel, *self.geometry, pair=pair)
 
     def forward(self, x):
         if not self.takes_pair:
             if not self.prepacked:
-                return self._per_call(x, self.weight, self.sx0, self.bias)
+                wq, ws = quantize_weight(self.weight, self.transpose)
+                return self._run(x, pack_weight(wq, self.groups, self.transpose), self.sx0,
+                                 ws, self.bias)
             return self._run(x, self.packed, self.sx0, self.w_scale, self.bias)
         a, b = x
         ca, w = a.shape[1], self.weight
-        if not self.prepacked:
-            return self._per_call(a, w[:, :ca], self.sx0, None) + self._per_call(
-                b, w[:, ca:], self.sx1, None)
+        if not self.prepacked:  # each half quantised on its own
+            (wa, wsa), (wb, wsb) = quantize_weight(w[:, :ca]), quantize_weight(w[:, ca:])
+            return self._run(a, pack_weight(wa), self.sx0, wsa, None,
+                             (b, pack_weight(wb), self.sx1, wsb))
         halves = self._halves.get((ca, w.device))  # the weight may have moved since
         if halves is None:
             halves = (pack_weight(w[:, :ca]), pack_weight(w[:, ca:]))
             self._halves[(ca, w.device)] = halves
-        return (self._run(a, halves[0], self.sx0, self.w_scale, None)
-                + self._run(b, halves[1], self.sx1, self.w_scale, None))
+        return self._run(a, halves[0], self.sx0, self.w_scale, None,
+                         (b, halves[1], self.sx1, self.w_scale))
 
     def extra_repr(self) -> str:
         return f"x_scale={self.x_scale}, prepacked={self.prepacked}, groups={self.groups}"

@@ -1,7 +1,8 @@
-"""The port's Triton kernels against their plain PyTorch versions, its int8
-convs against the CPU's, its deployment path (augmentation, checkpoints,
-the pipelined server, the int8 Predictor), the gated dual decoders with
-their two critics and the train step captured as a CUDA graph, on a GPU.
+"""The port's Triton kernels and its CUDA C++ int8 conv kernel against their
+plain PyTorch versions, its int8 convs against the CPU's, its deployment
+path (augmentation, checkpoints, the pipelined server, the int8 Predictor),
+the gated dual decoders with their two critics and the train step captured
+as a CUDA graph, on a GPU.
 
 Every case skips without CUDA. The file imports neither JAX nor the JAX
 package, so on a GPU host without JAX it runs on its own:
@@ -14,6 +15,9 @@ order), scaled by sqrt(C / 64) above C = 64; bfloat16 one bf16 ulp of the
 plain result (rtol 2^-7) plus 1e-3 (atol), because kernel and plain version
 both compute in float32 and round once, and can fall on either side of a
 rounding boundary; float16 likewise one float16 ulp (rtol 2^-10) plus 1e-3.
+The int8 conv kernel is held bit for bit: it rounds where its plain version
+rounds (true-division quantisation, exact int32 sums, float32 dequantisation
+without contraction, one cast).
 """
 import json
 
@@ -34,7 +38,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the Triton kernels run only there)")
+        pytest.skip("needs a CUDA device (the kernels run only there)")
     return torch.device("cuda")
 
 
@@ -269,7 +273,7 @@ def test_batch_server_on_card(cuda, gen):
         launch_counts(reset=True)
         got = list(srv.map(iter(imgs)))
     torch.cuda.synchronize()
-    assert launch_counts() == {"aag": 0, "decoder_epilogue": 5 * sum(ks)}
+    assert launch_counts() == {"aag": 0, "decoder_epilogue": 5 * sum(ks), "int8_conv": 0}
     assert sum(ks) * 4 >= 21 and len(got) == 21
     assert torch.from_numpy(got[0]).is_pinned()
     np.testing.assert_allclose(np.stack(got), want, atol=2**-7, rtol=0)
@@ -297,7 +301,7 @@ def test_gated_dual_decoders_on_card(cuda, gen, fused):
         finally:
             torch.backends.cudnn.allow_tf32 = True
     kernel = "decoder_epilogue" if fused else "aag"
-    assert launch_counts() == {"aag": 0, "decoder_epilogue": 0, kernel: 7}
+    assert launch_counts() == {"aag": 0, "decoder_epilogue": 0, "int8_conv": 0, kernel: 7}
     assert len(atts) == 5 and len(atts_c) == 2
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
 
@@ -316,7 +320,7 @@ def test_dual_critic_step_on_card(cuda):
     launch_counts(reset=True)
     losses = tr.train_step(state, batch)
     torch.cuda.synchronize()
-    assert launch_counts() == {"aag": 7, "decoder_epilogue": 0}
+    assert launch_counts() == {"aag": 7, "decoder_epilogue": 0, "int8_conv": 0}
     assert all(bool(torch.isfinite(v)) for v in losses.values())
     for n, c in state.critic.items():
         assert not torch.equal(u[n], c.spectral_dict["spectral_0"][0].weight_u), n
@@ -398,9 +402,11 @@ INT8_CONVS = [(64, 32, 3, 1, 1, 1, 2, 38), (32, 64, 3, 1, 1, 4, 2, 19),
 
 @pytest.mark.parametrize("case", INT8_CONVS, ids=lambda c: "x".join(map(str, c)))
 def test_int8_conv_on_card_equals_cpu(cuda, gen, case):
-    """The int8 conv on the card (cuBLASLt's int8 GEMM) equals the CPU's,
-    bit for bit, in bf16: the same quantisation, exact int32 products."""
+    """The int8 conv on the card (the int8 conv kernel, one launch, no
+    library int8 GEMM) equals the CPU's, bit for bit, in bf16: the same
+    quantisation, exact int32 products, the same float32 dequantisation."""
     from octave_tpu_torch.ops import quant
+    from octave_tpu_torch.ops.kernels.int8_conv import int8_conv_nhwc
 
     ci, co, k, s, p, g, b, hw = case
     x = _t(gen.standard_normal((b, hw, hw, ci)).astype(np.float32), "cpu", torch.bfloat16)
@@ -410,10 +416,156 @@ def test_int8_conv_on_card_equals_cpu(cuda, gen, case):
     bias = _t(gen.standard_normal(co).astype(np.float32), "cpu", torch.bfloat16)
     sx = float(x.float().abs().max()) / 127
     want = quant.int8_conv(x, w, bias, sx, s, p, 1, g)
-    calls = quant.int8_mm.launches
+    calls, gemms = int8_conv_nhwc.launches, quant.int8_mm.launches
     got = quant.int8_conv(x.to(cuda), w.to(cuda), bias.to(cuda), sx, s, p, 1, g)
-    assert quant.int8_mm.launches == calls + 1
+    assert int8_conv_nhwc.launches == calls + 1 and quant.int8_mm.launches == gemms
     assert torch.equal(got.cpu(), want)
+
+
+# the int8 conv kernel against its plain version on the card: (name, C_in,
+# C_out, kernel, stride, padding, groups, B, H = W, pair C_in, transpose).
+# Ragged M (< 17 rows), N (13, 200: not a multiple of the tile) and K (C_in
+# 12, 3, 40), the pair and the ConvTranspose store modes, the halo path
+# (3x3, stride 1, C_in % 32 == 0: tiles of 16 columns and of whole rows of
+# 19, 38 and 5 pixels, ragged column tiles at 100, pairs of 32 and 64
+# channels) and the per-tap path where the halo does not apply (2x2) or
+# would not fit (W = 1), and decoder_0's two 3x3 convs at 304²
+INT8_KERNEL_CASES = [
+    ("3x3", 16, 24, 3, 1, 1, 1, 2, 9, None, False),
+    ("1x1", 16, 24, 1, 1, 0, 1, 2, 9, None, False),
+    ("stride2", 16, 24, 3, 2, 1, 1, 2, 9, None, False),
+    ("groups4", 16, 24, 3, 1, 1, 4, 2, 8, None, False),
+    ("cin3", 3, 32, 3, 2, 1, 1, 2, 10, None, False),
+    ("fc_m2", 32, 64, 1, 1, 0, 2, 2, 1, None, False),
+    ("fc_m16", 32, 64, 1, 1, 0, 2, 16, 1, None, False),
+    ("ragged_nk", 12, 13, 3, 1, 1, 1, 3, 7, None, False),
+    ("ragged_wide", 40, 200, 3, 1, 1, 1, 2, 13, None, False),
+    ("pair", 32, 32, 3, 1, 1, 1, 2, 19, 32, False),
+    ("pair_ragged", 8, 24, 3, 1, 1, 1, 2, 6, 16, False),
+    ("pair_1x1", 64, 128, 1, 1, 0, 1, 2, 19, 64, False),
+    ("transpose", 16, 8, 2, 2, 0, 1, 2, 5, None, True),
+    ("transpose_wide", 256, 64, 2, 2, 0, 1, 2, 38, None, True),
+    ("halo_w19", 32, 64, 3, 1, 1, 4, 2, 19, None, False),
+    ("halo_w38", 64, 128, 3, 1, 1, 1, 2, 38, None, False),
+    ("halo_c96_w76", 96, 200, 3, 1, 1, 1, 1, 76, None, False),
+    ("halo_w100", 128, 24, 3, 1, 1, 1, 1, 100, None, False),
+    ("halo_w5", 32, 40, 3, 1, 1, 1, 3, 5, None, False),
+    ("per_tap_2x2", 32, 32, 2, 1, 0, 1, 2, 9, None, False),
+    ("halo_pair_mixed", 32, 48, 3, 1, 1, 1, 2, 21, 64, False),
+    ("per_tap_w1", 32, 32, 3, 1, 1, 1, 2, 1, None, False),
+    ("decoder0_conv0", 32, 32, 3, 1, 1, 1, 2, 304, 32, False),
+    ("decoder0_splat", 32, 64, 3, 1, 1, 4, 2, 304, None, False),
+]
+
+
+def _int8_kernel_inputs(gen, case, dtype, device):
+    """(args, kwargs) of int8_conv_nhwc for one case, made with numpy."""
+    from octave_tpu_torch.ops import quant
+
+    _, ci, co, k, s, p, g, b, hw, pair_c, transpose = case
+    x = _t((gen.standard_normal((b, hw, hw, ci)) * 2).astype(np.float32), device, dtype)
+    sx = torch.tensor(float(x.float().abs().max()) / 127 * 0.9, device=device)
+    shape = (ci, co, 2, 2) if transpose else (co, ci // g, k, k)
+    wq, ws = quant.quantize_weight(_t((gen.standard_normal(shape) * 0.1).astype(np.float32),
+                                      device, torch.float32), transpose)
+    packed = quant.pack_weight(wq, g, transpose)
+    bias = _t(gen.standard_normal(co).astype(np.float32), device, dtype)
+    kw = dict(kernel=(k, k), stride=(s, s), padding=(p, p), transpose=transpose)
+    if pair_c:
+        xb = _t(gen.standard_normal((b, hw, hw, pair_c)).astype(np.float32), device, dtype)
+        wqb, wsb = quant.quantize_weight(
+            _t((gen.standard_normal((co, pair_c, k, k)) * 0.1).astype(np.float32), device,
+               torch.float32))
+        kw["pair"] = (xb, quant.pack_weight(wqb), wsb, torch.tensor(0.02, device=device))
+        bias = None
+    return (x, packed, ws, sx, bias), kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("case", INT8_KERNEL_CASES, ids=lambda c: c[0])
+def test_int8_kernel_equals_plain_bit_for_bit(cuda, gen, case, dtype):
+    """The kernel's output equals its plain version's (quantise, im2col,
+    torch._int_mm, float32 dequantisation) on the card and the CPU's, bit
+    for bit: the same true-division quantisation, exact int32 sums, the
+    same float32 roundings (no contraction) and one cast."""
+    from octave_tpu_torch.ops.kernels.int8_conv import int8_conv_nhwc, int8_conv_nhwc_plain
+
+    args, kw = _int8_kernel_inputs(gen, case, dtype, cuda)
+    launches = int8_conv_nhwc.launches
+    got = int8_conv_nhwc(*args, **kw)
+    torch.cuda.synchronize()
+    assert int8_conv_nhwc.launches == launches + 1 and got.dtype == dtype
+    assert torch.equal(got, int8_conv_nhwc_plain(*args, **kw))
+    to_cpu = lambda t: t.cpu() if isinstance(t, torch.Tensor) else t  # noqa: E731
+    cpu_kw = {**kw, "pair": tuple(map(to_cpu, kw["pair"]))} if "pair" in kw else kw
+    assert torch.equal(got.cpu(), int8_conv_nhwc(*map(to_cpu, args), **cpu_kw))
+
+
+def test_int8_kernel_near_rounding_ties(cuda, gen):
+    """Activations on and next to half-integer multiples of the scale: the
+    kernel's multiply by 1 / sx takes the true division there, so q equals
+    round(x / sx) (half to even) as the plain version's does."""
+    from octave_tpu_torch.ops import quant
+    from octave_tpu_torch.ops.kernels.int8_conv import int8_conv_nhwc, int8_conv_nhwc_plain
+
+    for sx in (0.0123456, 0.25, 1.7e-3):
+        x = ((gen.integers(-130, 130, (2, 9, 9, 16)) + 0.5) * sx).astype(np.float32)
+        x[0, 0, 0, :8] = np.array([0.5, 1.5, 2.5, -0.5, -1.5, 126.5, 127.5, -127.5]) * sx
+        x = torch.from_numpy(x).to(cuda)
+        wq, ws = quant.quantize_weight(_t((gen.standard_normal((24, 16, 3, 3)) * 0.1)
+                                          .astype(np.float32), cuda, torch.float32))
+        args = (x, quant.pack_weight(wq), ws, torch.tensor(sx, device=cuda), None, (3, 3),
+                (1, 1), (1, 1))
+        assert torch.equal(int8_conv_nhwc(*args), int8_conv_nhwc_plain(*args)), sx
+
+
+def test_int8_kernel_in_a_graph_replay(cuda, gen):
+    """Captured in a CUDA graph (a pair and a plain conv), the kernel
+    recomputes from the static inputs at every replay and equals the plain
+    version on the new values; the capture's launches go to the tally."""
+    from octave_tpu_torch.ops.kernels import add_launches, record_launches
+    from octave_tpu_torch.ops.kernels.int8_conv import int8_conv_nhwc, int8_conv_nhwc_plain
+
+    cases = [c for c in INT8_KERNEL_CASES if c[0] in ("pair", "groups4", "transpose_wide")]
+    inputs = [_int8_kernel_inputs(gen, c, torch.bfloat16, cuda) for c in cases]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the eager warm-up, as the port's graphs run it
+        for args, kw in inputs:
+            int8_conv_nhwc(*args, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with record_launches() as tally, torch.cuda.graph(graph):
+        outs = [int8_conv_nhwc(*args, **kw) for args, kw in inputs]
+    assert tally == {int8_conv_nhwc: len(cases)}
+    for _ in range(2):
+        for args, kw in inputs:
+            args[0].copy_(torch.randn_like(args[0].float()).to(args[0].dtype))
+            if "pair" in kw:
+                kw["pair"][0].copy_(torch.randn_like(kw["pair"][0].float()).to(torch.bfloat16))
+        launches = int8_conv_nhwc.launches
+        graph.replay()
+        add_launches(tally)
+        torch.cuda.synchronize()
+        assert int8_conv_nhwc.launches == launches + len(cases)
+        for out, (args, kw) in zip(outs, inputs):
+            assert torch.equal(out, int8_conv_nhwc_plain(*args, **kw))
+
+
+def test_int8_kernel_on_a_second_card(cuda, gen):
+    """On cuda:1 (the mesh Predictor's second replica) the kernel launches
+    on that card's current stream and equals the plain version there."""
+    from octave_tpu_torch.ops.kernels.int8_conv import int8_conv_nhwc, int8_conv_nhwc_plain
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second CUDA device")
+    dev = torch.device("cuda", 1)
+    for case in (INT8_KERNEL_CASES[0], INT8_KERNEL_CASES[9]):
+        args, kw = _int8_kernel_inputs(gen, case, torch.bfloat16, dev)
+        got = int8_conv_nhwc(*args, **kw)
+        torch.cuda.synchronize(dev)
+        assert got.device == dev and torch.equal(got, int8_conv_nhwc_plain(*args, **kw))
 
 
 def test_int8_pair_and_transpose_on_card_equal_cpu(cuda, gen):
@@ -436,8 +588,9 @@ def test_int8_pair_and_transpose_on_card_equal_cpu(cuda, gen):
 def test_int8_predictor_on_card(cuda, batch):
     """The int8 Predictor (scope decoder: the SplAt fcs at M = B) on the
     committed trained weights at 304², float32 with TF32 off, calibrated on
-    other phantoms than the requests: five epilogue launches, one int8 GEMM
-    a scale, masks as the card's float32 Predictor's on >= 0.99 of pixels
+    other phantoms than the requests: five epilogue launches, 25 int8 conv
+    kernel launches (five convs a decoder, a pair in one launch) and no
+    library int8 GEMM, masks as the card's float32 Predictor's on >= 0.99 of pixels
     (the JAX package's gate) and as the CPU's int8 Predictor's on >= 0.99.
     (At 64², off the resolution the weights were trained at, the CPU's own
     int8 masks agree with its float masks on only ~0.90 of pixels, and a
@@ -464,8 +617,8 @@ def test_int8_predictor_on_card(cuda, batch):
         quant.int8_mm.launches = 0
         got = card(images)
         torch.cuda.synchronize()
-        assert launch_counts()["decoder_epilogue"] == 5
-        assert quant.int8_mm.launches == len(card.int8_scales) == 33
+        assert launch_counts() == {"aag": 0, "decoder_epilogue": 5, "int8_conv": 25}
+        assert quant.int8_mm.launches == 0 and len(card.int8_scales) == 33
         plain = Predictor(sd, device=cuda, **kw)(images)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
