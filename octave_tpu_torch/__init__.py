@@ -29,6 +29,8 @@ Layout (JAX counterpart in brackets):
   * utils/checkpoint.py              [octave_tpu/utils/checkpoint.py, npz part]
   * utils/convert.py                 [inverse of octave_tpu/utils/torch_convert.py]
   * utils/padding.py                 [octave_tpu/utils/padding.py]
+  * utils/profiling.py               [octave_tpu/utils/profiling.py::trace; the
+                                      port's spans, set-up phases and counters]
   * serve.py                         [octave_tpu/serve.py::Predictor, BatchServer]
   * cli.py                           [octave_tpu/cli.py: train, eval, predict, convert,
                                       bench]

@@ -13,12 +13,14 @@ launches its kernel or raises.
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
-import threading
 from pathlib import Path
 from typing import Optional
 
 import torch
+
+from octave_tpu_torch.utils import profiling
 
 # Triton writes its compiled kernels here (listed in .gitignore), so a fresh
 # checkout builds every kernel from this package's sources.
@@ -33,26 +35,49 @@ def triton_build_dir() -> Path:
     return BUILD_DIR
 
 
-# Each kernel wrapper carries a `launches` count, raised once where it
+# Each kernel wrapper is a `Counted`, whose `launches` is the counter
+# `launches.<name>` of `utils.profiling`'s registry, raised once where it
 # launches its kernel. A serving worker thread launches while another thread
-# reads or zeroes the counts, so all of them go through one lock. Inside
-# `record_launches` (a CUDA-graph capture, which records kernels without
-# running them) a launch goes to the capture's tally instead, and each
-# replay adds that tally (`add_launches`).
-_COUNT_LOCK = threading.Lock()
+# reads or zeroes the counts, so all of them go through the registry's lock.
+# Inside `record_launches` (a CUDA-graph capture, which records kernels
+# without running them) a launch goes to the capture's tally instead, and
+# each replay adds that tally (`add_launches`).
 _COUNTED: dict = {}
 _TALLY: Optional[dict] = None
 
 
-def register_counter(name: str, wrapper) -> None:
-    """Give a kernel wrapper its `launches` count, starting at 0."""
-    with _COUNT_LOCK:
-        _COUNTED[name] = wrapper
-        wrapper.launches = 0
+class Counted:
+    """A kernel wrapper: calls `fn`, and reads and sets its `launches` in
+    the counter `launches.<name>` of `utils.profiling.counters()`."""
+
+    def __init__(self, name: str, fn):
+        functools.update_wrapper(self, fn)
+        self.fn, self.counter = fn, f"launches.{name}"
+        profiling.set_counter(self.counter, 0)
+
+    def __call__(self, *args, **kwargs):
+        return self.fn(*args, **kwargs)
+
+    @property
+    def launches(self):
+        return profiling.counter(self.counter)
+
+    @launches.setter
+    def launches(self, n) -> None:
+        profiling.set_counter(self.counter, n)
+
+
+def register_counter(name: str, wrapper) -> Counted:
+    """The kernel wrapper as a `Counted` whose launches start at 0 and show
+    in `launch_counts()` under `name`."""
+    counted = Counted(name, wrapper)
+    with profiling.COUNTER_LOCK:
+        _COUNTED[name] = counted
+    return counted
 
 
 def count_launch(wrapper) -> None:
-    with _COUNT_LOCK:
+    with profiling.COUNTER_LOCK:
         if _TALLY is not None:
             _TALLY[wrapper] = _TALLY.get(wrapper, 0) + 1
         else:
@@ -66,20 +91,20 @@ def record_launches():
     runs on autograd's)."""
     global _TALLY
     tally: dict = {}
-    with _COUNT_LOCK:
+    with profiling.COUNTER_LOCK:
         if _TALLY is not None:
             raise RuntimeError("launches are already being recorded")
         _TALLY = tally
     try:
         yield tally
     finally:
-        with _COUNT_LOCK:
+        with profiling.COUNTER_LOCK:
             _TALLY = None
 
 
 def add_launches(tally: dict) -> None:
     """Add a recorded tally to the wrappers' counts (one replay's launches)."""
-    with _COUNT_LOCK:
+    with profiling.COUNTER_LOCK:
         for wrapper, n in tally.items():
             wrapper.launches += n
 
@@ -87,7 +112,7 @@ def add_launches(tally: dict) -> None:
 def launch_counts(reset: bool = False) -> dict:
     """{kernel name: launches since the last reset} of every registered
     wrapper; with `reset`, zero them in the same critical section."""
-    with _COUNT_LOCK:
+    with profiling.COUNTER_LOCK:
         counts = {name: w.launches for name, w in _COUNTED.items()}
         if reset:
             for w in _COUNTED.values():

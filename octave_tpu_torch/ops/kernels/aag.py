@@ -138,4 +138,4 @@ def fused_aag(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return _AAGFunction.apply(x, w, b, autocast_dtype)
 
 
-register_counter("aag", fused_aag)
+fused_aag = register_counter("aag", fused_aag)

@@ -27,6 +27,8 @@ import threading
 from pathlib import Path
 from typing import List, Optional
 
+from octave_tpu_torch.utils import profiling
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "cuda"
 NVCC_DEFAULT = "/usr/local/cuda/bin/nvcc"
@@ -117,7 +119,13 @@ def _run(cmds: List[List[str]]) -> str:
 
 def build() -> Path:
     """Compile the sources into `library_path()` (also when it exists) and
-    return that path. Raises RuntimeError with nvcc's output."""
+    return that path, as the phase `octave.kernels.build`
+    (`utils.profiling`). Raises RuntimeError with nvcc's output."""
+    with profiling.phase("octave.kernels.build"):
+        return _build()
+
+
+def _build() -> Path:
     global build_log
     target = library_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -114,4 +114,4 @@ def fused_decoder_epilogue(
     raise ValueError(f"fused_decoder_epilogue: no implementation for device {dev}")
 
 
-register_counter("decoder_epilogue", fused_decoder_epilogue)
+fused_decoder_epilogue = register_counter("decoder_epilogue", fused_decoder_epilogue)

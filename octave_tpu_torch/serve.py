@@ -64,6 +64,7 @@ from octave_tpu_torch.ops import quant
 from octave_tpu_torch.ops.norm import fold_batch_stats, folded_inference
 from octave_tpu_torch.parallel.mesh import as_mesh, replicate, split_rows
 from octave_tpu_torch.train.steps import GRAPH_WARMUP_CALLS, StaticGraphs
+from octave_tpu_torch.utils import profiling
 from octave_tpu_torch.utils.convert import load_reference_state_dict
 
 OUTPUT_FORMATS = ("prob_f32", "prob_f16", "mask_u8")
@@ -186,25 +187,28 @@ class Predictor:
         # reference to the Predictor, whose replicas' graphs keep it
         self._run = functools.partial(_stack_forward, dtype=dtype, method=method,
                                       output_format=output_format)
-        if fold_bn:
-            state_dict = fold_batch_stats(
-                {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v) else v
-                 for k, v in state_dict.items()})
-        model = ResnestUNet(num_classes, use_fused_decoder=use_fused_decoder)
-        load_reference_state_dict(model, state_dict)
-        folded_inference(model, fold_bn)
-        lower_grouped_convs_(model, dense_groups, einsum_groups)
-        self.model = model.to(self.device, dtype).to(memory_format=torch.channels_last).eval()
+        with profiling.phase("octave.predictor.build"):
+            if fold_bn:
+                state_dict = fold_batch_stats(
+                    {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v) else v
+                     for k, v in state_dict.items()})
+            model = ResnestUNet(num_classes, use_fused_decoder=use_fused_decoder)
+            load_reference_state_dict(model, state_dict)
+            folded_inference(model, fold_bn)
+            lower_grouped_convs_(model, dense_groups, einsum_groups)
+            self.model = model.to(self.device, dtype).to(
+                memory_format=torch.channels_last).eval()
         # the first replica is the model itself; calibration runs through it alone
         self.replicas: Tuple[_Replica, ...] = (_Replica(self.model, self.device),)
         self.int8_scales: Optional[Dict[str, float]] = None
         if int8_decoder:
             # eager, with its hooks: the replicas have no graphs yet
-            with torch.inference_mode():
+            with profiling.phase("octave.quant.calibrate"), torch.inference_mode():
                 stats = quant.calibrate(self.model, calibration_batches, lambda batch:
                                         self._dispatch(_stacked(batch)))
-            self.int8_scales = quant.scales_from_stats(stats, INT8_SCOPES[int8_scope])
-            quant.quantize_(self.model, self.int8_scales, prepack=int8_prepack)
+            with profiling.phase("octave.quant.quantize"):
+                self.int8_scales = quant.scales_from_stats(stats, INT8_SCOPES[int8_scope])
+                quant.quantize_(self.model, self.int8_scales, prepack=int8_prepack)
         if len(self.mesh) > 1:
             self.replicas += tuple(_Replica(m, d) for m, d in
                                    zip(replicate(self.model, self.mesh[1:]), self.mesh[1:]))
@@ -244,30 +248,31 @@ class Predictor:
         event: a replay of the replica's graph of this shape, or eagerly. A
         stack already on a CUDA device stays there: each replica takes its
         rows in place on its own device, or as a device-to-device copy."""
-        parts = []
-        if not torch.is_tensor(stack):
-            stack = torch.from_numpy(np.ascontiguousarray(stack))  # no copy if contiguous
-        elif stack.device.type == "cpu":
-            stack = stack.contiguous()
-        for rep, t in zip(self.replicas, split_rows(stack, len(self.replicas), 1)):
-            # uint8 stays uint8 on the wire; floats go up in the compute dtype
-            # (a device tensor is cast on its device)
-            if t.dtype != torch.uint8:
-                t = t.to(self.dtype)
-            if rep.device.type != "cuda":
-                parts.append((self._run(rep.model, t.to(rep.device)), None, None))
-                continue
-            with torch.cuda.device(rep.device):
-                if t.device.type == "cuda":
-                    x = t.to(rep.device, non_blocking=True)  # no copy on its own device
-                else:
-                    x = rep.put(t)
-                out = rep.graphs(x) if rep.graphs is not None else self._run(rep.model, x)
-                compute = torch.cuda.current_stream(rep.device)
-                done = torch.cuda.Event()
-                done.record(compute)
-            parts.append((out, done, rep.download))
-        return DeviceResult(parts, 1)
+        with profiling.span("octave.predictor.dispatch"):
+            parts = []
+            if not torch.is_tensor(stack):
+                stack = torch.from_numpy(np.ascontiguousarray(stack))  # no copy if contiguous
+            elif stack.device.type == "cpu":
+                stack = stack.contiguous()
+            for rep, t in zip(self.replicas, split_rows(stack, len(self.replicas), 1)):
+                # uint8 stays uint8 on the wire; floats go up in the compute dtype
+                # (a device tensor is cast on its device)
+                if t.dtype != torch.uint8:
+                    t = t.to(self.dtype)
+                if rep.device.type != "cuda":
+                    parts.append((self._run(rep.model, t.to(rep.device)), None, None))
+                    continue
+                with torch.cuda.device(rep.device):
+                    if t.device.type == "cuda":
+                        x = t.to(rep.device, non_blocking=True)  # no copy on its own device
+                    else:
+                        x = rep.put(t)
+                    out = rep.graphs(x) if rep.graphs is not None else self._run(rep.model, x)
+                    compute = torch.cuda.current_stream(rep.device)
+                    done = torch.cuda.Event()
+                    done.record(compute)
+                parts.append((out, done, rep.download))
+            return DeviceResult(parts, 1)
 
     @torch.inference_mode()
     def __call__(self, batch) -> np.ndarray:
@@ -427,13 +432,15 @@ class DeviceResult:
     def __array__(self, dtype=None, copy=None) -> np.ndarray:
         # every shard's download is enqueued before the first wait; each
         # device tensor is referenced until its copy has finished
-        pending = [self._download(*part) for part in self._parts]
-        for _, copied in pending:
-            if copied is not None:
-                copied.synchronize()
-        arrs = [host.numpy() for host, _ in pending]
-        arr = arrs[0] if len(arrs) == 1 else np.concatenate(arrs, axis=self._axis)
-        return arr if dtype is None else arr.astype(dtype)
+        with profiling.span("octave.predictor.result"):
+            pending = [self._download(*part) for part in self._parts]
+            with profiling.span("octave.predictor.wait"):
+                for _, copied in pending:
+                    if copied is not None:
+                        copied.synchronize()
+            arrs = [host.numpy() for host, _ in pending]
+            arr = arrs[0] if len(arrs) == 1 else np.concatenate(arrs, axis=self._axis)
+            return arr if dtype is None else arr.astype(dtype)
 
 
 class BatchServer:
@@ -478,6 +485,11 @@ class BatchServer:
     aggregation depths from the failing one up and re-runs the chunk at a
     smaller k: serving degrades instead of dying.
 
+    `stats()` is the operator's reading of a live server: requests, the
+    k x batch slots and the dispatches of its worker, the fill and the mean
+    wait from `submit` to the dispatch. Each dispatch of the worker is the
+    span `octave.batch_server.dispatch` in a profile of the worker's thread.
+
     `predictor` needs `warmup`, `predict_many_device` and `host_buffer`.
     """
 
@@ -521,6 +533,8 @@ class BatchServer:
         self._ks_live = self.ks  # shrinks further on device OOM (_shrink_ks)
         self._inflight_images = 0
         self._inflight_cv = threading.Condition()
+        self._stats = dict.fromkeys(("requests", "slots", "dispatches", "queue_wait_s"), 0)
+        self._stats_lock = threading.Lock()
         if warmup:
             predictor.warmup(self.batch, self.image_hw, self.ks, self.channels, self.wire_dtype)
         self._queue: "queue.Queue" = queue.Queue(maxsize=max_queue)
@@ -553,7 +567,7 @@ class BatchServer:
             raise ValueError(f"request dtype {img.dtype} != wire dtype {self.wire_dtype} "
                              "(the dtype is part of the warmed-up signature)")
         fut: Future = Future()
-        self._queue.put((img, fut))
+        self._queue.put((img, fut, time.perf_counter()))
         return fut
 
     def map(self, images: Iterable[np.ndarray]) -> Iterator[np.ndarray]:
@@ -568,6 +582,26 @@ class BatchServer:
             pending.append(self.submit(img))
         while pending:
             yield pending.popleft().result()
+
+    def stats(self) -> Dict[str, float]:
+        """This server's dispatches so far, as its worker counts them (an
+        OOM's synchronous re-run in the resolver is not counted again):
+        `requests` dispatched, `slots` (k x batch of each dispatch),
+        `dispatches`, `queue_wait_s` (the summed waits from `submit` to the
+        dispatch), `fill` (requests / slots) and `mean_wait_s` (queue_wait_s
+        / requests). The process-wide sums are `utils.profiling.counters()`'
+        `batch_server.*`."""
+        with self._stats_lock:
+            out = dict(self._stats)
+        out["fill"] = out["requests"] / out["slots"] if out["slots"] else 0.0
+        out["mean_wait_s"] = out["queue_wait_s"] / out["requests"] if out["requests"] else 0.0
+        return out
+
+    def _tally(self, **counts) -> None:
+        with self._stats_lock:
+            for name, n in counts.items():
+                self._stats[name] += n
+                profiling.count(f"batch_server.{name}", n)
 
     def close(self) -> None:
         """Drain outstanding requests, then stop the worker and the resolver."""
@@ -638,7 +672,7 @@ class BatchServer:
         buf = self._staging.get()
         stack = buf[:k]
         flat = stack.reshape(k * self.batch, *self._shape)
-        for i, (img, _) in enumerate(chunk):
+        for i, (img, _, _) in enumerate(chunk):
             flat[i] = img
         flat[len(chunk):] = 0
         return buf, stack
@@ -671,11 +705,14 @@ class BatchServer:
                         self._inflight_cv.wait()
                     self._inflight_images += k * self.batch
                 buf, stack = self._stack(chunk, k)
+                now = time.perf_counter()
                 try:
                     # returns once the upload and the forwards are ENQUEUED;
                     # the resolver waits for the result while this thread
                     # stacks and dispatches the next chunk
-                    out = self._dispatch_retrying(stack)
+                    with profiling.span("octave.batch_server.dispatch", k=k,
+                                        requests=len(chunk)):
+                        out = self._dispatch_retrying(stack)
                 except Exception as e:
                     self._staging.put(buf)
                     self._release_inflight(k)
@@ -686,6 +723,8 @@ class BatchServer:
                     else:
                         self._fail(chunk, e)
                     continue
+                self._tally(requests=len(chunk), slots=k * self.batch, dispatches=1,
+                            queue_wait_s=sum(now - t for _, _, t in chunk))
                 self._results.put((chunk, k, out, buf))  # blocks at pipeline_depth
             if stop:
                 self._results.put(None)
@@ -703,13 +742,13 @@ class BatchServer:
         """Resolve a chunk's futures from its (k, batch, ...) output."""
         arr = np.asarray(out)  # waits for the forwards and the download
         arr = arr.reshape(arr.shape[0] * arr.shape[1], *arr.shape[2:])
-        for i, (_, fut) in enumerate(chunk):
+        for i, (_, fut, _) in enumerate(chunk):
             fut.set_result(arr[i])
 
     @staticmethod
     def _fail(chunk, e: BaseException) -> None:
         """Surface a failure on every waiter of a chunk."""
-        for _, fut in chunk:
+        for _, fut, _ in chunk:
             if not fut.done():
                 fut.set_exception(e)
 

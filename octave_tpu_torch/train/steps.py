@@ -93,6 +93,7 @@ from octave_tpu_torch.ops.common import conv_transpose_impl
 from octave_tpu_torch.ops.kernels import add_launches, record_launches
 from octave_tpu_torch.parallel import ddp
 from octave_tpu_torch.train.state import TrainState
+from octave_tpu_torch.utils import profiling
 from octave_tpu_torch.utils.metrics import (
     AucAccumulator,
     ConfusionAccumulator,
@@ -374,7 +375,10 @@ class CapturedCall:
     graph's static output, which the next replay overwrites. The capture
     registers `generator` (None: none), so that every replay draws fresh
     numbers from it, and records the kernel launches that each replay then
-    adds to the wrappers' counts.
+    adds to the wrappers' counts. Warm-ups and the capture are the phases
+    `octave.graph.warmup` and `octave.graph.capture` (`utils.profiling`), a
+    capture raises the counter `graph.captures`, and a replay is the span
+    `octave.graph.replay`.
 
     The warm-up and the capture allocate in one `torch.cuda.MemPool`, `pool`
     (None: a pool of its own), so that the capture reuses the blocks the
@@ -402,21 +406,26 @@ class CapturedCall:
                 self.pool, self.stream = torch.cuda.MemPool(), torch.cuda.Stream()
             self.stream.wait_stream(main)
             if self.calls <= GRAPH_WARMUP_CALLS:
-                with _own_cublas_workspaces(), torch.cuda.stream(self.stream), \
-                        torch.cuda.use_mem_pool(self.pool):
+                with profiling.phase("octave.graph.warmup"), _own_cublas_workspaces(), \
+                        torch.cuda.stream(self.stream), torch.cuda.use_mem_pool(self.pool):
                     out = self.fn()
                 main.wait_stream(self.stream)
                 return out
             graph = torch.cuda.CUDAGraph()
             if self.generator is not None:
                 graph.register_generator_state(self.generator)
-            with _CAPTURE_LOCK, record_launches() as launches, _own_cublas_workspaces(), \
+            # the phase's span opens before the capture begins and closes
+            # after it ends: nothing of it is in the graph
+            with profiling.phase("octave.graph.capture"), _CAPTURE_LOCK, \
+                    record_launches() as launches, _own_cublas_workspaces(), \
                     torch.cuda.graph(graph, pool=self.pool.id, stream=self.stream,
                                      capture_error_mode="thread_local"):
                 out = self.fn()
+            profiling.count("graph.captures")
             self.graph, self.out, self.launches = graph, out, launches
-        self.graph.replay()
-        add_launches(self.launches)
+        with profiling.span("octave.graph.replay"):
+            self.graph.replay()
+            add_launches(self.launches)
         return self.out
 
     def close(self) -> None:

@@ -76,7 +76,7 @@ from octave_tpu_torch.utils.checkpoint import CheckpointManager
 from octave_tpu_torch.utils.config import Config
 from octave_tpu_torch.utils.logging import MetricsLogger, StepTimer
 from octave_tpu_torch.utils.metrics import AucAccumulator, ConfusionAccumulator
-from octave_tpu_torch.utils.profiling import trace
+from octave_tpu_torch.utils.profiling import phase, span, trace
 
 log = logging.getLogger("octave_tpu_torch")
 
@@ -255,6 +255,10 @@ class Trainer:
         one optimizer. Every rank builds the same modules; under data
         parallelism the segmentor's batch norms are synchronised and each
         rank draws its own noise (`noise_seed`)."""
+        with phase("octave.fit.init_state"):
+            return self._init_state()
+
+    def _init_state(self) -> TrainState:
         cfg, m, o = self.cfg, self.cfg.model, self.cfg.optim
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.train.seed)
@@ -350,6 +354,10 @@ class Trainer:
         several steps per call each leaf is the (k, b, ...) stack of the
         steps' batches. With `out` (a captured step's static input, of the
         same structure) the leaves are written into it and `out` returned."""
+        with span("octave.fit.call_batch"):
+            return self._call_batch(host_batches, first_step, aug_gen, out)
+
+    def _call_batch(self, host_batches, first_step, aug_gen, out):
         cfg = self.cfg
         batches = []
         for i, host in enumerate(host_batches):
@@ -404,6 +412,12 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def fit(self, state: Optional[TrainState] = None) -> TrainState:
+        """Train `state` (a fresh `init_state()` by default) to train.steps.
+        Each call of the step is the span `octave.fit.call` of a profile
+        (`utils.profiling`), its children `octave.fit.next_batch` (the draw
+        from the dataset), `octave.fit.call_batch`, `octave.fit.step`,
+        `octave.fit.wait` (the run-ahead bound) and `octave.fit.log` (the
+        log, checkpoint and eval cadences)."""
         cfg = self.cfg
         state = state if state is not None else self.init_state()
         lead = self.rank == 0  # logs and writes; every rank steps
@@ -459,55 +473,63 @@ class Trainer:
         t0 = time.perf_counter()
         try:
             with trace(cfg.train.profile_dir):
-                for host_batches in calls:
-                    if state.step >= cfg.train.steps or len(host_batches) < k:
-                        break
-                    if stop or (preempted["flag"] and not self.data_parallel):
-                        log.warning("SIGTERM received: saving and stopping at step %d",
-                                    state.step)
-                        break
-                    losses = run(state, self.call_batch(
-                        host_batches, state.step, aug_gen,
-                        out=run.inputs if self.graphed else None))
-                    if cfg.train.debug_nans:
-                        bad = [n for n, v in losses.items() if not bool(torch.isfinite(v))]
-                        if bad:
-                            raise FloatingPointError(f"non-finite {bad} at step {state.step}")
-                    flag = None
-                    if self.data_parallel:
-                        flag = ddp.all_reduce_max(torch.full(
-                            (1,), float(preempted["flag"]), device=self.device))
-                    if self.device.type == "cuda":
-                        # bound the host's run-ahead: wait for the oldest call
-                        done = torch.cuda.Event()
-                        done.record()
-                        inflight.append((done, flag))
-                        while len(inflight) > ahead:
-                            done, flag = inflight.popleft()
-                            done.synchronize()
-                            stop = stop or (flag is not None and bool(flag.item()))
-                    elif flag is not None:
-                        stop = stop or bool(flag.item())
-                    timer.tick()
-                    window.append(losses)
-                    step = state.step
-                    if crossed(step, cfg.train.log_every):
-                        if lead:
-                            mean = {n: float(torch.stack([l[n] for l in window]).float().mean())
-                                    for n in window[-1]}
-                            dt = time.perf_counter() - t0
-                            ips = cfg.data.batch_size * k * len(window) / dt
-                            log.info("step %d  %s  %.1f img/s", step,
-                                     "  ".join(f"{n}={v:.4f}" for n, v in mean.items()), ips)
-                            if mlog is not None:
-                                mlog.log(step, {**mean, "img_per_s_wall": ips,
-                                                **timer.stats(cfg.data.batch_size * k)},
-                                         prefix="train/")
-                        window, t0 = [], time.perf_counter()
-                    if ckpt is not None and crossed(step, cfg.train.checkpoint_every):
-                        ckpt.save(step, state)
-                    if crossed(step, cfg.train.eval_every):
-                        self.evaluate(state)
+                while True:
+                    with span("octave.fit.call"):
+                        with span("octave.fit.next_batch"):
+                            host_batches = next(calls, None)
+                        if (host_batches is None or state.step >= cfg.train.steps
+                                or len(host_batches) < k):
+                            break
+                        if stop or (preempted["flag"] and not self.data_parallel):
+                            log.warning("SIGTERM received: saving and stopping at step %d",
+                                        state.step)
+                            break
+                        batch = self.call_batch(host_batches, state.step, aug_gen,
+                                                out=run.inputs if self.graphed else None)
+                        with span("octave.fit.step"):
+                            losses = run(state, batch)
+                        if cfg.train.debug_nans:
+                            bad = [n for n, v in losses.items() if not bool(torch.isfinite(v))]
+                            if bad:
+                                raise FloatingPointError(
+                                    f"non-finite {bad} at step {state.step}")
+                        flag = None
+                        if self.data_parallel:
+                            flag = ddp.all_reduce_max(torch.full(
+                                (1,), float(preempted["flag"]), device=self.device))
+                        if self.device.type == "cuda":
+                            # bound the host's run-ahead: wait for the oldest call
+                            done = torch.cuda.Event()
+                            done.record()
+                            inflight.append((done, flag))
+                            with span("octave.fit.wait"):
+                                while len(inflight) > ahead:
+                                    done, flag = inflight.popleft()
+                                    done.synchronize()
+                                    stop = stop or (flag is not None and bool(flag.item()))
+                        elif flag is not None:
+                            stop = stop or bool(flag.item())
+                        with span("octave.fit.log"):
+                            timer.tick()
+                            window.append(losses)
+                            step = state.step
+                            if crossed(step, cfg.train.log_every):
+                                if lead:
+                                    mean = {n: float(torch.stack([l[n] for l in window])
+                                                     .float().mean()) for n in window[-1]}
+                                    dt = time.perf_counter() - t0
+                                    ips = cfg.data.batch_size * k * len(window) / dt
+                                    log.info("step %d  %s  %.1f img/s", step, "  ".join(
+                                        f"{n}={v:.4f}" for n, v in mean.items()), ips)
+                                    if mlog is not None:
+                                        mlog.log(step, {**mean, "img_per_s_wall": ips,
+                                                        **timer.stats(cfg.data.batch_size * k)},
+                                                 prefix="train/")
+                                window, t0 = [], time.perf_counter()
+                            if ckpt is not None and crossed(step, cfg.train.checkpoint_every):
+                                ckpt.save(step, state)
+                            if crossed(step, cfg.train.eval_every):
+                                self.evaluate(state)
         finally:
             if ckpt is not None:
                 ckpt.save(state.step, state)

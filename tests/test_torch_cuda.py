@@ -1155,6 +1155,43 @@ def test_batch_server_captures_in_its_worker(cuda, gen, deterministic):
     assert graphed.captures == 3
 
 
+def test_graphed_stream_replays_without_capturing(cuda, gen):
+    """After `warmup`, a graphed int8 predict_stream of 8 dispatches (304²,
+    B = 8) captures nothing (the counter `graph.captures` holds) and a
+    profile of it holds 8 `octave.graph.replay` spans, one inside each
+    dispatch span; the set-up phases read the device's reserved memory."""
+    import time
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from octave_tpu_torch.serve import Predictor
+    from octave_tpu_torch.utils import profiling
+
+    t = time.time_ns()
+    batches = [gen.integers(0, 256, (8, 304, 304, 3), dtype=np.uint8) for _ in range(2)]
+    pred = Predictor.initialize(device=cuda, int8_decoder=True,
+                                calibration_batches=[batches[0]])
+    pred.warmup(8, (304, 304), ks=(1,))
+    captures = profiling.counters()["graph.captures"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        outs = list(pred.predict_stream([batches[i % 2] for i in range(8)], depth=2))
+    assert len(outs) == 8 and profiling.counters()["graph.captures"] == captures
+    spans = [(ev.name(), ev.start_ns(), ev.start_ns() + ev.duration_ns())
+             for ev in prof.profiler.kineto_results.events()
+             if ev.name().startswith("octave.") and str(ev.device_type()).endswith("CPU")]
+    assert Counter(n for n, _, _ in spans)["octave.graph.replay"] == 8
+    dispatches = [(a, b) for n, a, b in spans if n == "octave.predictor.dispatch"]
+    assert len(dispatches) == 8
+    for n, a, b in spans:
+        if n == "octave.graph.replay":
+            assert any(d0 <= a and b <= d1 for d0, d1 in dispatches)
+    phases = {p.name: p for p in profiling.phases() if p.start_ns >= t}
+    assert {"octave.predictor.build", "octave.quant.calibrate", "octave.quant.quantize",
+            "octave.graph.warmup", "octave.graph.capture"} <= set(phases)
+    assert phases["octave.predictor.build"].reserved_end > 0
+
+
 def test_auc_histogram_on_card_equals_cpu(cuda):
     """The fixed-length ROC histogram under deterministic algorithms (no
     warn_only: an op without a deterministic variant raises) and inside a
