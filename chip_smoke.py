@@ -4318,10 +4318,13 @@ def phase_int8_kernel(torch, smi, weights, images):
     at B = BENCH_B) recorded and held to the plain version on the same
     inputs, bit for bit; per decoder depth at both batches the kernel's,
     the plain version's and cuDNN's bf16 conv's times (the last a yardstick
-    for another function: no quantisation) beside the bound; the whole int8
-    forward of the graphed Predictor against a twin whose sites run the
-    plain version (patched here only), bit for bit. Returns the JSON line's
-    int8_conv figures."""
+    for another function: no quantisation) beside the bound, the path each
+    site took (`int8_conv.path.*`) and, at the sites of the wide halo path,
+    the halo kernel's time on the same inputs; the whole int8 forward of the
+    graphed Predictor against a twin whose sites run the plain version
+    (patched here only), bit for bit; at B = BENCH_B the six depth 2-4 sites
+    on the wide path; the crossover table (`int8_crossover`). Returns the
+    JSON line's int8_conv figures."""
     import inspect
 
     import numpy as np
@@ -4329,7 +4332,12 @@ def phase_int8_kernel(torch, smi, weights, images):
 
     from octave_tpu_torch import bench
     from octave_tpu_torch.ops import quant
-    from octave_tpu_torch.ops.kernels.int8_conv import int8_conv_nhwc_plain
+    from octave_tpu_torch.ops.kernels.int8_conv import (
+        PATHS,
+        forced_path,
+        int8_conv_nhwc_plain,
+        path_counters,
+    )
     from octave_tpu_torch.serve import Predictor
 
     t_phase = time.time()
@@ -4359,9 +4367,22 @@ def phase_int8_kernel(torch, smi, weights, images):
         held to the plain version's on the same inputs; rows per call."""
         rows, current = [], {}
 
+        def forced_ms(path, args, kw):
+            """ms of the kernel forced onto `path`, or None where that does
+            not apply to the site."""
+            try:
+                with forced_path(path):
+                    kernel(*args, **kw)
+            except RuntimeError:
+                return None
+            with forced_path(path):
+                return timer.ms(lambda: kernel(*args, **kw))
+
         def recorder(*args, **kw):
+            before = {p: c.launches for p, c in path_counters.items()}
             out = kernel(*args, **kw)
             torch.cuda.synchronize()
+            path = next(p for p in PATHS if path_counters[p].launches > before[p])
             want = int8_conv_nhwc_plain(*args, **kw)
             mod, name = current["mod"], current["name"]
             call = signature.bind(*args, **kw)
@@ -4369,7 +4390,8 @@ def phase_int8_kernel(torch, smi, weights, images):
             a = call.arguments
             err = float((out.float() - want.float()).abs().max())
             row = dict(site=name, equal=bool(torch.equal(out, want)), err=err,
-                       x=tuple(a["x"].shape), n=a["ws"].shape[0], dtype=str(out.dtype)[6:])
+                       x=tuple(a["x"].shape), n=a["ws"].shape[0], dtype=str(out.dtype)[6:],
+                       path=path)
             del want
             b_ms, b_by, ops, nbytes = int8_site_bound(a, 1 if a["pair"] is not None
                                                       else mod.groups)
@@ -4378,12 +4400,17 @@ def phase_int8_kernel(torch, smi, weights, images):
                 row["ms"] = timer.ms(lambda: kernel(*args, **kw))
                 row["plain_ms"] = timer.ms(lambda: int8_conv_nhwc_plain(*args, **kw), reps=5)
                 row["cudnn_bf16_ms"] = yardstick(mod, a)
+                # the other halo kernel on the same inputs, where it applies
+                other = {"wgmma": "halo", "halo": "wgmma"}.get(path)
+                row["other"] = other and (other, forced_ms(other, args, kw))
                 log(f"[int8 kernel]   {name} x {row['x']}"
                     + (f" + pair {tuple(a['pair'][0].shape)}" if a["pair"] is not None else "")
                     + f" -> N {row['n']}, {'3x3' if a['kernel'] == (3, 3) else a['kernel']}"
-                    f"{' transpose' if a['transpose'] else ''}: kernel {row['ms']:.4f} ms, "
-                    f"plain {row['plain_ms']:.4f}, bound {b_ms:.4f} ({b_by}), cuDNN bf16 "
-                    f"{row['cudnn_bf16_ms']:.4f}")
+                    f"{' transpose' if a['transpose'] else ''}: kernel ({path}) {row['ms']:.4f} "
+                    f"ms, plain {row['plain_ms']:.4f}, bound {b_ms:.4f} ({b_by}), cuDNN bf16 "
+                    f"{row['cudnn_bf16_ms']:.4f}"
+                    + (f", {other} path {row['other'][1]:.4f}" if row["other"]
+                       and row["other"][1] is not None else ""))
             rows.append(row)
             return out
 
@@ -4416,15 +4443,23 @@ def phase_int8_kernel(torch, smi, weights, images):
             for k in ("ms", "plain_ms", "bound_ms", "cudnn_bf16_ms", "ops", "bytes"):
                 d[k] += r[k]
             d["by"].add(r["bound_by"])
+        for r in rows:  # the wide sites: the halo kernel they left, on the same inputs
+            if r.get("path") == "wgmma" and r.get("other") and r["other"][1] is not None:
+                d = depths[r["site"].split(".")[0]]
+                d["wide_ms"] = d.get("wide_ms", 0.0) + r["ms"]
+                d["old_halo_ms"] = d.get("old_halo_ms", 0.0) + r["other"][1]
         for name, d in sorted(depths.items()):
             d["by"] = "/".join(sorted(d["by"]))
             log(f"[int8 kernel] {label} {name} ({d['sites']} convs): kernel {d['ms']:.4f} ms, "
                 f"plain {d['plain_ms']:.4f} ms, bound {d['bound_ms']:.4f} ms ({d['by']}; "
                 f"{d['ops'] / 1e9:.1f} GOP, {d['bytes'] / 1e6:.1f} MB) = "
                 f"{d['bound_ms'] / d['ms']:.1%} of bound; cuDNN bf16 conv of the same shapes "
-                f"{d['cudnn_bf16_ms']:.4f} ms (a yardstick: no quantisation)")
+                f"{d['cudnn_bf16_ms']:.4f} ms (a yardstick: no quantisation)"
+                + (f"; its wide sites {d['wide_ms']:.4f} ms on the wide halo path, "
+                   f"{d['old_halo_ms']:.4f} ms on the halo path" if "wide_ms" in d else ""))
         total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms",
                                                        "cudnn_bf16_ms", "ops", "bytes")}
+        total["paths"] = {p: sum(r["path"] == p for r in rows) for p in PATHS}
         ops_ms = total["ops"] / INT8_OPS_PER_S * 1e3
         total["bound_by"] = "operations" if ops_ms >= total["bytes"] / HBM_BYTES_PER_S * 1e3 \
             else "bytes"
@@ -4432,7 +4467,7 @@ def phase_int8_kernel(torch, smi, weights, images):
         log(f"[int8 kernel] {label}, all {len(rows)} convs: kernel {total['ms']:.4f} ms, plain "
             f"{total['plain_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms "
             f"({total['bound_ms'] / total['ms']:.1%}), cuDNN bf16 {total['cudnn_bf16_ms']:.4f} ms "
-            f"on {smi}")
+            f"on {smi}; paths {total['paths']}")
         return total, depths
 
     # 15.1 scope decoder and scope all at B = SERVE_B: every site bit for bit,
@@ -4488,9 +4523,67 @@ def phase_int8_kernel(torch, smi, weights, images):
                                                             key=lambda x: -x[1]))
         + f" on {smi}")
     results["profile_bench"] = {"wall_ms": t_prof, "device_ms": busy, "groups": groups}
+    check(results["bench"][0]["paths"]["wgmma"] >= 6,
+          f"B={BENCH_B}: {results['bench'][0]['paths']} sites per path, not the six of "
+          "depths 2-4 on the wide halo path")
     del pred
+    release(torch, "phase 15 before the crossover table")
+    results["crossover"] = int8_crossover(torch, smi, timer)
     log(f"[int8 kernel] phase 15 took {time.time() - t_phase:.1f} s")
     return results
+
+
+# (name, C_in of each source, N, H = W) of the decoder's 3x3 sites with
+# N >= 128 (the dense-lowered grouped convs are dense here too)
+WIDE_SITES = [("decoder_1.conv.3.conv", (64,), 128, 152),
+              ("decoder_2.conv.0", (256, 256), 256, 76),
+              ("decoder_2.conv.3.conv", (256,), 512, 76),
+              ("decoder_3.conv.0", (512, 512), 512, 38),
+              ("decoder_3.conv.3.conv", (512,), 1024, 38),
+              ("decoder_4.conv.0", (1024, 1024), 1024, 19),
+              ("decoder_4.conv.3.conv", (1024,), 2048, 19)]
+
+
+def int8_crossover(torch, smi, timer, batches=(1, 8, 32, 256)):
+    """The table that sets the int8 conv's crossover between its halo and
+    wide halo paths: at each batch, each wide site's time on either path
+    (forced; random bf16 activations and int8 weights) beside the path the
+    shape selects and the tiles of 128 grid positions x BN it makes."""
+    from octave_tpu_torch.ops.kernels.int8_conv import forced_path, int8_conv_nhwc, path_counters
+
+    rows = []
+    for b in batches:
+        for name, cins, n, hw in WIDE_SITES:
+            def operand(c):  # the scale as calibration sets one: absmax / 127
+                x = torch.randn(b, hw, hw, c, device="cuda").to(torch.bfloat16)
+                return (x, torch.randint(-127, 128, (n, 9 * c), dtype=torch.int8, device="cuda"),
+                        torch.full((n,), 1e-3, device="cuda"),
+                        (x.float().abs().max() / 127).reshape(()))
+            ops = [operand(c) for c in cins]
+            kw = dict(kernel=(3, 3), padding=(1, 1),
+                      pair=ops[1] if len(ops) == 2 else None)
+            before = {p: c.launches for p, c in path_counters.items()}
+            int8_conv_nhwc(*ops[0], **kw)
+            torch.cuda.synchronize()
+            auto = next(p for p, c in path_counters.items() if c.launches > before[p])
+            ms = {}
+            for path in ("halo", "wgmma"):
+                with forced_path(path):
+                    ms[path] = timer.ms(lambda: int8_conv_nhwc(*ops[0], **kw))
+            bn = 256 if n % 256 == 0 else 128
+            tiles = -(-b * (hw + 1) ** 2 // 128) * -(-n // bn)
+            rows.append(dict(batch=b, site=name, auto=auto, tiles=tiles, **ms))
+            log(f"[int8 crossover] B={b} {name}: halo {ms['halo']:.4f} ms, wide halo "
+                f"{ms['wgmma']:.4f} ms ({ms['halo'] / ms['wgmma']:.2f}x), {tiles} tiles, "
+                f"selected {auto}")
+            del ops
+        torch.cuda.empty_cache()
+    wrong = [(r["batch"], r["site"]) for r in rows
+             if r["auto"] != min(("halo", "wgmma"), key=lambda p: r[p])
+             and max(r["halo"], r["wgmma"]) > 1.05 * min(r["halo"], r["wgmma"])]
+    log(f"[int8 crossover] on {smi}: sites where the selection takes the slower path by more "
+        f"than 5%: {wrong or 'none'}")
+    return rows
 
 
 def release(torch, label):

@@ -37,7 +37,8 @@ def triton_build_dir() -> Path:
 
 # Each kernel wrapper is a `Counted`, whose `launches` is the counter
 # `launches.<name>` of `utils.profiling`'s registry, raised once where it
-# launches its kernel. A serving worker thread launches while another thread
+# launches its kernel; a `Counter` alone counts what a launch chose
+# (`int8_conv.path.<path>`), the same way. A serving worker thread launches while another thread
 # reads or zeroes the counts, so all of them go through the registry's lock.
 # Inside `record_launches` (a CUDA-graph capture, which records kernels
 # without running them) a launch goes to the capture's tally instead, and
@@ -46,17 +47,14 @@ _COUNTED: dict = {}
 _TALLY: Optional[dict] = None
 
 
-class Counted:
-    """A kernel wrapper: calls `fn`, and reads and sets its `launches` in
-    the counter `launches.<name>` of `utils.profiling.counters()`."""
+class Counter:
+    """A counter of `utils.profiling.counters()` that `count_launch` raises
+    (into a capture's tally inside `record_launches`); its `launches` reads
+    and sets it."""
 
-    def __init__(self, name: str, fn):
-        functools.update_wrapper(self, fn)
-        self.fn, self.counter = fn, f"launches.{name}"
-        profiling.set_counter(self.counter, 0)
-
-    def __call__(self, *args, **kwargs):
-        return self.fn(*args, **kwargs)
+    def __init__(self, counter: str):
+        self.counter = counter
+        profiling.set_counter(counter, 0)
 
     @property
     def launches(self):
@@ -65,6 +63,19 @@ class Counted:
     @launches.setter
     def launches(self, n) -> None:
         profiling.set_counter(self.counter, n)
+
+
+class Counted(Counter):
+    """A kernel wrapper: calls `fn`, and reads and sets its `launches` in
+    the counter `launches.<name>` of `utils.profiling.counters()`."""
+
+    def __init__(self, name: str, fn):
+        functools.update_wrapper(self, fn)
+        self.fn = fn
+        super().__init__(f"launches.{name}")
+
+    def __call__(self, *args, **kwargs):
+        return self.fn(*args, **kwargs)
 
 
 def register_counter(name: str, wrapper) -> Counted:

@@ -172,6 +172,12 @@ __device__ __forceinline__ void epilogue(const Params& p, const Source& s, int p
   const int gid = lane / 4, tig = lane % 4;
   const float sx = *s.sx;
   T* out = static_cast<T*>(p.out);
+  long long mrow[MT][2];  // each fragment row's GEMM row, once per tile
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      mrow[mt][half] = rows(wm * WM + mt * 16 + gid + half * 8);
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     const int n = n0 + wn * WN + nt * 8 + tig * 2;
@@ -191,7 +197,7 @@ __device__ __forceinline__ void epilogue(const Params& p, const Source& s, int p
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const long long m = rows(wm * WM + mt * 16 + gid + half * 8);
+        const long long m = mrow[mt][half];
         if (m < 0) continue;
         float v[2];
 #pragma unroll
@@ -684,16 +690,108 @@ cudaError_t init_dtype() {
   return cudaSuccess;
 }
 
+// The wide halo path (int8_conv_sm90.cuh, HaloConvSm90): a tile is 128
+// positions of a grid of the images with one pad row and one pad column
+// shared between neighbours, computed by a producer warpgroup and two
+// consumer warpgroups around two rings in dynamic shared memory: the nine
+// taps' weights of a stage (`stages` of them, 2-4) and its quantised halo
+// (kSm90AStages).
+constexpr int kSm90BM = 128;         // grid positions of a tile: 64 per consumer warpgroup
+constexpr int kSm90CK = 32;          // channels of a stage: one k32 step per tap
+constexpr int kSm90MaxStages = 4;
+constexpr int kSm90AStages = 4;      // quantised halos: the producer quantises ahead of the weights
+constexpr int kSm90Smem = 232448;    // the most dynamic shared memory a block may have
+constexpr int kSm90OutPitch = 80;    // bytes of a staged output row: 64 and 16 apart
+
+__host__ __device__ constexpr int sm90_b_stage(int bn) { return 9 * bn * kSm90CK; }
+
+// A block's dynamic shared memory: alignment slack, the stages' weights,
+// two raw halos (`raw` bytes each), the quantised halos, a tile's column
+// scales and biases, the consumer warps' staged output rows, the barriers.
+__host__ __device__ constexpr int sm90_smem(int bn, int stages, int halo, int raw) {
+  return 1024 + stages * sm90_b_stage(bn) + kSm90AStages * 2 * halo * 16 + 2 * raw +
+         2 * 256 * 4 + 8 * 16 * kSm90OutPitch + (2 * stages + 2 * kSm90AStages + 2) * 8;
+}
+
+// How the wide halo path would run a conv that the halo path takes: the
+// grid's strips (images wider than 20 columns are cut into strips of about
+// 19 columns, each row of a strip with its own halo column on either side,
+// so that a tile's halo stays ~1.5 positions per output whatever the
+// width), their width and the grid's row pitch, the N tile (256 where N is
+// a multiple of it and the rings fit, else 128), the weights' stages that
+// fit (two to kSm90MaxStages), the halo, the raw halo's grid rows and their
+// pitch in shared memory (a TMA box each, padded to the swizzle's period),
+// the tiles and the card's SMs; bn == 0 where it does not apply (N < 128
+// or not a multiple of 8, padding other than 1).
+struct Sm90Plan {
+  int bn, stages, halo, rows, row_bytes, tiles, sms, strips, wc, lead, pitch;
+};
+
+inline Sm90Plan plan_sm90(const Params& p, int elem) {
+  Sm90Plan plan{};
+  if (p.n < 128 || p.n % 8 != 0 || p.ph != 1 || p.pw != 1) return plan;
+  plan.strips = (p.w + 19) / 20;
+  plan.wc = (p.w + plan.strips - 1) / plan.strips;
+  plan.lead = plan.strips > 1 ? 1 : 0;  // one strip: the pad column shared by neighbouring rows
+  plan.pitch = plan.wc + 1 + plan.lead;
+  const long long grid =
+      p.m / (static_cast<long long>(p.h) * p.w) * plan.strips * (p.h + 1) * plan.pitch;
+  if (grid > (1LL << 30)) return plan;  // grid positions in an int
+  const int span = kSm90BM + 2 * plan.pitch + 2;
+  const int period = elem == 4 ? 1024 : 512;  // of the raw halo's 128- or 64-byte swizzle
+  plan.halo = (span + 7) / 8 * 8;
+  plan.rows = (plan.halo - 1) / plan.pitch + 2;  // the grid rows any halo of this length touches
+  plan.row_bytes = (plan.pitch * kSm90CK * elem + period - 1) / period * period;
+  for (int bn = 256; bn >= 128 && plan.bn == 0; bn -= 128) {
+    if (bn == 256 && p.n % 256 != 0) continue;
+    int stages = kSm90MaxStages;
+    while (stages >= 2 &&
+           sm90_smem(bn, stages, plan.halo, plan.rows * plan.row_bytes) > kSm90Smem)
+      --stages;
+    if (stages >= 2) {
+      plan.bn = bn;
+      plan.stages = stages;
+    }
+  }
+  if (plan.bn == 0) return plan;
+  plan.tiles = static_cast<int>((grid + kSm90BM - 1) / kSm90BM * ((p.n + plan.bn - 1) / plan.bn));
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&plan.sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    plan.bn = 0;
+  return plan;
+}
+
 // The halo kernels of each dtype live in a translation unit of their own
-// (int8_conv_halo_{f32,bf16,f16}.cu), the per-tap ones in another
-// (int8_conv_{f32,bf16,f16}.cu), so that nvcc compiles the six in parallel.
+// (int8_conv_halo_{f32,bf16,f16}.cu), the wide halo kernels in another
+// (int8_conv_sm90_{f32,bf16,f16}.cu), the per-tap ones in a third
+// (int8_conv_{f32,bf16,f16}.cu), so that nvcc compiles the nine in parallel.
 cudaError_t launch_halo_of(const Params& p, cudaStream_t stream, const float*);
 cudaError_t launch_halo_of(const Params& p, cudaStream_t stream, const __nv_bfloat16*);
 cudaError_t launch_halo_of(const Params& p, cudaStream_t stream, const __half*);
+cudaError_t launch_sm90_of(const Params& p, const Sm90Plan& plan, cudaStream_t stream,
+                           const float*);
+cudaError_t launch_sm90_of(const Params& p, const Sm90Plan& plan, cudaStream_t stream,
+                           const __nv_bfloat16*);
+cudaError_t launch_sm90_of(const Params& p, const Sm90Plan& plan, cudaStream_t stream,
+                           const __half*);
+cudaError_t init_sm90_f32();
+cudaError_t init_sm90_bf16();
+cudaError_t init_sm90_f16();
+// cuTensorMapEncodeTiled, as octave_int8_conv_init fetched it, or null
+void* tensor_map_encoder();
 
-// The halo path where it applies (see HaloConv), else the per-tap one.
+// The paths, as the entry point reports them (and takes them, forced)
+constexpr int kPathTap = 0, kPathHalo = 1, kPathWgmma = 2;
+
+// The wide halo path where it applies, the halo path (see HaloConv) where
+// that applies, else the per-tap one. The wide path has no crossover by
+// size: phase 15's table (PERF.md) finds it ahead of the halo kernel at
+// every site of the decoder from B = 1 (16 tiles, 1.26x) to B = 256 (2.05-
+// 2.63x). `force` >= 0 takes that path, or fails where it does not apply
+// (measurement).
 template <typename T>
-cudaError_t launch_dtype(Params p, bool vec, cudaStream_t stream) {
+cudaError_t launch_dtype(Params p, bool vec, int force, int* path, cudaStream_t stream) {
   bool halo = vec && !p.transpose && p.sh == 1 && p.sw == 1 && p.dh == 1 && p.dw == 1 &&
               p.kh == 3 && p.kw == 3;
   for (int i = 0; i < p.nsrc; ++i)  // whole chunks; 16-byte weight rows for cp.async
@@ -704,7 +802,13 @@ cudaError_t launch_dtype(Params p, bool vec, cudaStream_t stream) {
     p.tr = 128 / p.tc;
     halo = (p.tr + p.kh - 1) * (p.tc + p.kw - 1) <= kHaloMax;
   }
-  if (halo) {
+  const Sm90Plan plan = halo ? plan_sm90(p, sizeof(T)) : Sm90Plan{};
+  const int take = force >= 0 ? force : plan.bn != 0 ? kPathWgmma : halo ? kPathHalo : kPathTap;
+  if (take > kPathWgmma || (take == kPathHalo && !halo) || (take == kPathWgmma && plan.bn == 0))
+    return cudaErrorInvalidValue;
+  *path = take;
+  if (take == kPathWgmma) return launch_sm90_of(p, plan, stream, static_cast<const T*>(nullptr));
+  if (take == kPathHalo) {
     p.row_tiles = (p.ho + p.tr - 1) / p.tr;
     p.col_tiles = (p.wo + p.tc - 1) / p.tc;
     return launch_halo_of(p, stream, static_cast<const T*>(nullptr));
@@ -712,9 +816,9 @@ cudaError_t launch_dtype(Params p, bool vec, cudaStream_t stream) {
   return vec ? launch<T, true>(p, stream) : launch<T, false>(p, stream);
 }
 
-cudaError_t launch_f32(const Params& p, bool vec, cudaStream_t stream);
-cudaError_t launch_bf16(const Params& p, bool vec, cudaStream_t stream);
-cudaError_t launch_f16(const Params& p, bool vec, cudaStream_t stream);
+cudaError_t launch_f32(const Params& p, bool vec, int force, int* path, cudaStream_t stream);
+cudaError_t launch_bf16(const Params& p, bool vec, int force, int* path, cudaStream_t stream);
+cudaError_t launch_f16(const Params& p, bool vec, int force, int* path, cudaStream_t stream);
 cudaError_t init_f32();
 cudaError_t init_bf16();
 cudaError_t init_f16();

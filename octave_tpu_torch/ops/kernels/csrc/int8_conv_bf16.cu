@@ -3,7 +3,8 @@
 #include "int8_conv.cuh"
 
 namespace octave {
-cudaError_t launch_bf16(const Params& p, bool vec, cudaStream_t stream) {
-  return launch_dtype<__nv_bfloat16>(p, vec, stream);
+cudaError_t launch_bf16(const Params& p, bool vec, int force, int* path,
+                        cudaStream_t stream) {
+  return launch_dtype<__nv_bfloat16>(p, vec, force, path, stream);
 }
 }  // namespace octave

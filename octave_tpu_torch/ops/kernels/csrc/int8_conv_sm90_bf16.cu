@@ -1,0 +1,10 @@
+// The int8 conv kernel's wide-halo-path (wgmma) __nv_bfloat16 instances (see int8_conv.cu).
+#include "int8_conv_sm90.cuh"
+
+namespace octave {
+cudaError_t launch_sm90_of(const Params& p, const Sm90Plan& plan, cudaStream_t stream,
+                           const __nv_bfloat16*) {
+  return launch_sm90<__nv_bfloat16>(p, plan, stream);
+}
+cudaError_t init_sm90_bf16() { return init_sm90<__nv_bfloat16>(); }
+}  // namespace octave

@@ -12,7 +12,8 @@ loader).
 
 A failed build raises with nvcc's output; nothing falls back. The library
 is loaded with ctypes: each entry point gets `argtypes` there (`c_void_p`
-for every pointer and the stream, `c_int` for every integer).
+for every pointer and the stream, `c_int` for every integer, a pointer to a
+`c_int` for an out-parameter).
 
     lib = cuda_build.load()        # builds if needed
     lib.octave_int8_conv(...)      # see ops/kernels/int8_conv.py
@@ -39,7 +40,8 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # `build_log`
 FLAGS = ["-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
 
-# c_void_p for each pointer and the stream, c_int for each integer
+# c_void_p for each pointer and the stream, c_int for each integer (and a
+# pointer to one for an out-parameter)
 _I, _P = ctypes.c_int, ctypes.c_void_p
 ARGTYPES = {
     "octave_int8_conv": [_P, _P, _P, _P, _I, _I, _I, _I,   # source a
@@ -47,7 +49,8 @@ ARGTYPES = {
                          _I, _P, _I, _P, _I, _I,           # nsrc, bias, bias_f32, out, dtype, vec
                          _I, _I, _I, _I, _I,               # b, h, w, ho, wo
                          _I, _I, _I, _I, _I, _I, _I, _I,   # kh, kw, sh, sw, ph, pw, dh, dw
-                         _I, _I, _I, _I, _P],              # n, cout, transpose, store2, stream
+                         _I, _I, _I, _I, _P,               # n, cout, transpose, store2, stream
+                         _I, ctypes.POINTER(_I)],          # force, path taken (out)
     "octave_int8_conv_init": [],  # once per device, outside any capture
 }
 

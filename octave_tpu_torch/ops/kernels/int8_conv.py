@@ -20,12 +20,17 @@ ws_b, sx_b) adds a decoder's second input: each sum is dequantised and cast
 on its own, then the two are added in x.dtype (no bias).
 
 On a CUDA tensor `int8_conv_nhwc` launches the kernel (and counts the launch
-in `int8_conv_nhwc.launches`) or raises; on a CPU tensor it runs
+in `int8_conv_nhwc.launches`, and the path the kernel's entry point took, by
+the call's shape alone, in the counter `int8_conv.path.<path>`: `wgmma` the
+wide halo path, `halo` the halo path, `tap` the per-tap path; see
+`csrc/int8_conv.cu`) or raises; on a CPU tensor it runs
 `int8_conv_nhwc_plain`, the route the port took before the kernel: quantise,
 im2col, `torch._int_mm` (through `int8_mm`), dequantise in float32.
 """
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import threading
 from typing import Optional, Tuple
 
@@ -33,13 +38,38 @@ import torch
 import torch.nn.functional as F
 
 from octave_tpu_torch.ops import common
-from octave_tpu_torch.ops.kernels import Counted, check_nhwc, count_launch, register_counter
+from octave_tpu_torch.ops.kernels import (
+    Counted,
+    Counter,
+    check_nhwc,
+    count_launch,
+    register_counter,
+)
 
 Pair = Tuple[int, int]
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the devices on which the kernels' attributes are set (octave_int8_conv_init)
 _READY: set = set()
 _READY_LOCK = threading.Lock()
+# the kernel's paths, in the entry point's codes, each with its counter
+PATHS = ("tap", "halo", "wgmma")
+path_counters = {name: Counter(f"int8_conv.path.{name}") for name in PATHS}
+_FORCED = threading.local()
+
+
+@contextlib.contextmanager
+def forced_path(path: str):
+    """For measurement and the card tests, not a setting: this thread's
+    launches inside take `path` (one of PATHS) whatever the shape selects,
+    and raise where it does not apply."""
+    if path not in PATHS:
+        raise ValueError(f"forced_path: {path!r} is not one of {PATHS}")
+    before = getattr(_FORCED, "path", None)
+    _FORCED.path = path
+    try:
+        yield
+    finally:
+        _FORCED.path = before
 
 
 def quantize_activation(x: torch.Tensor, sx: torch.Tensor) -> torch.Tensor:
@@ -233,14 +263,20 @@ def _launch(x, packed, ws, sx, bias, kernel, stride, padding, dilation, transpos
         if out.numel() == 0:
             return out
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        forced = getattr(_FORCED, "path", None)
+        taken = ctypes.c_int(-1)
         err = lib.octave_int8_conv(
             *src, len(sources), None if bias is None else bias.data_ptr(),
             int(bias is not None and bias.dtype == torch.float32), out.data_ptr(),
             _DTYPE_CODE[x.dtype], int(vec), b, h, w, ho, wo, *kernel, *stride, *padding,
-            *dilation, n, cout, int(transpose), int(n % 2 == 0 and cout % 2 == 0), stream)
+            *dilation, n, cout, int(transpose), int(n % 2 == 0 and cout % 2 == 0), stream,
+            -1 if forced is None else PATHS.index(forced), ctypes.byref(taken))
     if err:
         raise RuntimeError(f"int8_conv: launch failed: {lib.octave_cuda_error(err).decode()}")
+    if not 0 <= taken.value < len(PATHS):
+        raise RuntimeError(f"int8_conv: the kernel reported no path ({taken.value})")
     count_launch(int8_conv_nhwc)
+    count_launch(path_counters[PATHS[taken.value]])
     return out
 
 

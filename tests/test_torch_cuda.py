@@ -423,38 +423,57 @@ def test_int8_conv_on_card_equals_cpu(cuda, gen, case):
 
 
 # the int8 conv kernel against its plain version on the card: (name, C_in,
-# C_out, kernel, stride, padding, groups, B, H = W, pair C_in, transpose).
-# Ragged M (< 17 rows), N (13, 200: not a multiple of the tile) and K (C_in
-# 12, 3, 40), the pair and the ConvTranspose store modes, the halo path
-# (3x3, stride 1, C_in % 32 == 0: tiles of 16 columns and of whole rows of
-# 19, 38 and 5 pixels, ragged column tiles at 100, pairs of 32 and 64
-# channels) and the per-tap path where the halo does not apply (2x2) or
-# would not fit (W = 1), and decoder_0's two 3x3 convs at 304²
+# C_out, kernel, stride, padding, groups, B, H = W, pair C_in, transpose,
+# the path the shape selects). Ragged M (< 17 rows), N (13, 200: not a
+# multiple of the tile) and K (C_in 12, 3, 40), the pair and the
+# ConvTranspose store modes, the halo path (3x3, stride 1, C_in % 32 == 0,
+# N < 128: tiles of 16 columns and of whole rows of 19, 38 and 5 pixels,
+# ragged column tiles at 100, pairs of 32 and 64 channels; 38 and 76
+# columns at N >= 128 now take the wide path), the per-tap path where the
+# halo does not apply (2x2) or would not fit (W = 1), decoder_0's two 3x3
+# convs at 304², and the wide halo path (wgmma) at the decoder's seven
+# sites with N >= 128 (depth 1's conv.3.conv, depths 2-4's pair conv.0 and
+# conv.3.conv; 19 x 19 with its ragged last tile) at batches whose tiles
+# outnumber an H100's 132 SMs (a block walks several tiles), a ragged N
+# (200 of two 128-wide tiles), a pair of unequal halves, and either side of
+# the selection's boundary at one shape (N 120 and 128: the wide path takes
+# N >= 128 at any batch)
 INT8_KERNEL_CASES = [
-    ("3x3", 16, 24, 3, 1, 1, 1, 2, 9, None, False),
-    ("1x1", 16, 24, 1, 1, 0, 1, 2, 9, None, False),
-    ("stride2", 16, 24, 3, 2, 1, 1, 2, 9, None, False),
-    ("groups4", 16, 24, 3, 1, 1, 4, 2, 8, None, False),
-    ("cin3", 3, 32, 3, 2, 1, 1, 2, 10, None, False),
-    ("fc_m2", 32, 64, 1, 1, 0, 2, 2, 1, None, False),
-    ("fc_m16", 32, 64, 1, 1, 0, 2, 16, 1, None, False),
-    ("ragged_nk", 12, 13, 3, 1, 1, 1, 3, 7, None, False),
-    ("ragged_wide", 40, 200, 3, 1, 1, 1, 2, 13, None, False),
-    ("pair", 32, 32, 3, 1, 1, 1, 2, 19, 32, False),
-    ("pair_ragged", 8, 24, 3, 1, 1, 1, 2, 6, 16, False),
-    ("pair_1x1", 64, 128, 1, 1, 0, 1, 2, 19, 64, False),
-    ("transpose", 16, 8, 2, 2, 0, 1, 2, 5, None, True),
-    ("transpose_wide", 256, 64, 2, 2, 0, 1, 2, 38, None, True),
-    ("halo_w19", 32, 64, 3, 1, 1, 4, 2, 19, None, False),
-    ("halo_w38", 64, 128, 3, 1, 1, 1, 2, 38, None, False),
-    ("halo_c96_w76", 96, 200, 3, 1, 1, 1, 1, 76, None, False),
-    ("halo_w100", 128, 24, 3, 1, 1, 1, 1, 100, None, False),
-    ("halo_w5", 32, 40, 3, 1, 1, 1, 3, 5, None, False),
-    ("per_tap_2x2", 32, 32, 2, 1, 0, 1, 2, 9, None, False),
-    ("halo_pair_mixed", 32, 48, 3, 1, 1, 1, 2, 21, 64, False),
-    ("per_tap_w1", 32, 32, 3, 1, 1, 1, 2, 1, None, False),
-    ("decoder0_conv0", 32, 32, 3, 1, 1, 1, 2, 304, 32, False),
-    ("decoder0_splat", 32, 64, 3, 1, 1, 4, 2, 304, None, False),
+    ("3x3", 16, 24, 3, 1, 1, 1, 2, 9, None, False, "tap"),
+    ("1x1", 16, 24, 1, 1, 0, 1, 2, 9, None, False, "tap"),
+    ("stride2", 16, 24, 3, 2, 1, 1, 2, 9, None, False, "tap"),
+    ("groups4", 16, 24, 3, 1, 1, 4, 2, 8, None, False, "tap"),
+    ("cin3", 3, 32, 3, 2, 1, 1, 2, 10, None, False, "tap"),
+    ("fc_m2", 32, 64, 1, 1, 0, 2, 2, 1, None, False, "tap"),
+    ("fc_m16", 32, 64, 1, 1, 0, 2, 16, 1, None, False, "tap"),
+    ("ragged_nk", 12, 13, 3, 1, 1, 1, 3, 7, None, False, "tap"),
+    ("ragged_wide", 40, 200, 3, 1, 1, 1, 2, 13, None, False, "tap"),
+    ("pair", 32, 32, 3, 1, 1, 1, 2, 19, 32, False, "halo"),
+    ("pair_ragged", 8, 24, 3, 1, 1, 1, 2, 6, 16, False, "tap"),
+    ("pair_1x1", 64, 128, 1, 1, 0, 1, 2, 19, 64, False, "tap"),
+    ("transpose", 16, 8, 2, 2, 0, 1, 2, 5, None, True, "tap"),
+    ("transpose_wide", 256, 64, 2, 2, 0, 1, 2, 38, None, True, "tap"),
+    ("halo_w19", 32, 64, 3, 1, 1, 4, 2, 19, None, False, "halo"),
+    ("halo_w38", 64, 128, 3, 1, 1, 1, 2, 38, None, False, "wgmma"),
+    ("halo_c96_w76", 96, 200, 3, 1, 1, 1, 1, 76, None, False, "wgmma"),
+    ("halo_w100", 128, 24, 3, 1, 1, 1, 1, 100, None, False, "halo"),
+    ("halo_w5", 32, 40, 3, 1, 1, 1, 3, 5, None, False, "halo"),
+    ("per_tap_2x2", 32, 32, 2, 1, 0, 1, 2, 9, None, False, "tap"),
+    ("halo_pair_mixed", 32, 48, 3, 1, 1, 1, 2, 21, 64, False, "halo"),
+    ("per_tap_w1", 32, 32, 3, 1, 1, 1, 2, 1, None, False, "tap"),
+    ("decoder0_conv0", 32, 32, 3, 1, 1, 1, 2, 304, 32, False, "halo"),
+    ("decoder0_splat", 32, 64, 3, 1, 1, 4, 2, 304, None, False, "halo"),
+    ("decoder1_splat", 64, 128, 3, 1, 1, 4, 1, 152, None, False, "wgmma"),
+    ("decoder2_conv0", 256, 256, 3, 1, 1, 1, 3, 76, 256, False, "wgmma"),
+    ("decoder2_splat", 256, 512, 3, 1, 1, 4, 2, 76, None, False, "wgmma"),
+    ("decoder3_conv0", 512, 512, 3, 1, 1, 1, 6, 38, 512, False, "wgmma"),
+    ("decoder3_splat", 512, 1024, 3, 1, 1, 4, 3, 38, None, False, "wgmma"),
+    ("decoder4_conv0", 1024, 1024, 3, 1, 1, 1, 11, 19, 1024, False, "wgmma"),
+    ("decoder4_splat", 1024, 2048, 3, 1, 1, 4, 6, 19, None, False, "wgmma"),
+    ("wgmma_ragged_n", 96, 200, 3, 1, 1, 1, 3, 76, None, False, "wgmma"),
+    ("wgmma_pair_mixed", 32, 256, 3, 1, 1, 1, 12, 38, 64, False, "wgmma"),
+    ("below_crossover", 64, 120, 3, 1, 1, 1, 2, 38, None, False, "halo"),
+    ("at_crossover", 64, 128, 3, 1, 1, 1, 2, 38, None, False, "wgmma"),
 ]
 
 
@@ -462,7 +481,7 @@ def _int8_kernel_inputs(gen, case, dtype, device):
     """(args, kwargs) of int8_conv_nhwc for one case, made with numpy."""
     from octave_tpu_torch.ops import quant
 
-    _, ci, co, k, s, p, g, b, hw, pair_c, transpose = case
+    _, ci, co, k, s, p, g, b, hw, pair_c, transpose, _ = case
     x = _t((gen.standard_normal((b, hw, hw, ci)) * 2).astype(np.float32), device, dtype)
     sx = torch.tensor(float(x.float().abs().max()) / 127 * 0.9, device=device)
     shape = (ci, co, 2, 2) if transpose else (co, ci // g, k, k)
@@ -488,14 +507,22 @@ def test_int8_kernel_equals_plain_bit_for_bit(cuda, gen, case, dtype):
     """The kernel's output equals its plain version's (quantise, im2col,
     torch._int_mm, float32 dequantisation) on the card and the CPU's, bit
     for bit: the same true-division quantisation, exact int32 sums, the
-    same float32 roundings (no contraction) and one cast."""
-    from octave_tpu_torch.ops.kernels.int8_conv import int8_conv_nhwc, int8_conv_nhwc_plain
+    same float32 roundings (no contraction) and one cast; the launch took
+    the path its shape selects, and counted it."""
+    from octave_tpu_torch.ops.kernels.int8_conv import (
+        int8_conv_nhwc,
+        int8_conv_nhwc_plain,
+        path_counters,
+    )
 
     args, kw = _int8_kernel_inputs(gen, case, dtype, cuda)
     launches = int8_conv_nhwc.launches
+    paths = {name: c.launches for name, c in path_counters.items()}
     got = int8_conv_nhwc(*args, **kw)
     torch.cuda.synchronize()
     assert int8_conv_nhwc.launches == launches + 1 and got.dtype == dtype
+    assert {name: c.launches - paths[name] for name, c in path_counters.items()} == {
+        name: int(name == case[-1]) for name in paths}
     assert torch.equal(got, int8_conv_nhwc_plain(*args, **kw))
     to_cpu = lambda t: t.cpu() if isinstance(t, torch.Tensor) else t  # noqa: E731
     cpu_kw = {**kw, "pair": tuple(map(to_cpu, kw["pair"]))} if "pair" in kw else kw
@@ -521,13 +548,19 @@ def test_int8_kernel_near_rounding_ties(cuda, gen):
 
 
 def test_int8_kernel_in_a_graph_replay(cuda, gen):
-    """Captured in a CUDA graph (a pair and a plain conv), the kernel
-    recomputes from the static inputs at every replay and equals the plain
-    version on the new values; the capture's launches go to the tally."""
+    """Captured in a CUDA graph (a pair and a plain conv on each path), the
+    kernel recomputes from the static inputs at every replay and equals the
+    plain version on the new values; the capture's launches and their
+    paths go to the tally."""
     from octave_tpu_torch.ops.kernels import add_launches, record_launches
-    from octave_tpu_torch.ops.kernels.int8_conv import int8_conv_nhwc, int8_conv_nhwc_plain
+    from octave_tpu_torch.ops.kernels.int8_conv import (
+        int8_conv_nhwc,
+        int8_conv_nhwc_plain,
+        path_counters,
+    )
 
-    cases = [c for c in INT8_KERNEL_CASES if c[0] in ("pair", "groups4", "transpose_wide")]
+    cases = [c for c in INT8_KERNEL_CASES
+             if c[0] in ("pair", "groups4", "transpose_wide", "decoder2_conv0")]
     inputs = [_int8_kernel_inputs(gen, c, torch.bfloat16, cuda) for c in cases]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -538,7 +571,9 @@ def test_int8_kernel_in_a_graph_replay(cuda, gen):
     graph = torch.cuda.CUDAGraph()
     with record_launches() as tally, torch.cuda.graph(graph):
         outs = [int8_conv_nhwc(*args, **kw) for args, kw in inputs]
-    assert tally == {int8_conv_nhwc: len(cases)}
+    paths = {name: sum(c[-1] == name for c in cases) for name in path_counters}
+    assert tally == {int8_conv_nhwc: len(cases),
+                     **{path_counters[name]: n for name, n in paths.items() if n}}
     for _ in range(2):
         for args, kw in inputs:
             args[0].copy_(torch.randn_like(args[0].float()).to(args[0].dtype))

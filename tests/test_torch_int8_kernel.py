@@ -187,6 +187,101 @@ def test_valid_arguments_reach_the_plain_version(monkeypatch):
     assert k8.int8_conv_nhwc(**_args()) == "plain" and len(seen) == 1
 
 
+# -- the path the kernel took ---------------------------------------------------------
+def test_path_counters_are_registered():
+    from octave_tpu_torch.utils import profiling
+
+    names = {f"int8_conv.path.{p}" for p in ("wgmma", "halo", "tap")}
+    assert names <= set(profiling.counters()) and set(k8.path_counters) == {"wgmma", "halo", "tap"}
+    assert {c.counter for c in k8.path_counters.values()} == names
+
+
+class _FakeLib:
+    """The kernels' library standing in for the card: records each call of
+    the entry point and reports `path` through its out-parameter."""
+
+    def __init__(self, path=2, err=0):
+        self.path, self.err, self.calls = path, err, []
+
+    def octave_int8_conv(self, *args):
+        self.calls.append(args)
+        args[-1]._obj.value = self.path
+        return self.err
+
+    def octave_cuda_error(self, err):
+        return b"an error of the card"
+
+
+def _fake_launch(monkeypatch, lib, **over):
+    """`_launch` on CPU tensors with the card's pieces stood in for: the
+    library, its attributes, the device and the stream."""
+    import contextlib
+    import types
+
+    monkeypatch.setattr(cuda_build, "load", lambda: lib)
+    monkeypatch.setattr(k8, "_ready", lambda lib, device: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    a = _args(**over)
+    b, h, w, _ = a["x"].shape
+    n = a["ws"].shape[0]
+    return k8._launch(a["x"], a["packed"], a["ws"], a["sx"], a["bias"], a["kernel"], a["stride"],
+                      a["padding"], (1, 1), False, None, (b, h, w, h, w, n, n))
+
+
+@pytest.mark.parametrize("code,path", [(0, "tap"), (1, "halo"), (2, "wgmma")])
+def test_launch_counts_the_path_the_kernel_reports(monkeypatch, code, path):
+    """Each launch counts `launches.int8_conv` and the path the entry point
+    reported, once; without `forced_path` it asks for the shape's own
+    choice (-1), inside it for that path's code."""
+    from octave_tpu_torch.utils import profiling
+
+    lib = _FakeLib(path=code)
+    before = profiling.counters()
+    out = _fake_launch(monkeypatch, lib)
+    assert out.shape == (2, 5, 5, 16) and lib.calls[-1][-2] == -1
+    after = profiling.counters()
+    for name in k8.PATHS:
+        key = f"int8_conv.path.{name}"
+        assert after[key] - before[key] == (name == path), name
+    assert after["launches.int8_conv"] - before["launches.int8_conv"] == 1
+    with k8.forced_path(path):
+        _fake_launch(monkeypatch, lib)
+    assert lib.calls[-1][-2] == code and profiling.counter(f"int8_conv.path.{path}") == \
+        after[f"int8_conv.path.{path}"] + 1
+
+
+def test_a_failed_launch_counts_nothing(monkeypatch):
+    from octave_tpu_torch.utils import profiling
+
+    before = profiling.counters()
+    with pytest.raises(RuntimeError, match="an error of the card"):
+        _fake_launch(monkeypatch, _FakeLib(err=1))
+    with pytest.raises(RuntimeError, match="reported no path"):
+        _fake_launch(monkeypatch, _FakeLib(path=-1))
+    after = profiling.counters()
+    assert all(after[k] == before[k] for k in before if k.startswith(("int8_conv.", "launches.")))
+    with pytest.raises(ValueError, match="not one of"):
+        with k8.forced_path("mma"):
+            pass
+
+
+def test_a_captured_launch_counts_its_path_at_each_replay(monkeypatch):
+    """Inside `record_launches` (a CUDA-graph capture) the path goes to the
+    tally with the launch, and each replay's `add_launches` counts both."""
+    from octave_tpu_torch.ops.kernels import add_launches, record_launches
+
+    wgmma = k8.path_counters["wgmma"]
+    n0, launches0 = wgmma.launches, k8.int8_conv_nhwc.launches
+    with record_launches() as tally:
+        _fake_launch(monkeypatch, _FakeLib(path=2))
+    assert tally == {k8.int8_conv_nhwc: 1, wgmma: 1} and wgmma.launches == n0
+    add_launches(tally)
+    add_launches(tally)
+    assert wgmma.launches == n0 + 2 and k8.int8_conv_nhwc.launches == launches0 + 2
+
+
 # -- the build ---------------------------------------------------------------------
 def test_build_names_hopper_and_no_contraction():
     cmd = cuda_build.compile_command(cuda_build.sources()[0], cuda_build.BUILD_DIR / "x.o")
@@ -195,7 +290,11 @@ def test_build_names_hopper_and_no_contraction():
     assert "-shared" in cuda_build.link_command([], cuda_build.BUILD_DIR / "x.so")
     assert cuda_build.BUILD_DIR.parts[-2:] == ("build", "cuda")
     names = {p.name for p in cuda_build.sources()}
-    assert "int8_conv.cu" in names and len(names) >= 2  # one nvcc per source
+    assert names == {p.name for p in cuda_build.CSRC.iterdir() if p.suffix == ".cu"}
+    for part in ("", "_halo", "_sm90"):  # one nvcc per source: each path's dtypes apart
+        assert {f"int8_conv{part}_{t}.cu" for t in ("f32", "bf16", "f16")} <= names, part
+    assert "int8_conv.cu" in names
+    assert {p.name for p in cuda_build.headers()} >= {"int8_conv.cuh", "int8_conv_sm90.cuh"}
 
 
 def _copy_sources(tmp_path, monkeypatch):
