@@ -59,6 +59,15 @@ copied in and outputs copied out, as `serve.Predictor`'s forwards and
 `Trainer.evaluate`'s eval step (`eval_counts`, the counterpart of
 octave_tpu/train/trainer.py:328 jax.jit(acc)) run on CUDA.
 
+The step's spans (`utils.profiling.span`, entered only while a profiler
+records): `octave.step.segmentor` around the segmentor's forward, losses,
+backward and update, holding `octave.step.generator.<critic>` for each
+critic's judgment of the live pyramid; then `octave.step.critic.<critic>`
+around each critic's forwards and loss (their one backward and update
+follow). A replay runs no Python, so under a profiler they show in eager
+calls (the first call before a capture, every step that stays eager) and
+at a capture, never at a replay.
+
 With `data_parallel` each rank runs the step on its shard of the global
 batch (:233-239, 344-346, 398-400): the WPCE class counts are global, each
 player's gradients are all-reduced to their mean between backward and its
@@ -225,57 +234,59 @@ def make_train_step(cfg: StepConfig) -> Callable[[TrainState, Dict[str, Any]],
         if seg not in lowered and (cfg.dense_groups or cfg.einsum_groups):
             lower_grouped_convs_(seg, cfg.dense_groups, cfg.einsum_groups)
             lowered.add(seg)
-        seg.train()
-        state.seg_opt.zero_grad()
-        with amp():
-            out = remat.run(region, seg, batch["image"])
-        pyramids_native, agg_maps = adapt_segmentor_output(out)
-        pyramids = tuple(tuple(loss_dtype(a) for a in p) for p in pyramids_native)
-        target_c = batch.get("scribble_onehot_c", batch["scribble_onehot"])
-        l_sup = sum(_supervised(cfg, torch.softmax(loss_dtype(a), dim=-1),
-                                batch["scribble_onehot"] if head == 0 else target_c)
-                    for head, a in enumerate(agg_maps))
-        if cfg.supervise_attention0 and pyramids:
-            l_sup = l_sup + _supervised(cfg, pyramids[0][0], batch["scribble_onehot"])
-        losses = {"loss_sup": l_sup}
-        total = l_sup
-        if cfg.lambda_ild > 0 and any(len(p) > 1 for p in pyramids):
-            l_ild = sum(_ild(cfg, p) for p in pyramids if len(p) > 1)
-            losses["loss_ild"] = l_ild
-            total = total + cfg.lambda_ild * l_ild
-        if critics:
-            # generator phase: each critic judges its live pyramid with its
-            # parameters frozen and its power iterations discarded
-            l_adv = 0
-            for name, critic in critics:
-                critic.train()
-                critic.requires_grad_(False)
-                try:
-                    with amp():
-                        y_fake = critic(judged(pyramids_native, name), state.generator,
-                                        update=False)
-                finally:
-                    critic.requires_grad_(True)
-                l_adv = l_adv + ls_generator_loss(loss_dtype(y_fake))
-            losses["loss_adv"] = l_adv
-            total = total + cfg.lambda_adv * l_adv
-        losses["loss_seg_total"] = total
-        total.backward()
-        if cfg.data_parallel:
-            ddp.all_reduce_mean_(p.grad for p in seg.parameters())
-        state.seg_opt.step()
+        with profiling.span("octave.step.segmentor"):
+            seg.train()
+            state.seg_opt.zero_grad()
+            with amp():
+                out = remat.run(region, seg, batch["image"])
+            pyramids_native, agg_maps = adapt_segmentor_output(out)
+            pyramids = tuple(tuple(loss_dtype(a) for a in p) for p in pyramids_native)
+            target_c = batch.get("scribble_onehot_c", batch["scribble_onehot"])
+            l_sup = sum(_supervised(cfg, torch.softmax(loss_dtype(a), dim=-1),
+                                    batch["scribble_onehot"] if head == 0 else target_c)
+                        for head, a in enumerate(agg_maps))
+            if cfg.supervise_attention0 and pyramids:
+                l_sup = l_sup + _supervised(cfg, pyramids[0][0], batch["scribble_onehot"])
+            losses = {"loss_sup": l_sup}
+            total = l_sup
+            if cfg.lambda_ild > 0 and any(len(p) > 1 for p in pyramids):
+                l_ild = sum(_ild(cfg, p) for p in pyramids if len(p) > 1)
+                losses["loss_ild"] = l_ild
+                total = total + cfg.lambda_ild * l_ild
+            if critics:
+                # generator phase: each critic judges its live pyramid with its
+                # parameters frozen and its power iterations discarded
+                l_adv = 0
+                for name, critic in critics:
+                    critic.train()
+                    critic.requires_grad_(False)
+                    try:
+                        with profiling.span(f"octave.step.generator.{name}"), amp():
+                            y_fake = critic(judged(pyramids_native, name), state.generator,
+                                            update=False)
+                    finally:
+                        critic.requires_grad_(True)
+                    l_adv = l_adv + ls_generator_loss(loss_dtype(y_fake))
+                losses["loss_adv"] = l_adv
+                total = total + cfg.lambda_adv * l_adv
+            losses["loss_seg_total"] = total
+            total.backward()
+            if cfg.data_parallel:
+                ddp.all_reduce_mean_(p.grad for p in seg.parameters())
+            state.seg_opt.step()
 
         if critics:
             state.critic_opt.zero_grad()
             l_d = 0
             for name, critic in critics:
-                fake = [a.detach() for a in judged(pyramids_native, name)]
-                real = [p.to(cdtype) if cdtype else p
-                        for p in batch["mask_pyramid"][: depth_of[name] + 1]]
-                with amp():
-                    y_fake = critic(fake, state.generator, update=True)
-                    y_real = critic(real, state.generator, update=True)
-                l_d = l_d + ls_discriminator_loss(loss_dtype(y_real), loss_dtype(y_fake))
+                with profiling.span(f"octave.step.critic.{name}"):
+                    fake = [a.detach() for a in judged(pyramids_native, name)]
+                    real = [p.to(cdtype) if cdtype else p
+                            for p in batch["mask_pyramid"][: depth_of[name] + 1]]
+                    with amp():
+                        y_fake = critic(fake, state.generator, update=True)
+                        y_real = critic(real, state.generator, update=True)
+                    l_d = l_d + ls_discriminator_loss(loss_dtype(y_real), loss_dtype(y_fake))
             l_d.backward()
             if cfg.data_parallel:
                 ddp.all_reduce_mean_(p.grad for p in state.critic.parameters())

@@ -9,8 +9,9 @@ port's layer boundaries, set-up phases and named counters.
   profiler running). Spans land among the profiler's host events, on the
   clock of its device kernels, so a profile of any kind (`trace`,
   `train.profile_dir`, the benchmark's traced stretch) shows them. A span
-  never sits inside a function that a CUDA graph captures: it would be
-  recorded once, at the capture, and never at a replay.
+  inside a function that a CUDA graph captures (the train step's) shows
+  only where that function's Python runs, eagerly or at the capture: a
+  replay runs no Python.
 * `phase(name)`: a set-up span that is always recorded, into a bounded
   in-memory list (`phases()`), stamped in Unix-epoch nanoseconds
   (`time.time_ns()`, the clock of the profiler's events) with

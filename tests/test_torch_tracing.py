@@ -244,6 +244,51 @@ def test_fit_loop_trains_as_the_loop_it_replaced():
         assert torch.equal(a, b), n
 
 
+def _one_step(architecture):
+    """(Trainer, state, device batch) of an eager CPU step of `architecture`
+    at 32², B = 2, both noise layers on."""
+    cfg = _fit_config().apply_overrides({"model.architecture": architecture,
+                                         "model.instance_noise": "true",
+                                         "model.label_noise": "true"})
+    trainer = Trainer(cfg, device="cpu")
+    state = trainer.init_state()
+    host = next(ds.batch_iterator(build_dataset(cfg, "train"), cfg.data.batch_size, seed=1))
+    return trainer, state, trainer.call_batch([host], 0)
+
+
+@pytest.mark.parametrize("architecture, critics", [("parallel_head_gate", ("main", "c")),
+                                                   ("unet", ("main",))])
+def test_train_step_records_its_spans_per_critic(architecture, critics):
+    """Under a profiler one eager step records one `octave.step.segmentor`
+    span, holding a generator span per critic, and a critic span per critic
+    after it, in the step's order (main, then c)."""
+    trainer, state, batch = _one_step(architecture)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        trainer.train_step(state, batch)
+    ev = sorted((e for e in _events(prof) if e[0].startswith("octave.step.")),
+                key=lambda e: e[1])
+    names = [n for n, _, _ in ev]
+    assert names == (["octave.step.segmentor"]
+                     + [f"octave.step.generator.{c}" for c in critics]
+                     + [f"octave.step.critic.{c}" for c in critics])
+    (_, s0, s1), gens = ev[0], ev[1:1 + len(critics)]
+    assert all(s0 <= a < b <= s1 for _, a, b in gens)
+    assert all(s1 <= a for _, a, _ in ev[1 + len(critics):])
+
+
+def test_train_step_enters_no_span_without_a_profiler(monkeypatch):
+    """With no profiler running the dual-critic step never builds a
+    `record_function`, and trains."""
+    trainer, state, batch = _one_step("parallel_head_gate")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("record_function entered with no profiler running")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    losses = trainer.train_step(state, batch)
+    assert state.step == 1 and all(torch.isfinite(v) for v in losses.values())
+
+
 def test_batch_server_counts_requests_slots_and_waits():
     """A CPU BatchServer's `stats()` count the submissions as requests, the
     k x batch slots of its dispatches (at least the requests), a fill in
