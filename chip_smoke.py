@@ -220,6 +220,16 @@ Phases, each printing its own lines:
                and all) against a twin whose sites run the plain version,
                bit for bit; a profile of one eager int8 forward at
                B = 256 by kernel group.
+ 16. bn_act  - the fused batch norm, residual join and ReLU kernel at every
+               site of the served model's 304² forward (82 calls of
+               `ops.norm.bn_act`), in bf16 at B = 32 and B = 256: each site
+               on random inputs held to the plain chain (addcmul, add,
+               relu) bit for bit, the kernel's and the plain chain's median
+               times (L2 flushed) beside the byte bound at 3.35 TB/s,
+               summed over the forward.
+Every launch count of phases 4 and 6-14 includes the fused batch norm's:
+BN_SITES (82) per folded eval forward of the served model, whichever
+Predictor, graph or server runs it, and 0 in training and unfolded eval.
 Exits non-zero, before printing any result, without CUDA or outside a
 checkout of the repository; any failed check
 raises. The last three lines are the kernels JSON, the card's name and power
@@ -275,7 +285,15 @@ def launches_of(want):
     """`want`, a {kernel: launches} expectation, with every registered
     kernel it leaves out at 0: `launch_counts()` reports the Triton kernels'
     and the int8 conv kernel's counts side by side."""
-    return {"aag": 0, "decoder_epilogue": 0, "int8_conv": 0, **want}
+    return {"aag": 0, "bn_act": 0, "decoder_epilogue": 0, "int8_conv": 0, **want}
+
+
+# launches of the fused batch norm (`ops.norm.bn_act`) in one folded eval
+# forward on the card: the served ResnestUNet's, with the fused decoder or
+# the AAG kernel, and the gated dual decoders' (phase 7); none in training
+# or unfolded eval
+BN_SITES = 82
+BN_SITES_DUAL = 88
 
 
 class Timer:
@@ -503,6 +521,7 @@ def main() -> int:
     from octave_tpu_torch.models.segmentor import ResnestUNet
     from octave_tpu_torch.ops.kernels import BUILD_DIR, cuda_build, kernel_tolerance, triton_build_dir
     from octave_tpu_torch.ops.kernels.aag import fused_aag, fused_aag_plain
+    from octave_tpu_torch.ops.kernels.bn_act import fused_bn_act
     from octave_tpu_torch.ops.kernels.decoder_epilogue import (
         fused_decoder_epilogue,
         fused_decoder_epilogue_plain,
@@ -676,10 +695,11 @@ def main() -> int:
 
     def counted(label, fn, want):
         """fn() with the launch counts zeroed just before it and read just after."""
-        fused_aag.launches = fused_decoder_epilogue.launches = 0
+        fused_aag.launches = fused_decoder_epilogue.launches = fused_bn_act.launches = 0
         result = fn()
         torch.cuda.synchronize()
-        got = {"aag": fused_aag.launches, "decoder_epilogue": fused_decoder_epilogue.launches}
+        got = {"aag": fused_aag.launches, "decoder_epilogue": fused_decoder_epilogue.launches,
+               "bn_act": fused_bn_act.launches}
         log(f"[serve] {label}: launches {got} (expected {want})")
         check(got == want, f"{label}: launch counts {got}, expected {want}")
         return result, got
@@ -687,12 +707,13 @@ def main() -> int:
     # __call__ is the main path; each kernel's JSON count is that of the
     # serving path it belongs to (the AAG kernel's: use_fused_decoder=False)
     probs, main_launches = counted("__call__ (main path)", lambda: serve(images),
-                                   {"aag": 0, "decoder_epilogue": 5})
+                                   {"aag": 0, "decoder_epilogue": 5, "bn_act": BN_SITES})
     many, _ = counted("predict_many k=4", lambda: serve.predict_many(stack),
-                      {"aag": 0, "decoder_epilogue": 20})
-    mask, _ = counted("mask_u8", lambda: serve_mask(images), {"aag": 0, "decoder_epilogue": 5})
+                      {"aag": 0, "decoder_epilogue": 20, "bn_act": 4 * BN_SITES})
+    mask, _ = counted("mask_u8", lambda: serve_mask(images),
+                      {"aag": 0, "decoder_epilogue": 5, "bn_act": BN_SITES})
     probs_aag, aag_launches = counted("use_fused_decoder=False", lambda: serve_aag(images),
-                                      {"aag": 5, "decoder_epilogue": 0})
+                                      {"aag": 5, "decoder_epilogue": 0, "bn_act": BN_SITES})
     launches = {"decoder_epilogue": main_launches["decoder_epilogue"],
                 "aag": aag_launches["aag"]}
 
@@ -749,7 +770,7 @@ def main() -> int:
     release(torch, "before phase 6")
     by_path = {"aag": {"serve, use_fused_decoder=False": aag_launches["aag"]},
                "decoder_epilogue": {"serve, __call__": main_launches["decoder_epilogue"]},
-               "int8_conv": {}}
+               "int8_conv": {}, "bn_act": {"serve, __call__": main_launches["bn_act"]}}
     deploy_tmp = tempfile.mkdtemp(prefix="octave_deploy_")  # phase 9 reads it too
     try:
         deploy, predict_args = phase_deploy(torch, smi, serve, weights,
@@ -842,6 +863,23 @@ def main() -> int:
         "bound_ms": bench_totals["bound_ms"],
         "bound_by": "bytes" if bench_totals["by"] == {"bytes"} else "operations"}
     release(torch, "after phase 15")
+
+    # -- 16. the fused batch norm, residual join and ReLU at the model's sites
+    bn = phase_bn_act(torch, smi)
+
+    def row(t):
+        return {"ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": "bytes"}
+
+    line["kernels"].append({
+        "name": "bn_act", "route": "triton",
+        "source": "octave_tpu_torch/ops/kernels/triton_bn_act.py",
+        "replaces": None, "launches": by_path["bn_act"]["int8 __call__ (decoder, fused)"],
+        "launches_by_path": by_path["bn_act"], "dtype": "bfloat16", "batch": SERVE_B,
+        **row(bn["by_batch"][SERVE_B]), "library_ms": None,
+        "at_bench_batch": {"batch": BENCH_B, "dtype": "bfloat16",
+                           **row(bn["by_batch"][BENCH_B])}})
+    release(torch, "after phase 16")
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps(line))
     print(smi)
@@ -1132,7 +1170,7 @@ def _deploy(torch, smi, serve, weights, direct_rates, tmp):
     from octave_tpu_torch.utils.config import Config
     from octave_tpu_torch.utils.imageio import read_image, write_png_gray
 
-    paths = {"aag": {}, "decoder_epilogue": {}}
+    paths = {"aag": {}, "bn_act": {}, "decoder_epilogue": {}}
 
     def counted(label, fn, want):
         """fn() with the launch counts zeroed just before it and read just after."""
@@ -1314,7 +1352,7 @@ def _deploy(torch, smi, serve, weights, direct_rates, tmp):
     text, _ = counted(
         "cli predict, 16 images in 2 batches",
         lambda: run_cli(["predict", "--out", out_dir] + predict_args),
-        {"aag": 0, "decoder_epilogue": 10})
+        {"aag": 0, "decoder_epilogue": 10, "bn_act": 2 * BN_SITES})
     names = sorted(os.listdir(out_dir))
     check(len(names) == 2 * n_test and sum(n.endswith("_prob.npy") for n in names) == n_test
           and sum(n.endswith("_mask.png") for n in names) == n_test, f"predict wrote {names}")
@@ -1396,13 +1434,16 @@ def _deploy(torch, smi, serve, weights, direct_rates, tmp):
         torch.cuda.synchronize()
         got_counts = launch_counts()
         peak = torch.cuda.max_memory_allocated() / 2**30
-        want_counts = launches_of({"decoder_epilogue": 5 * sum(dispatched)})
+        want_counts = launches_of({"decoder_epilogue": 5 * sum(dispatched),
+                                   "bn_act": BN_SITES * sum(dispatched)})
         log(f"[deploy] BatchServer flood of {n_flood}: dispatched k {dispatched}; launches "
             f"{got_counts} (expected {want_counts})")
-        check(got_counts == want_counts, "flood: launches are not 5 x the sum of the k")
+        check(got_counts == want_counts, "flood: launches are not 5 (epilogue) and "
+              f"{BN_SITES} (fused batch norm) x the sum of the k")
         check(sum(dispatched) * SERVE_B >= n_flood and any(k > 1 for k in dispatched),
               f"no dispatch took k > 1 under the flood: {dispatched}")
-        paths["decoder_epilogue"]["BatchServer flood of 300"] = got_counts["decoder_epilogue"]
+        for name in ("decoder_epilogue", "bn_act"):
+            paths[name]["BatchServer flood of 300"] = got_counts[name]
         err, agree = check_flood(outs, "flood")
 
         times = [t_flood]
@@ -1512,7 +1553,7 @@ def _family(torch, smi, device, tmp):
     from octave_tpu_torch.utils.imageio import write_png_gray
 
     hw = FAMILY_HW
-    paths = {"aag": {}, "decoder_epilogue": {}}
+    paths = {"aag": {}, "bn_act": {}, "decoder_epilogue": {}}
 
     def counted(label, fn, want):
         """fn() with the launch counts zeroed just before it and read just after."""
@@ -1737,10 +1778,10 @@ def _family(torch, smi, device, tmp):
     with torch.inference_mode():
         (atts_f, atts_cf), agg_f = counted(f"fused dual-decoder eval forward, bf16 {hw}² B=8",
                                            lambda: models[True](x),
-                                           {"aag": 0, "decoder_epilogue": 7})
+                                           {"decoder_epilogue": 7, "bn_act": BN_SITES_DUAL})
         (atts_u, atts_cu), agg_u = counted(f"unfused dual-decoder eval forward, bf16 {hw}² B=8",
                                            lambda: models[False](x),
-                                           {"aag": 7, "decoder_epilogue": 0})
+                                           {"aag": 7, "bn_act": BN_SITES_DUAL})
     check(len(atts_f) == len(atts_u) == 5 and len(atts_cf) == len(atts_cu) == 2,
           "the gated dual decoders at level 4 emit 5 + 2 attentions")
     agree = [float((agg_f[h].argmax(-1) == agg_u[h].argmax(-1)).float().mean()) for h in (0, 1)]
@@ -2072,7 +2113,7 @@ def _parallel(torch, smi, tmp):
     from octave_tpu_torch.utils.config import Config
     from octave_tpu_torch.utils.imageio import read_image
 
-    paths = {"aag": {}, "decoder_epilogue": {}}
+    paths = {"aag": {}, "bn_act": {}, "decoder_epilogue": {}}
     cpu = host_cpu()
 
     # 8.1 the loader, built from this checkout's source
@@ -2402,7 +2443,7 @@ def phase_int8(torch, smi, serve, weights, images, predict_args, deploy_tmp):
     from octave_tpu_torch.utils.config import Config
     from octave_tpu_torch.utils.imageio import read_image
 
-    paths = {"aag": {}, "decoder_epilogue": {}, "int8_conv": {}}
+    paths = {"aag": {}, "bn_act": {}, "decoder_epilogue": {}, "int8_conv": {}}
     calib = phantoms(SERVE_B, 304, seed=31)  # other phantoms than the requests'
     bf16_probs = serve(images)
 
@@ -2472,23 +2513,23 @@ def phase_int8(torch, smi, serve, weights, images, predict_args, deploy_tmp):
 
     # 9.2 agreement with bf16 and the launch counts of each path
     probs = counted("int8 __call__ (decoder, fused)", lambda: int8(images),
-                    {"decoder_epilogue": 5, "int8_conv": 25})
+                    {"decoder_epilogue": 5, "int8_conv": 25, "bn_act": BN_SITES})
     stack = np.stack([images, images[::-1]])
     many = counted("int8 predict_many k=2", lambda: int8.predict_many(stack),
-                   {"decoder_epilogue": 10, "int8_conv": 50})
+                   {"decoder_epilogue": 10, "int8_conv": 50, "bn_act": 2 * BN_SITES})
     check(np.array_equal(many[0], probs), "int8 predict_many differs from __call__")
     agreements = {"decoder": agreement(f"scope decoder, fused, B={SERVE_B}", probs, bf16_probs)}
     probs_all = counted("int8 __call__ (scope all)", lambda: int8_all(images),
-                        {"decoder_epilogue": 5, "int8_conv": convs["all"]})
+                        {"decoder_epilogue": 5, "int8_conv": convs["all"], "bn_act": BN_SITES})
     agreements["all"] = agreement(f"scope all, fused, B={SERVE_B}", probs_all, bf16_probs,
                                   INT8_ALL_AGREEMENT_FLOOR)
     probs_aag = counted("int8 __call__ (use_fused_decoder=False)", lambda: int8_aag(images),
-                        {"aag": 5, "int8_conv": 25})
+                        {"aag": 5, "int8_conv": 25, "bn_act": BN_SITES})
     agreements["aag"] = agreement(f"scope decoder, AAG kernel, B={SERVE_B}", probs_aag,
                                   bf16_probs)
     for b in (1, 8):
         small = counted(f"int8 __call__ B={b}", lambda: int8(images[:b]),
-                        {"decoder_epilogue": 5, "int8_conv": 25})
+                        {"decoder_epilogue": 5, "int8_conv": 25, "bn_act": BN_SITES})
         agreements[f"B={b}"] = agreement(f"scope decoder, fused, B={b}", small,
                                          bf16_probs[:b])
 
@@ -2499,7 +2540,7 @@ def phase_int8(torch, smi, serve, weights, images, predict_args, deploy_tmp):
     files = sorted(os.path.join(test_dir, f) for f in os.listdir(test_dir))
     counted("cli predict --int8, 16 images in 2 batches",
             lambda: run_cli(["predict", "--out", out_dir, "--int8"] + predict_args),
-            {"decoder_epilogue": 15, "int8_conv": 2 * 25})
+            {"decoder_epilogue": 15, "int8_conv": 2 * 25, "bn_act": 3 * BN_SITES})
     x = np.repeat((load_image_batch(files, (304, 304)).astype(np.float32) / 255.0)[..., None],
                   3, axis=-1)
     overrides = dict(a.split("=", 1) for a in predict_args[4:])
@@ -2658,7 +2699,7 @@ def _switches(torch, smi, weights, images, serve, tmp):
     from octave_tpu_torch.utils.checkpoint import CheckpointManager, state_to_dict
     from octave_tpu_torch.utils.config import Config
 
-    paths = {"aag": {}, "decoder_epilogue": {}}
+    paths = {"aag": {}, "bn_act": {}, "decoder_epilogue": {}}
     summary = {"device": smi}
 
     def counted(label, fn, want):
@@ -2762,7 +2803,7 @@ def _switches(torch, smi, weights, images, serve, tmp):
     agree = {}
     for label, pred in lowered.items():
         probs = counted(f"Predictor({label}) __call__", lambda: pred(images),
-                        {"aag": 0, "decoder_epilogue": 5})
+                        {"aag": 0, "decoder_epilogue": 5, "bn_act": BN_SITES})
         check(probs.shape == base_probs.shape and bool(np.isfinite(probs).all()),
               f"{label}: shape or non-finite values")
         agree[label] = float((probs.argmax(-1) == base_probs.argmax(-1)).mean())
@@ -3059,7 +3100,7 @@ def _surface(torch, smi, weights, images, serve, tmp):
     from octave_tpu_torch.utils.config import Config
     from octave_tpu_torch.utils.imageio import write_png_gray
 
-    paths = {"aag": {}, "decoder_epilogue": {}}
+    paths = {"aag": {}, "bn_act": {}, "decoder_epilogue": {}}
     summary = {"device": smi, "device_count": torch.cuda.device_count()}
     t_phase = time.time()
 
@@ -3214,9 +3255,10 @@ def _surface(torch, smi, weights, images, serve, tmp):
     for label, fan in fans.items():
         n = len(fan.replicas)
         probs = counted(f"Predictor(mesh={label}) __call__, {n} replicas", lambda: fan(images),
-                        {"aag": 0, "decoder_epilogue": 5 * n})
+                        {"aag": 0, "decoder_epilogue": 5 * n, "bn_act": BN_SITES * n})
         many = counted(f"Predictor(mesh={label}) predict_many k=4",
-                       lambda: fan.predict_many(stack), {"aag": 0, "decoder_epilogue": 20 * n})
+                       lambda: fan.predict_many(stack),
+                       {"aag": 0, "decoder_epilogue": 20 * n, "bn_act": 4 * BN_SITES * n})
         check(probs.shape == single.shape and bool(np.isfinite(probs).all()),
               f"fan-out {label}: shape or non-finite values")
         agree = float((probs.argmax(-1) == single.argmax(-1)).mean())
@@ -3260,11 +3302,13 @@ def _surface(torch, smi, weights, images, serve, tmp):
 
     outs, t_flood, got_launches, dispatched = flood_through(fan)
     label = f"BatchServer flood of {SURFACE_FLOOD} over Predictor(mesh=(cuda:0, cuda:0))"
-    want = launches_of({"decoder_epilogue": 5 * 2 * sum(dispatched)})
-    log(f"[surface] {label}: launches {got_launches} (expected {want}: 5 per replica per "
-        f"batch, k = {dispatched})")
+    want = launches_of({"decoder_epilogue": 5 * 2 * sum(dispatched),
+                        "bn_act": BN_SITES * 2 * sum(dispatched)})
+    log(f"[surface] {label}: launches {got_launches} (expected {want}: 5 and {BN_SITES} per "
+        f"replica per batch, k = {dispatched})")
     check(got_launches == want, f"{label}: launch counts {got_launches}, expected {want}")
-    paths["decoder_epilogue"][label] = got_launches["decoder_epilogue"]
+    for name in ("decoder_epilogue", "bn_act"):
+        paths[name][label] = got_launches[name]
     got = np.stack(outs)
     err = float(np.abs(got - direct).max())
     agree = float(((got[..., 1] >= 0.5) == (direct[..., 1] >= 0.5)).mean())
@@ -3307,7 +3351,8 @@ def _surface(torch, smi, weights, images, serve, tmp):
     try:
         common.set_conv_transpose_impl("einsum")
         probs = counted('Predictor __call__ under set_conv_transpose_impl("einsum")',
-                        lambda: serve(images), {"aag": 0, "decoder_epilogue": 5})
+                        lambda: serve(images),
+                        {"aag": 0, "decoder_epilogue": 5, "bn_act": BN_SITES})
         agree = float((probs.argmax(-1) == single.argmax(-1)).mean())
         check(bool(np.isfinite(probs).all()) and agree >= PATH_AGREEMENT_FLOOR,
               f"einsum ConvTranspose Predictor: argmax agreement {agree} with native")
@@ -3348,7 +3393,7 @@ def _surface(torch, smi, weights, images, serve, tmp):
     # Predictor's path (the committed weights cast to float16)
     f16_pred = Predictor(weights, dtype=torch.float16)
     probs16 = counted("Predictor(dtype=float16) __call__", lambda: f16_pred(images),
-                      {"aag": 0, "decoder_epilogue": 5})
+                      {"aag": 0, "decoder_epilogue": 5, "bn_act": BN_SITES})
     agree16 = float((probs16.argmax(-1) == single.argmax(-1)).mean())
     check(bool(np.isfinite(probs16).all()) and agree16 >= MASK_AGREEMENT_FLOOR,
           f"float16 Predictor: argmax agreement {agree16} with bf16")
@@ -3407,6 +3452,7 @@ def phase_bench(torch, smi):
     check(int8_sites(run.int8) == 25, f"the bench's int8 Predictor has {int8_sites(run.int8)} "
           f"int8 convs, expected 25")
     want = launches_of({"decoder_epilogue": 5 * (1 + 2 + 8 + 7 * BENCH_K),
+                        "bn_act": BN_SITES * (1 + 2 + 8 + 7 * BENCH_K),
                         "int8_conv": 25 * (1 + (8 + 7 * BENCH_K) * int8_served)})
     log(f"[bench] launches {counts} (expected {want}), library int8 GEMMs {gemms}; "
         f"bench.main() took {t_bench:.1f} s, peak device memory {bench_peak:.2f} GiB")
@@ -3476,7 +3522,7 @@ def phase_bench(torch, smi):
     del eager, xs, xk
     log(f"[bench] phase 12 took {time.time() - t_phase:.1f} s")
     label = f"cli bench (B={BENCH_B}, k={BENCH_K})"
-    return {name: {label: want[name]} for name in ("decoder_epilogue", "int8_conv")}
+    return {name: {label: want[name]} for name in ("bn_act", "decoder_epilogue", "int8_conv")}
 
 
 # graph-phase settings (phase 13). The bit-for-bit cases: float32, TF32 off,
@@ -3545,7 +3591,7 @@ def _graph(torch, smi, tmp):
     from octave_tpu_torch.utils.config import Config
 
     t_phase = time.time()
-    paths = {"aag": {}, "decoder_epilogue": {}}
+    paths = {"aag": {}, "bn_act": {}, "decoder_epilogue": {}}
     summary = {"device": smi}
 
     # 13.1 C.8 on the card: a fresh ResnestUNet's backbone convs
@@ -3585,7 +3631,9 @@ def _graph(torch, smi, tmp):
         launch_counts(reset=True)
         state = tr.fit()
         torch.cuda.synchronize()
-        n = launch_counts()["aag"]
+        counts = launch_counts()
+        check(counts["bn_act"] == 0, f"{arch} fit: {counts['bn_act']} fused batch norms")
+        n = counts["aag"]
         with open(os.path.join(logs, "metrics.jsonl")) as f:
             losses = [{k_: v for k_, v in json.loads(line).items() if k_.startswith("train/loss")}
                       for line in f]
@@ -3732,7 +3780,9 @@ def _graph(torch, smi, tmp):
             launch_counts(reset=True)
             wall, prof = profiled(torch, lambda: runs[mode](states[mode], batches[mode]))
             _, groups, _ = profile_groups(torch, None, train_group, prof)
-            launched = launch_counts()["aag"]
+            counts = launch_counts()
+            check(counts["bn_act"] == 0, f"{arch} {mode}: {counts['bn_act']} fused batch norms")
+            launched = counts["aag"]
             # kernels of a graph's independent branches overlap: the union of
             # their intervals, not their sum
             busy = device_busy_ms(torch, prof)
@@ -3831,7 +3881,7 @@ def _graphed(torch, smi, weights, images, tmp):
     from octave_tpu_torch.utils.config import Config
 
     t_phase = time.time()
-    paths = {"aag": {}, "decoder_epilogue": {}, "int8_conv": {}}
+    paths = {"aag": {}, "bn_act": {}, "decoder_epilogue": {}, "int8_conv": {}}
     summary = {"device": smi}
     dev0 = torch.device("cuda", 0)
 
@@ -3893,10 +3943,12 @@ def _graphed(torch, smi, weights, images, tmp):
                 for k, stack in stacks.items():
                     label = f"float32 {name} predict_many k={k} (304², B={GRAPHED_B})"
                     held(label, lambda: eager.predict_many(stack),
-                         lambda: graphed.predict_many(stack), {**zero, kernel: 5 * k})
+                         lambda: graphed.predict_many(stack),
+                         {**zero, kernel: 5 * k, "bn_act": BN_SITES * k})
                     paths[kernel][f"graphed Predictor, {label}"] = 5 * k
+                    paths["bn_act"][f"graphed Predictor, {label}"] = BN_SITES * k
                 held(f"float32 {name} __call__ (the k=1 graph)", lambda: eager(x8),
-                     lambda: graphed(x8), {**zero, kernel: 5})
+                     lambda: graphed(x8), {**zero, kernel: 5, "bn_act": BN_SITES})
                 check(graphed.captures == 3, f"{name}: {graphed.captures} captures, expected 3")
                 bits[name] = {"ks": [1, 2, 4], "captures": graphed.captures}
                 if fused:
@@ -3931,14 +3983,15 @@ def _graphed(torch, smi, weights, images, tmp):
                 del eager, graphed
             # 14.3 Predictor(mesh=(cuda:0, cuda:0)) against its eager self
             eager, graphed = twins(dtype=torch.float32, mesh=(dev0, dev0))
-            per = launches_of({"decoder_epilogue": 2 * 5 * 2})
+            per = launches_of({"decoder_epilogue": 2 * 5 * 2, "bn_act": 2 * BN_SITES * 2})
             held("float32 Predictor(mesh=(cuda:0, cuda:0)) predict_many k=2",
                  lambda: eager.predict_many(stacks[2]), lambda: graphed.predict_many(stacks[2]),
                  per)
             held("float32 Predictor(mesh=(cuda:0, cuda:0)) __call__", lambda: eager(x8),
-                 lambda: graphed(x8), {**per, "decoder_epilogue": 10})
+                 lambda: graphed(x8), {**per, "decoder_epilogue": 10, "bn_act": 2 * BN_SITES})
             check(graphed.captures == 4, f"mesh: {graphed.captures} captures, expected 2 x 2")
             paths["decoder_epilogue"]["graphed Predictor(mesh=(cuda:0, cuda:0)), k=2"] = 20
+            paths["bn_act"]["graphed Predictor(mesh=(cuda:0, cuda:0)), k=2"] = 4 * BN_SITES
             bits["mesh"] = {"captures": graphed.captures}
             del eager, graphed
             torch.cuda.empty_cache()
@@ -3971,7 +4024,10 @@ def _graphed(torch, smi, weights, images, tmp):
                         launch_counts(reset=True)
                         got = graph_tr.evaluate(state)
                         torch.cuda.synchronize()
-                        n_aag = launch_counts()["aag"]
+                        counts = launch_counts()
+                        check(counts["bn_act"] == 0, f"{arch} {label}: {counts['bn_act']} fused "
+                              "batch norms in an unfolded evaluate")
+                        n_aag = counts["aag"]
                         e, g = recorded[:n_want], recorded[n_want:]
                         check(len(e) == len(g) == 3 and all(np.array_equal(x, y)
                                                             for x, y in zip(e, g)),
@@ -4046,12 +4102,14 @@ def _graphed(torch, smi, weights, images, tmp):
         check(convs == (25 if name == "int8" else 0), f"{name}: {convs} int8 convs")
         probs, _, worst, low = held(f"{name} __call__ (304², B={SERVE_B})", lambda: eager(images),
                                     lambda: graphed(images),
-                                    {"decoder_epilogue": 5, "int8_conv": convs}, exact=False)
+                                    {"decoder_epilogue": 5, "int8_conv": convs, "bn_act": BN_SITES},
+                                    exact=False)
         _, _, worst2, low2 = held(f"{name} predict_many k=2", lambda: eager.predict_many(stack2),
                                   lambda: graphed.predict_many(stack2),
-                                  {"decoder_epilogue": 10, "int8_conv": 2 * convs},
-                                  exact=False)
+                                  {"decoder_epilogue": 10, "int8_conv": 2 * convs,
+                                   "bn_act": 2 * BN_SITES}, exact=False)
         paths["decoder_epilogue"][f"graphed Predictor, {name} __call__ (B={SERVE_B})"] = 5
+        paths["bn_act"][f"graphed Predictor, {name} __call__ (B={SERVE_B})"] = BN_SITES
         if convs:
             paths["int8_conv"][f"graphed Predictor, {name} __call__ (B={SERVE_B})"] = convs
         variants[name] = {"agreement": min(low, low2), "max_abs_diff": max(worst, worst2),
@@ -4139,10 +4197,13 @@ def _graphed(torch, smi, weights, images, tmp):
             outs[mode] = np.stack(list(servers[mode].map(iter(flood))))
             torch.cuda.synchronize()
             if mode == "graphed":
-                flood_launches = launch_counts()["decoder_epilogue"]
-                check(flood_launches == 5 * sum(dispatched) and sum(dispatched) * SERVE_B
-                      >= GRAPHED_FLOOD, f"graphed flood: {flood_launches} epilogue launches, "
-                      f"dispatched k {dispatched}")
+                counts = launch_counts()
+                flood_launches = counts["decoder_epilogue"]
+                check(flood_launches == 5 * sum(dispatched)
+                      and counts["bn_act"] == BN_SITES * sum(dispatched)
+                      and sum(dispatched) * SERVE_B >= GRAPHED_FLOOD,
+                      f"graphed flood: {flood_launches} epilogue and {counts['bn_act']} fused "
+                      f"batch norm launches, dispatched k {dispatched}")
         diff = float(np.abs(outs["graphed"] - outs["eager"]).max())
         check(np.array_equal(outs["graphed"], outs["eager"]),
               f"graphed flood differs from the eager server's by {diff}")
@@ -4531,6 +4592,108 @@ def phase_int8_kernel(torch, smi, weights, images):
     results["crossover"] = int8_crossover(torch, smi, timer)
     log(f"[int8 kernel] phase 15 took {time.time() - t_phase:.1f} s")
     return results
+
+
+def bn_act_sites(torch, hw=304):
+    """[(C, H, W, residual)] of every `ops.norm.bn_act` call of one folded
+    bf16 eval forward of the served ResnestUNet (fused decoder) at hw²,
+    B = 1, on the card, in order; residual is 'none', 'raw' (an identity
+    shortcut) or 'bn' (a downsample BN in the same pass). Read by patching
+    the name the model's modules call."""
+    from octave_tpu_torch.models import resnest
+    from octave_tpu_torch.models.segmentor import ResnestUNet
+    from octave_tpu_torch.ops.norm import folded_inference
+
+    sites, real = [], resnest.bn_act
+
+    def record(bn, x, residual=None, res_bn=None, relu_inplace=False):
+        kind = "none" if residual is None else "raw" if res_bn is None else "bn"
+        sites.append((x.shape[1], x.shape[2], x.shape[3], kind))
+        return real(bn, x, residual, res_bn, relu_inplace)
+
+    model = folded_inference(ResnestUNet(2, use_fused_decoder=True)).to(
+        "cuda", torch.bfloat16).to(memory_format=torch.channels_last).eval()
+    resnest.bn_act = record
+    try:
+        with torch.no_grad():
+            model(torch.zeros(1, hw, hw, 3, device="cuda", dtype=torch.bfloat16))
+    finally:
+        resnest.bn_act = real
+    return sites
+
+
+def bn_act_inputs(torch, site, batch, dtype, gen):
+    """Random arguments of `fused_bn_act` at one site: x and the residual
+    N(0, 4) channels-last, affines drawn as folded batch norms hold them
+    (scale 0.5-2, bias -1-1)."""
+    c, h, w, kind = site
+
+    def act():
+        x = torch.randn(batch, c, h, w, generator=gen, device="cuda") * 2
+        return x.to(dtype, memory_format=torch.channels_last)
+
+    def affine():
+        scale = torch.rand(c, generator=gen, device="cuda") * 1.5 + 0.5
+        return scale.to(dtype), (torch.rand(c, generator=gen, device="cuda") * 2 - 1).to(dtype)
+
+    args = (act(), *affine())
+    if kind != "none":
+        args += (act(),) + (affine() if kind == "bn" else ())
+    return args
+
+
+def bn_act_bytes(site, batch, itemsize):
+    """The least bytes of one site: x (and the residual) read once, y
+    written once, the affines read once."""
+    c, h, w, kind = site
+    acts = 2 + (kind != "none")
+    return itemsize * (acts * batch * c * h * w + c * (2 + 2 * (kind == "bn")))
+
+
+def phase_bn_act(torch, smi, batches=(SERVE_B, BENCH_B)):
+    """Phase 16: the fused batch norm, residual join and ReLU kernel
+    (`ops/kernels/bn_act.py`) at every site of the served model's forward
+    (`bn_act_sites`, 304²), at B = SERVE_B and BENCH_B in bf16 on random
+    inputs: each distinct site held to the plain chain bit for bit, the
+    kernel's and the plain chain's median times (L2 flushed) beside the
+    byte bound at 3.35 TB/s, summed over the forward's sites. Returns the
+    JSON line's bn_act row."""
+    from octave_tpu_torch.ops.kernels.bn_act import fused_bn_act, fused_bn_act_plain
+
+    t_phase = time.time()
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    sites = bn_act_sites(torch)
+    counts = {s: sites.count(s) for s in dict.fromkeys(sites)}
+    log(f"[bn_act] {len(sites)} sites in one forward, {len(counts)} distinct: "
+        + ", ".join(f"{c}x{h}x{w} {kind} x{n}" for (c, h, w, kind), n in counts.items()))
+    totals = {}
+    for b in batches:
+        tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, gbytes=0.0)
+        for site, n in counts.items():
+            args = bn_act_inputs(torch, site, b, torch.bfloat16, gen)
+            got, want = fused_bn_act(*args), fused_bn_act_plain(*args)
+            check(torch.equal(got, want), f"B={b} site {site}: the kernel differs from the "
+                  f"plain chain by {float((got.float() - want.float()).abs().max())}")
+            del got, want
+            ms = timer.ms(lambda: fused_bn_act(*args))
+            plain = timer.ms(lambda: fused_bn_act_plain(*args))
+            nbytes = bn_act_bytes(site, b, 2)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            log(f"[bn_act] B={b} {site} x{n}: kernel {ms:.4f} ms ({100 * bound / ms:.1f}% of "
+                f"{bound:.4f} ms), plain {plain:.4f} ms")
+            for k, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound),
+                         ("gbytes", nbytes / 1e9)):
+                tot[k] += n * v
+            del args
+            torch.cuda.empty_cache()
+        totals[b] = tot
+        log(f"[bn_act] B={b} bf16, the forward's {len(sites)} sites: kernel {tot['ms']:.4f} ms, "
+            f"plain chain {tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
+            f"({tot['gbytes']:.2f} GB): {100 * tot['bound_ms'] / tot['ms']:.1f}% of the bound, "
+            f"{tot['plain_ms'] / tot['ms']:.2f}x the plain chain, on {smi}")
+    log(f"[bn_act] phase 16 took {time.time() - t_phase:.1f} s")
+    return {"sites": len(sites), "by_batch": totals}
 
 
 # (name, C_in of each source, N, H = W) of the decoder's 3x3 sites with

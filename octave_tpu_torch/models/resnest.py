@@ -38,7 +38,7 @@ from octave_tpu_torch.ops.common import (  # noqa: F401  (nchw: re-exported)
     nhwc,
 )
 from octave_tpu_torch.ops.kernels.decoder_epilogue import fused_decoder_epilogue
-from octave_tpu_torch.ops.norm import BatchNorm2d
+from octave_tpu_torch.ops.norm import BatchNorm2d, bn_act
 
 
 class SplAtConv2d(nn.Module):
@@ -63,11 +63,11 @@ class SplAtConv2d(nn.Module):
         (B, 2C) laid out [radix-0 channels, radix-1 channels], which the
         fused decoder epilogue consumes."""
         c = self.channels
-        x = F.relu(self.bn0(self.conv(x)))
+        x = bn_act(self.bn0, self.conv(x))
         b = x.shape[0]
         x0, x1 = x[:, :c], x[:, c:]
         gap = (x0 + x1).mean(dim=(2, 3), keepdim=True)
-        atten = self.fc2(F.relu(self.bn1(self.fc1(gap)))).view(b, 2 * c)
+        atten = self.fc2(bn_act(self.bn1, self.fc1(gap))).view(b, 2 * c)
         if return_parts:
             return x, atten
         attn = torch.softmax(atten.view(b, 2, c), dim=1)
@@ -103,12 +103,14 @@ class Bottleneck(nn.Module):
         return remat.run(self.remat if self.training else False, self._block, x)
 
     def _block(self, x: torch.Tensor) -> torch.Tensor:
-        out = self.conv2(F.relu(self.bn1(self.conv1(x))))
+        out = self.conv2(bn_act(self.bn1, self.conv1(x)))
         if self.stride > 1:
             out = avg_pool2d(out, 3, self.stride, 1)
-        out = self.bn3(self.conv3(out))
-        residual = x if self.downsample is None else self.downsample(x)
-        return F.relu(out + residual)
+        out = self.conv3(out)
+        if self.downsample is None:
+            return bn_act(self.bn3, out, x)
+        pool, conv, bn = self.downsample  # its BN joins bn3's pass
+        return bn_act(self.bn3, out, conv(pool(x)), bn)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,8 +185,19 @@ class ResNeSt(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NCHW image -> layer4 features (B, 2048, H/32, W/32)."""
-        x = max_pool2d(self.relu(self.bn1(self.conv1(x))), 3, 2, 1)
+        x = max_pool2d(stem(self.conv1, self.bn1, x), 3, 2, 1)
         return self.layer4(self.layer3(self.layer2(self.layer1(x))))
+
+
+def stem(conv1: nn.Sequential, bn1: BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """The deep stem: conv1's three convs, the first two each with its BN
+    and ReLU, then bn1 and the ReLU after it (`ResNeSt.relu`). Each BN and
+    the ReLU after it are one `bn_act`, which stands for the skipped
+    `nn.ReLU(inplace=True)` modules."""
+    conv_a, bn_a, _, conv_b, bn_b, _, conv_c = conv1
+    x = bn_act(bn_a, conv_a(x), relu_inplace=True)
+    x = bn_act(bn_b, conv_b(x), relu_inplace=True)
+    return bn_act(bn1, conv_c(x), relu_inplace=True)
 
 
 def resnet_conv_init_(module: nn.Module) -> None:
@@ -298,7 +311,9 @@ class ResNestDecoder(nn.Module):
 
     def _block(self, *parts: torch.Tensor) -> torch.Tensor:
         xc, xd = self._inputs(parts if len(parts) > 1 else parts[0])
-        return F.relu(self.conv(xc) + self.downsample(xd))
+        conv, bn, _, splat, relu = self.conv  # conv.2's ReLU is conv.1's `bn_act`
+        y = relu(splat(bn_act(bn, conv(xc), relu_inplace=True)))
+        return F.relu(y + self.downsample(xd))
 
     def forward(self, x, gate: Optional[nn.Conv2d] = None):
         """x: (B, in, H, W), the concat of skip and upsampled maps, or the
@@ -314,7 +329,7 @@ class ResNestDecoder(nn.Module):
             return remat.run(self.remat if self.training else False, self._block, *parts)
         xc, xd = self._inputs(x)
         conv, bn, _, splat, _ = self.conv
-        z, attn = splat(F.relu(bn(conv(xc))), return_parts=True)
+        z, attn = splat(bn_act(bn, conv(xc)), return_parts=True)
         res_conv, res_bn = self.downsample
         rs, rb = res_bn.eval_affine()
         k = gate.out_channels

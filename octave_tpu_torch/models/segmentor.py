@@ -40,6 +40,7 @@ from octave_tpu_torch.models.resnest import (
     nchw,
     nhwc,
     resnest50,
+    stem,
 )
 from octave_tpu_torch.ops.common import max_pool2d
 from octave_tpu_torch.ops.kernels.aag import fused_aag
@@ -164,7 +165,8 @@ class _ResnestEncoder(nn.Module):
         """NHWC image -> (x_0_0, x_1, x_2, x_3 padded, x_4, down, right), NCHW
         maps. `taps`, when given, receives x_0_1, x_1, x_2, x_3 (unpadded)
         and x_4: what the encoder gates read."""
-        x_0_0 = self.encoder_0_1_2(nchw(x))
+        conv1, bn1, _ = self.encoder_0_1_2  # its ReLU is bn1's `bn_act`
+        x_0_0 = stem(conv1, bn1, nchw(x))
         x_0_1 = max_pool2d(x_0_0, 3, 2, 1)
         x_1 = self.encoder_1(x_0_1)
         x_2 = self.encoder_2(x_1)

@@ -1,7 +1,9 @@
 """Hand-written Hopper kernels of the port, by two routes:
 
-  * Triton, for the Pallas kernels of octave_tpu (`aag`, `decoder_epilogue`):
-    Triton is imported only inside the functions that launch a kernel;
+  * Triton, for the Pallas kernels of octave_tpu (`aag`, `decoder_epilogue`)
+    and for the served model's folded batch norms with their residual joins
+    and ReLUs (`bn_act`, which XLA fuses in the JAX package): Triton is
+    imported only inside the functions that launch a kernel;
   * CUDA C++ for sm_90a (`int8_conv`, the int8 serving conv, which the JAX
     package leaves to XLA): sources in `csrc/`, compiled by nvcc at first
     use and bound with ctypes (`cuda_build`).

@@ -31,16 +31,22 @@ statistics as the forward left them, as Flax applies a remat region's
 factor of 0 (running * 1 + batch * 0 is running, exactly) and without the
 `num_batches_tracked` increment; the synchronised path still all-reduces its
 statistics, on every rank in the same order, and skips the update.
+
+`bn_act` is the model's batch norm -> [residual join ->] ReLU tail: one
+pass of the fused kernel (`ops/kernels/bn_act.py`) where the norms are
+folded eval norms on CUDA and no gradient is recorded, else the same ops as
+the module chain, bit for bit equal.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from octave_tpu_torch.ops import remat
+from octave_tpu_torch.ops.kernels.bn_act import fused_bn_act
 from octave_tpu_torch.parallel import ddp
 
 EPS = 1e-5
@@ -162,6 +168,33 @@ class BatchNorm2d(nn.BatchNorm2d):
             return self.weight.float(), self.bias.float()
         scale = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
         return scale, self.bias.float() - self.running_mean.float() * scale
+
+
+def bn_act(bn: BatchNorm2d, x: torch.Tensor, residual: Optional[torch.Tensor] = None,
+           res_bn: Optional[BatchNorm2d] = None, relu_inplace: bool = False) -> torch.Tensor:
+    """relu(bn(x) [+ res_bn(residual) | + residual]); on CUDA in folded eval it consumes x.
+
+    Where every norm is a folded eval norm, x is on CUDA and no gradient is
+    recorded, one launch of `fused_bn_act` computes it and writes it over x:
+    the caller passes a tensor that nothing reads afterwards (the model's
+    callers pass a conv's output; the residual may be x itself, each
+    element is read before it is written). Tensors the kernel does not
+    take (not channels-last, mixed dtypes) raise its ValueError. Everywhere
+    else (training, unfolded eval, the CPU, a gradient to record) it runs
+    the chain and leaves x as it is: bn(x), then res_bn(residual), the add
+    and `F.relu`, in place on bn's output with `relu_inplace`, as the
+    `nn.ReLU(inplace=True)` it stands for: the ops the module chain ran."""
+    norms = (bn,) if res_bn is None else (bn, res_bn)
+    if (x.is_cuda and not torch.is_grad_enabled()
+            and all(m.folded and not m.training for m in norms)):
+        args = (x, bn.weight, bn.bias)
+        if residual is not None:
+            args += (residual,) if res_bn is None else (residual, res_bn.weight, res_bn.bias)
+        return fused_bn_act(*args, out=x)
+    y = bn(x)
+    if residual is not None:
+        y = y + (residual if res_bn is None else res_bn(residual))
+    return F.relu(y, inplace=relu_inplace)
 
 
 def folded_inference(model: nn.Module, enabled: bool = True) -> nn.Module:

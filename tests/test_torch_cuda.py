@@ -17,7 +17,9 @@ both compute in float32 and round once, and can fall on either side of a
 rounding boundary; float16 likewise one float16 ulp (rtol 2^-10) plus 1e-3.
 The int8 conv kernel is held bit for bit: it rounds where its plain version
 rounds (true-division quantisation, exact int32 sums, float32 dequantisation
-without contraction, one cast).
+without contraction, one cast). So is the fused batch norm (`bn_act`): it
+rounds where the plain chain stores, and each affine is one fused
+multiply-add, as `addcmul`'s is.
 """
 import json
 
@@ -254,8 +256,9 @@ def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
 
 def test_batch_server_on_card(cuda, gen):
     """The server's answers equal Predictor.__call__'s, in order; every
-    dispatched batch launches the epilogue kernel 5 times; host arrays come
-    back in pinned memory; the staging buffers are pinned."""
+    dispatched batch launches the epilogue kernel 5 times and the fused
+    batch norm 82 times (its sites); host arrays come back in pinned
+    memory; the staging buffers are pinned."""
     from octave_tpu_torch.ops.kernels import launch_counts
     from octave_tpu_torch.serve import BatchServer, Predictor
 
@@ -273,7 +276,8 @@ def test_batch_server_on_card(cuda, gen):
         launch_counts(reset=True)
         got = list(srv.map(iter(imgs)))
     torch.cuda.synchronize()
-    assert launch_counts() == {"aag": 0, "decoder_epilogue": 5 * sum(ks), "int8_conv": 0}
+    assert launch_counts() == {"aag": 0, "bn_act": 82 * sum(ks),
+                               "decoder_epilogue": 5 * sum(ks), "int8_conv": 0}
     assert sum(ks) * 4 >= 21 and len(got) == 21
     assert torch.from_numpy(got[0]).is_pinned()
     np.testing.assert_allclose(np.stack(got), want, atol=2**-7, rtol=0)
@@ -301,7 +305,8 @@ def test_gated_dual_decoders_on_card(cuda, gen, fused):
         finally:
             torch.backends.cudnn.allow_tf32 = True
     kernel = "decoder_epilogue" if fused else "aag"
-    assert launch_counts() == {"aag": 0, "decoder_epilogue": 0, "int8_conv": 0, kernel: 7}
+    assert launch_counts() == {"aag": 0, "bn_act": 0, "decoder_epilogue": 0, "int8_conv": 0,
+                               kernel: 7}  # unfolded norms: no fused batch norm
     assert len(atts) == 5 and len(atts_c) == 2
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
 
@@ -320,7 +325,7 @@ def test_dual_critic_step_on_card(cuda):
     launch_counts(reset=True)
     losses = tr.train_step(state, batch)
     torch.cuda.synchronize()
-    assert launch_counts() == {"aag": 7, "decoder_epilogue": 0, "int8_conv": 0}
+    assert launch_counts() == {"aag": 7, "bn_act": 0, "decoder_epilogue": 0, "int8_conv": 0}
     assert all(bool(torch.isfinite(v)) for v in losses.values())
     for n, c in state.critic.items():
         assert not torch.equal(u[n], c.spectral_dict["spectral_0"][0].weight_u), n
@@ -529,6 +534,117 @@ def test_int8_kernel_equals_plain_bit_for_bit(cuda, gen, case, dtype):
     assert torch.equal(got.cpu(), int8_conv_nhwc(*map(to_cpu, args), **cpu_kw))
 
 
+# (C, H, W, residual) beside the served forward's sites: channels that are
+# not a power of two or a whole tile, and rows that are not a whole tile
+BN_ACT_EXTRA_SITES = [(96, 7, 5, "bn"), (40, 3, 3, "raw"), (2048, 1, 1, "none")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
+def test_bn_act_kernel_equals_plain_bit_for_bit(cuda, dtype):
+    """At every distinct site of the served model's forward (304², B = 8,
+    `chip_smoke.bn_act_sites`) and a few ragged ones, on random inputs, the
+    fused batch norm, residual join and ReLU equals the plain chain
+    (`addcmul`, `add`, `relu`) bit for bit: it rounds where the chain
+    stores, and each affine is one fused multiply-add, as `addcmul`'s is
+    on the card (float32 shows it: with the product rounded before the
+    add, about a quarter of the affine's float32 results differ). Its
+    output is channels-last in x's dtype, written over x when x is `out`,
+    and each call is one launch."""
+    from chip_smoke import bn_act_inputs, bn_act_sites
+    from octave_tpu_torch.ops.kernels.bn_act import fused_bn_act, fused_bn_act_plain
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    sites = list(dict.fromkeys(bn_act_sites(torch))) + BN_ACT_EXTRA_SITES
+    launches = fused_bn_act.launches
+    for site in sites:
+        args = bn_act_inputs(torch, site, 8, dtype, gen)
+        got, want = fused_bn_act(*args), fused_bn_act_plain(*args)
+        assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(got, want), site
+        x = args[0]
+        assert fused_bn_act(*args, out=x) is x and torch.equal(x, want), site
+    torch.cuda.synchronize()
+    assert fused_bn_act.launches == launches + 2 * len(sites)
+
+
+@pytest.mark.parametrize("res", ["raw", "bn"])
+def test_bn_act_consumes_x_even_as_its_own_residual(cuda, res):
+    """`ops.norm.bn_act` on CUDA with folded eval norms writes its result
+    over x, also where x is the residual too (relu(bn(x) + x) or
+    relu(bn(x) + res_bn(x))): the result is the plain chain's on a copy,
+    bit for bit, in one launch. With a gradient to record it runs the
+    chain and leaves x as it is."""
+    from octave_tpu_torch.ops.kernels import launch_counts
+    from octave_tpu_torch.ops.norm import BatchNorm2d, bn_act
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    c = 64
+
+    def norm():
+        m = BatchNorm2d(c).to(cuda, torch.bfloat16).eval()
+        with torch.no_grad():
+            m.weight.copy_(torch.rand(c, generator=gen, device=cuda) * 1.5 + 0.5)
+            m.bias.copy_(torch.rand(c, generator=gen, device=cuda) * 2 - 1)
+        m.folded = True
+        return m
+
+    bn, res_bn = norm(), (norm() if res == "bn" else None)
+    x = (torch.randn(4, c, 19, 21, generator=gen, device=cuda) * 2).to(
+        torch.bfloat16, memory_format=torch.channels_last)
+    with torch.no_grad():
+        want = bn(x.clone()) + (x.clone() if res_bn is None else res_bn(x.clone()))
+    want = torch.relu(want)
+    x0 = x.clone()
+    chained = bn_act(bn, x, x, res_bn)  # grad enabled, the parameters want one
+    assert chained is not x and torch.equal(x, x0) and torch.equal(chained.detach(), want)
+    launch_counts(reset=True)
+    with torch.inference_mode():
+        got = bn_act(bn, x, x, res_bn)
+    torch.cuda.synchronize()
+    assert got is x and torch.equal(x, want) and launch_counts()["bn_act"] == 1
+
+
+def test_graphed_int8_predictor_with_bn_act_equals_the_plain_chain(cuda, monkeypatch):
+    """The graphed int8 Predictor (bf16, scope decoder, 304², B = 8) on
+    the committed weights: its warm-up, capture and replays equal an eager
+    twin's whose `bn_act` computes the plain chain in place of the kernel
+    (a patch here), bit for bit; each replay launches the fused batch norm
+    once per site of the module tree (every BatchNorm2d but the ones
+    another pass applies: the encoder's downsample BNs, joined to bn3's,
+    and the decoder's, in the epilogue)."""
+    import os
+
+    from chip_smoke import phantoms
+    from octave_tpu_torch.ops import norm
+    from octave_tpu_torch.ops.kernels import launch_counts
+    from octave_tpu_torch.ops.kernels.bn_act import fused_bn_act_plain
+    from octave_tpu_torch.serve import Predictor
+    from octave_tpu_torch.utils.checkpoint import load_weights_npz
+    from octave_tpu_torch.utils.convert import from_jax_variables
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sd = from_jax_variables(load_weights_npz(os.path.join(root, "benchmarks", "weights304.npz")))
+    calib, images = phantoms(8, 304, seed=31), phantoms(8, 304, seed=11)
+    kw = dict(device=cuda, int8_decoder=True, calibration_batches=[calib])
+    pred = Predictor(sd, **kw)
+    got = [pred(images) for _ in range(3)]  # warm-up, capture, replay
+    sites = sum(isinstance(m, norm.BatchNorm2d) for n, m in pred.model.named_modules()
+                if not n.endswith(("downsample.1", "downsample.2")))
+    launch_counts(reset=True)
+    got.append(pred(images))
+    torch.cuda.synchronize()
+    assert pred.captures == 1 and sites == 82
+    assert launch_counts()["bn_act"] == sites
+    monkeypatch.setattr(norm, "fused_bn_act",
+                        lambda *args, out: out.copy_(fused_bn_act_plain(*args)))
+    launch_counts(reset=True)
+    want = Predictor(sd, graphed=False, **kw)(images)
+    assert launch_counts()["bn_act"] == 0
+    for g in got:
+        assert np.array_equal(g, want)
+
+
 def test_int8_kernel_near_rounding_ties(cuda, gen):
     """Activations on and next to half-integer multiples of the scale: the
     kernel's multiply by 1 / sx takes the true division there, so q equals
@@ -623,8 +739,9 @@ def test_int8_pair_and_transpose_on_card_equal_cpu(cuda, gen):
 def test_int8_predictor_on_card(cuda, batch):
     """The int8 Predictor (scope decoder: the SplAt fcs at M = B) on the
     committed trained weights at 304², float32 with TF32 off, calibrated on
-    other phantoms than the requests: five epilogue launches, 25 int8 conv
-    kernel launches (five convs a decoder, a pair in one launch) and no
+    other phantoms than the requests: five epilogue launches, 82 of the
+    fused batch norm, 25 int8 conv kernel launches (five convs a decoder,
+    a pair in one launch) and no
     library int8 GEMM, masks as the card's float32 Predictor's on >= 0.99 of pixels
     (the JAX package's gate) and as the CPU's int8 Predictor's on >= 0.99.
     (At 64², off the resolution the weights were trained at, the CPU's own
@@ -652,7 +769,8 @@ def test_int8_predictor_on_card(cuda, batch):
         quant.int8_mm.launches = 0
         got = card(images)
         torch.cuda.synchronize()
-        assert launch_counts() == {"aag": 0, "decoder_epilogue": 5, "int8_conv": 25}
+        assert launch_counts() == {"aag": 0, "bn_act": 82, "decoder_epilogue": 5,
+                                   "int8_conv": 25}
         assert quant.int8_mm.launches == 0 and len(card.int8_scales) == 33
         plain = Predictor(sd, device=cuda, **kw)(images)
     finally:
