@@ -5,164 +5,162 @@ the repository root:
 
     python3 chip_smoke.py
 
-Phases, each printing its own lines:
-  1. build   - compile the CUDA C++ int8 conv kernel from this checkout's
+Phases 3-14 check the port's behaviour on the card; phases 1, 2 and 15-16
+and the lowering and Upsampling tables of phases 10 and 11 time single
+kernels and ops at fixed shapes (L2 flushed), each beside a bound or a
+yardstick. Whole paths are timed by the benchmark (h100bench/), not here.
+Each phase prints its own lines:
+  1. build   - compiles the CUDA C++ int8 conv kernel from this checkout's
                csrc/ into build/cuda (emptied first; one nvcc per source,
                started together, then linked; registers and spills of each
                instance logged) while both Triton kernels compile into
                build/triton (emptied first) in float32, bfloat16 and
-               float16, and time the builds;
-  2. kernels - each kernel against its plain PyTorch version at the five
-               decoder shapes of the 304² forward, in float32 with B = 8,
-               in bfloat16 with B = 8 and B = 32 (the serving batch) and in
-               float16 with B = 8, and the decoder epilogue in bfloat16 at
-               the bench's B = 256, with
-               median times (L2 flushed before every launch) and the byte
-               bound; the kernels JSON line carries the bf16 B = 32 figures
-               (and the epilogue's B = 256 ones under "at_bench_batch");
+               float16; the build times;
+  2. kernels - each Triton kernel against its plain PyTorch version at the
+               five decoder shapes of the 304² forward, in float32 with
+               B = 8, in bfloat16 with B = 8 and B = 32 (the serving batch)
+               and in float16 with B = 8, and the decoder epilogue in
+               bfloat16 at the bench's B = 256: within kernel_tolerance,
+               with median times (L2 flushed before every launch) and the
+               byte bound; the kernels JSON line carries the bf16 B = 32
+               figures (and the epilogue's B = 256 ones under
+               "at_bench_batch");
   3. golden  - the port's ResnestUNet in float32 (TF32 off) at 304² on the
                reference fill of tests/golden/unet304.npz, through the fused
-               epilogue and through the AAG kernel, against the reference's
-               stored outputs (1e-3, as tests/test_golden.py);
+               epilogue and through the AAG kernel (5 launches of one):
+               within 1e-3 of the reference's stored outputs (as
+               tests/test_golden.py);
   4. serve   - Predictor on the committed trained weights (bf16, folded BN,
-               uint8 input, 304², B = 32): each serving path run once with
-               its own launch counts (__call__, the main path; predict_many;
-               mask_u8; the unfused AAG configuration), output checks,
-               mask agreement with the plain float32 path,
-               images/s of __call__ and predict_many (k = 4), and a
-               torch.profiler breakdown of one __call__ by kernel group;
+               uint8 input, 304², B = 32): the launch counts of each serving
+               path (__call__, the main path; predict_many k = 4; mask_u8;
+               the unfused AAG configuration); probabilities finite and
+               summing to 1; the paths' masks agreeing (>= 0.999) and the
+               mask agreeing with the plain float32 path on the CPU
+               (>= 0.995);
   5. train   - the adversarial trainer from the default Config (304², B = 8,
                ResnestUNet + critic of depth 4 and 64 filters, noise on):
-               Trainer.fit for 3 steps and evaluate, the main path, with the
-               AAG launches counted (5 per train step, 5 per eval batch);
-               the AAG Function's forward and backward at the five train
-               shapes against the plain formula, x in float32 and bf16 and,
-               as the step under autocast calls it, float32 x gated in bf16
-               and in float16; one float32 step (TF32 off,
-               noise off, B = 2) against the same step on the CPU through the
-               plain AAG; one bf16 step against one float32 step; 20 bf16
-               steps on one batch (finite, all four kinds of state move,
-               loss_sup falls); step time, img/s and peak memory in float32
-               and bf16, and a profile of one bf16 step by kernel group;
+               Trainer.fit for 3 steps and evaluate, the main path, with 5
+               AAG launches per train step and per eval batch and metrics in
+               [0, 1]; the AAG Function's forward and backward at the five
+               train shapes against the float64 formula, x in float32 and
+               bf16 and, as the step under autocast calls it, float32 x gated
+               in bf16 and in float16; one float32 step (TF32 off, noise off)
+               against the same step on the CPU through the plain AAG
+               (losses, each player's gradient); one bf16 step against one
+               float32 step (losses within 5%); 20 bf16 steps on one batch
+               (finite, all four kinds of state move, loss_sup falls);
   6. deploy  - the deployment path at 304²: 32 + 16 phantoms written as PNGs
-               into a ROSE tree and read back; `cli train` on that folder
-               with augmentation, bf16, a checkpoint and a profiler trace (4
-               steps, 5 AAG launches per step and eval batch), resumed to
-               step 6; restore into a fresh state, exact; `cli eval
-               --checkpoint` against the live state's metrics; the weights
-               exported to the compact npz and read back; `cli predict` over
-               the 16 test PNGs against the Predictor called directly (5
-               epilogue launches per batch); `BatchServer` on the committed
-               trained weights (bf16, B = 32, ks (1, 2, 4), depth 2): 300
-               images in order against the direct path, launches 5 x the sum
-               of the dispatched k, k > 1 under flood and k = 1 for a lone
-               request, recovery from an injected out-of-memory at k = 4,
-               img/s, latency, device idle share and peak memory; checkpoint
-               and augmentation times;
+               into a ROSE tree and read back equal; `cli train` on that
+               folder with augmentation, bf16, a checkpoint and a profiler
+               trace (4 logged steps, 5 AAG launches per step and eval
+               batch, the trace written), resumed to step 6; a checkpoint of
+               the live state restored into a fresh state, exact; an
+               augmented batch contiguous; `cli eval --checkpoint` and the
+               restored state's evaluate against the live state's metrics;
+               the weights exported to the compact npz, read back as their
+               bf16 rounding and predicting alike; `cli predict` over the 16
+               test PNGs against the Predictor called directly (5 epilogue
+               launches per batch); `BatchServer` on the committed trained
+               weights (bf16, B = 32, ks (1, 2, 4), depth 2): 300 images in
+               order against the direct path, launches 5 x the sum of the
+               dispatched k, k > 1 under flood, a flood of 1,280 from a
+               generator all returned, k = 1 for a lone request, recovery
+               from an injected out-of-memory at k = 4, and mask_u8 through
+               the server;
   7. family  - the rest of the model family: the dual decoders' goldens
                (phg112 through the AAG kernel and the fused epilogue, 6
                launches each; ph112) in float32; `cli train
                model.architecture=parallel_head_gate` on a ROSE tree with
                thick_gt and thin_gt (304², B = 8, bf16, augmentation, critics
                main depth 4 and c depth 1, 4 steps, 7 AAG launches per step
-               and eval batch), restore exact, every kind of state moved,
-               `cli eval --checkpoint` printing the live metrics; one float32
-               dual-critic step on the card against the CPU (112², B = 2), beside a float32 witness;
-               the fused dual-decoder eval forward (7 epilogue launches)
-               against the unfused one in bf16; `octa_scribble_net` with
-               encoder gating (5 AAG launches, 5 gates of 16 channels); step
-               time, img/s and peak memory of parallel_head_gate beside unet,
-               float32 and bf16, with a profile of one bf16 step;
+               and eval batch, the c critic's depth clamp logged), restore
+               exact, every kind of state moved, `cli eval --checkpoint`
+               printing the live metrics; one float32 dual-critic step on
+               the card against the CPU (112², B = 2), beside a float32
+               witness; the fused dual-decoder eval forward (7 epilogue
+               launches) against the unfused one in bf16 (>= 0.999);
+               `octa_scribble_net` with encoder gating (5 AAG launches, 5
+               gates of 16 channels summing to 1, finite critic logits);
   8. parallel - the native loader and data parallelism: the C++ loader built
-               from this checkout into build/native (emptied first) and
-               timed; the committed TIFF fixtures against their expected
-               arrays; a 304² image as PNG with each row filter, BMP and PGM
-               through the loader and the numpy reader (identical), as TIFF
-               uncompressed and LZW; host ms per image, native against numpy
-               and a threaded batch of 32, beside the host CPU's name; a ROSE
-               tree of TIFFs (16 + 13 phantoms at 304²) and `cli train
-               train.data_parallel=true train.n_devices=1` on it as one rank
-               of a torchrun-style group (NCCL; B = 8, float32 TF32 off,
-               noise off, 3 steps and evaluate, 5 AAG launches per step and
-               eval batch) against the same run on one device, beside a
-               witness (one device from weights one float32 rounding away);
-               one step of that rank against one device's (losses,
-               gradient, the witness's gradient); bf16 step
-               time, img/s and peak memory of both in turns, with a profile of
-               the data-parallel step; two ranks on the one card over gloo
-               (CUDA tensors): one float32 step at global B = 8 against the
-               full batch on one device (losses, gradient, BN stats) and
+               from this checkout into build/native (emptied first); the
+               committed TIFF fixtures against their expected arrays; a 304²
+               image as PNG with each row filter, BMP and PGM through the
+               loader and the numpy reader (identical), as TIFF uncompressed
+               and LZW; a ROSE tree of TIFFs (16 + 13 phantoms at 304²) read
+               back equal, and `cli train train.data_parallel=true
+               train.n_devices=1` on it as one rank of a torchrun-style
+               group (NCCL; B = 8, float32 TF32 off, noise off, 3 steps and
+               evaluate, 5 AAG launches per step and eval batch) against the
+               same run on one device, beside a witness (one device from
+               weights one float32 rounding away); one step of that rank
+               against one device's (losses, gradient), and in bf16 (losses
+               finite, within 5%); two ranks on the one card over gloo (CUDA
+               tensors): one float32 step at global B = 8 against the full
+               batch on one device (losses, gradient, BN stats) and
                `evaluate` with a ragged tail against one device's metrics;
   9. int8    - the int8 Predictor (post-training quantisation) on the
                committed trained weights at 304², bf16, calibrated on 32
-               phantoms: masks against the bf16 Predictor's on the phase 4
-               phantoms (argmax agreement >= 0.99, the JAX package's gate;
-               scope all >= 0.98) through the fused epilogue (5 launches per
-               __call__, 5 x k in predict_many), at int8_scope="all", with
+               phantoms: 33 scales and 25 int8 convs (scope decoder); masks
+               against the bf16 Predictor's on the phase 4 phantoms (argmax
+               agreement >= 0.99, the JAX package's gate; scope all >= 0.98)
+               through the fused epilogue (5 launches per __call__, 5 x k in
+               predict_many, equal to __call__), at int8_scope="all", with
                use_fused_decoder=False (5 AAG launches) and at B = 1 and 8,
                each with its int8 conv kernel launches counted (25 per
                decoder-scope forward: five convs a decoder, a pair in one
                launch; one per int8 conv in scope all) and no library int8
                GEMM; `cli predict --int8` on phase 6's PNG folder and
                checkpoint against an int8 Predictor called directly
-               (calibrated on the same first batch); int8 and bf16 img/s in
-               turns, the peak memory of one call, the calibration time and
-               a profile of one int8 call with the device ms of the int8
-               conv kernel, of the sites around it and of no cuBLASLt GEMM;
+               (calibrated on the same first batch);
  10. switches - the memory and lowering switches: every grouped conv shape
                of the 304² UNet's train forward at B = 8 through the dense
                and einsum lowerings against cuDNN's grouped conv (forward
                and both backwards, float32 with TF32 off and bf16, max error
-               against cuDNN float32, fwd+bwd ms); Predictor(dense_groups=
-               "decoder") and Predictor(einsum_groups="decoder+enc") beside
-               the default one at B = 32 (argmax agreement >= 0.999, 5
-               epilogue launches per call, img/s in turns); one bf16 `unet`
-               step at 304², B = 8 per remat mode (False, True, 'conv',
-               'block', 'block-enc', 'block:012', 'block:01e34',
-               'block:012+conv') from the same state and batch: AAG
-               launches (10 where the region holds the gates, else 5), BN
-               running statistics and num_batches_tracked against
-               remat=False, step ms and peak memory at B = 8 and 64; the same
-               modes in float32 (TF32 off) against remat=False beside a
-               witness one float32 rounding away (`nudge_`); the bf16 Adam
-               moment's optimizer ms and bytes against fused Adam; `cli
-               train` with steps_per_call=2, remat=block:012,
+               against cuDNN float32 within its bound, fwd+bwd ms of each,
+               L2 flushed); Predictor(dense_groups="decoder") and
+               Predictor(einsum_groups="decoder+enc") beside the default one
+               at B = 32 (argmax agreement >= 0.999, 5 epilogue launches per
+               call); one bf16 `unet` step at 304², B = 8 per remat mode
+               (False, True, 'conv', 'block', 'block-enc', 'block:012',
+               'block:01e34', 'block:012+conv') from the same state and
+               batch: AAG launches (10 where the region holds the gates,
+               else 5), step-1 losses, BN running statistics and
+               num_batches_tracked against remat=False; the same modes in
+               float32 (TF32 off) against remat=False beside a witness one
+               float32 rounding away (`nudge_`); the bf16 Adam moment's
+               bytes against fused Adam's (2 bytes saved per parameter);
+               `cli train` with steps_per_call=2, remat=block:012,
                dense_groups=decoder:01 and the bf16 moment for 4 steps
                (logged steps, the checkpoint cadence crossed at step 4, 25
                AAG launches, restore equal to the checkpoint with exp_avg in
                bf16, `cli eval --checkpoint` printing train's metrics);
-               Trainer.fit img/s at steps_per_call 1, 2 and 4;
+               Trainer.fit at steps_per_call 1, 2 and 4 ending at step 36;
  11. surface  - the rest of the JAX package's surface: one float16 `unet`
                step at 304², B = 8 (noise off) against float32 from the same
                state and batch (losses 5%, 5 AAG launches gating in float16,
-               the largest float16 logits), 10 float16 steps (finite,
-               loss_sup falls), float16 and bf16 step ms and peak memory in
-               turns, `cli train train.compute_dtype=float16` for 2 steps on
-               a ROSE tree of PNGs; `Predictor(mesh=make_mesh())` and
-               `Predictor(mesh=(cuda:0, cuda:0))` against the single
+               the largest float16 logits finite), 10 float16 steps (finite,
+               loss_sup falls), `cli train train.compute_dtype=float16` for 2
+               steps on a ROSE tree of PNGs; `Predictor(mesh=make_mesh())`
+               and `Predictor(mesh=(cuda:0, cuda:0))` against the single
                Predictor (argmax agreement >= 0.999, 5 epilogue launches per
                replica per call, 20 per replica for predict_many k = 4), a
-               BatchServer flood of 128 through the two replicas in order,
-               img/s in turns, torch.cuda.device_count(); the Predictor under
-               set_conv_transpose_impl("einsum") against "native" (agreement,
-               5 launches, img/s in turns) and the five Upsampling shapes of
-               a 304², B = 8 forward timed under each lowering; a float16
-               Predictor (5 epilogue launches in float16, agreement with
-               bf16 >= 0.995);
+               BatchServer flood of 128 through the two replicas in order;
+               the Predictor under set_conv_transpose_impl("einsum") against
+               "native" (agreement, 5 launches) and the five Upsampling
+               shapes of a 304², B = 8 forward timed under each lowering (L2
+               flushed); a float16 Predictor (5 epilogue launches in
+               float16, agreement with bf16 >= 0.995);
  12. bench    - `cli bench`'s configuration, `octave_tpu_torch.bench.main()`
                at its defaults (the committed weights, int8 decoder
                prepacked and dense-lowered behind the 0.99 agreement gate,
-               B = 256, k = 4, inputs on the device): its JSON record, 195
-               epilogue launches (5 per forward: 1 calibration, 2 gate, 8
-               per-call and 7 x 4 dispatched), 925 int8 conv kernel launches
-               (25 per int8 forward: 1 gate, 8 per-call, 7 x 4) and no AAG
-               launch or library int8 GEMM, the served
-               Predictor and the agreement; the k = 4 dispatch's first batch
-               against one call (argmax agreement >= 0.9999, the largest
-               probability difference); their img/s in turns; the memory
-               the process reserves with the two Predictors side by side,
-               graphed (a pool each) and eager (one cache); the phase's
-               seconds;
+               B = 256, k = 4, inputs on the device): its JSON record's keys,
+               device and gate (the rates left out of the log), 195 epilogue
+               launches (5 per forward: 1 calibration, 2 gate, 8 per-call and
+               7 x 4 dispatched), 925 int8 conv kernel launches (25 per int8
+               forward: 1 gate, 8 per-call, 7 x 4) and no AAG launch or
+               library int8 GEMM, the served Predictor and the agreement;
+               the k = 4 dispatch's first batch against one call (argmax
+               agreement >= 0.9999);
  13. graph    - the train step as one CUDA-graph replay per call (on CUDA
                every `Trainer.fit` of phases 5-12 runs so, data parallelism
                excepted): C.8 on the card (a fresh ResnestUNet's 87 backbone
@@ -179,10 +177,10 @@ Phases, each printing its own lines:
                `parallel_head_gate` step, 10 where the remat region holds
                the gates); a graphed fit to step 2 resumed to step 4 against
                the graphed fit to step 4; at 304², B = 8, bf16, default
-               Config, `unet` and `parallel_head_gate`: eager and graphed
-               step ms and img/s in turns, peak memory, one profiled call's
-               device idle share, and Trainer.fit img/s at steps_per_call
-               1, 2 and 4;
+               Config, `unet` and `parallel_head_gate`: the graphed step
+               captured, one eager and one graphed call's launches, and the
+               graphed Trainer.fit's peak memory at steps_per_call 2 and 4
+               within 1.25x of 1's;
  14. graphed  - serving and evaluation as CUDA-graph replays (on CUDA every
                Predictor, BatchServer and Trainer.evaluate of phases 4-13
                runs so, calibration excepted): float32 (TF32 off,
@@ -197,17 +195,13 @@ Phases, each printing its own lines:
                (float32, 128², a ragged last batch) in every batch's counts
                and in the metrics, after a fit step and after a restore;
                bf16, float16 and int8 graphed against eager (argmax
-               agreement >= 0.999, the largest difference, launches as
-               eager's, the int8 conv kernel's 25 per forward among them)
-               and the 0.995 / 0.99 floors; a
-               BatchServer flood of 1,280 equal to the eager server's with
-               no capture after warmup, and a server without warm-up
-               capturing in its worker; in turns with eager: __call__ and
-               predict_many k = 4 img/s at B = 32, one profiled call's idle
-               share, the flood's img/s and a lone request's latency, the
-               bench's int8 and bf16 Predictors at B = 256, k = 4 with each
-               one's peak and reserved memory, and Trainer.evaluate's seconds over the
-               synthetic test split;
+               agreement >= 0.999, launches as eager's, the int8 conv
+               kernel's 25 per forward among them) and the 0.995 / 0.99
+               floors; a BatchServer flood of 1,280 equal to the eager
+               server's with no capture after warmup (nor in two more floods
+               and 10 lone requests), and a server without warm-up capturing
+               in its worker; Trainer.evaluate over the synthetic test split
+               at 304², graphed equal to eager;
  15. int8 kernel - the CUDA C++ int8 conv kernel at the exact inputs of the
                int8 Predictor's sites: every `int8_conv_nhwc` call of one
                eager forward (scope decoder and scope all at B = 32, the
@@ -218,8 +212,8 @@ Phases, each printing its own lines:
                bound (int8 operations at 1,979 TOP/s, bytes at 3.35 TB/s);
                the graphed int8 Predictor's whole forward (scope decoder
                and all) against a twin whose sites run the plain version,
-               bit for bit; a profile of one eager int8 forward at
-               B = 256 by kernel group.
+               bit for bit; at B = 256 the six depth 2-4 sites on the wide
+               halo path; the crossover table (`int8_crossover`).
  16. bn_act  - the fused batch norm, residual join and ReLU kernel at every
                site of the served model's 304² forward (82 calls of
                `ops.norm.bn_act`), in bf16 at B = 32 and B = 256: each site
@@ -350,52 +344,6 @@ def bound(name, shape, itemsize):
     return (t_bytes, "bytes", nbytes) if t_bytes >= t_ops else (t_ops, "operations", nbytes)
 
 
-def kernel_group(name):
-    """Coarse layer of a device kernel, by its name, for the serving profile."""
-    if name in ("aag_fwd_kernel", "decoder_epilogue_kernel"):
-        return "triton kernels"
-    if name.startswith("Memcpy"):
-        return "host-device copies"
-    if any(s in name for s in ("xmma", "cutlass", "conv", "gemm", "tensorTransform",
-                                "nhwcSlice", "Nhwc", "Nchw")):
-        return "cuDNN convolutions"
-    return "elementwise, pooling, cat, reductions"
-
-
-def train_group(name):
-    """Coarse layer of a device kernel, by its name, for the train profile."""
-    n = name.lower()
-    if name == "aag_fwd_kernel":
-        return "AAG kernel (Triton)"
-    if name.startswith(("Memcpy", "Memset")):
-        return "copies and memsets"
-    if "nccl" in n:
-        return "NCCL all-reduce"
-    if "adam" in n or "multi_tensor" in n:
-        return "optimizer (fused Adam)"
-    if "batch_norm" in n or "welford" in n or n.startswith("bn_"):
-        return "batch norm"
-    if any(s in n for s in ("xmma", "cutlass", "conv", "gemm", "tensortransform", "nhwcslice",
-                            "nhwc", "nchw", "dgrad", "wgrad", "implicit", "sm90")):
-        return "cuDNN convolutions and GEMMs"
-    return "elementwise, pooling, cat, reductions, losses"
-
-
-def device_busy_ms(torch, prof):
-    """Milliseconds during which at least one device kernel or copy of the
-    profile ran (the union of their intervals, over all streams)."""
-    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA
-                   and not ev.name.startswith("Activity")
-                   and not getattr(ev, "is_user_annotation", False))
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    return busy / 1e3
-
-
 @contextlib.contextmanager
 def package_log():
     """The messages the port's logger emits inside the block, as a list."""
@@ -408,38 +356,6 @@ def package_log():
         yield records
     finally:
         logger.removeHandler(handler)
-
-
-def profiled(torch, fn):
-    """(wall ms, the torch.profiler profile) of one fn()."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    return wall, prof
-
-
-def profile_groups(torch, fn, group, prof=None):
-    """(wall ms, {group: device ms}, {kernel name: device ms}) of one fn(),
-    or of the profile `prof` (wall then None)."""
-    wall = None
-    if prof is None:
-        wall, prof = profiled(torch, fn)
-    groups, names = {}, {}
-    for ev in prof.events():
-        # device kernels and copies only: user annotations (e.g. the
-        # optimizer's step range) also sit on the device timeline
-        if (ev.device_type == torch.autograd.DeviceType.CUDA
-                and not ev.name.startswith("Activity")
-                and not getattr(ev, "is_user_annotation", False)):
-            ms = ev.time_range.elapsed_us() / 1e3
-            groups[group(ev.name)] = groups.get(group(ev.name), 0.0) + ms
-            names[ev.name] = names.get(ev.name, 0.0) + ms
-    return wall, groups, names
 
 
 def run_cli(argv):
@@ -727,71 +643,44 @@ def main() -> int:
     agree_aag = float((probs_aag.argmax(-1) == probs.argmax(-1)).mean())
     n_ref = 8
     plain = Predictor(weights, dtype=torch.float32, output_format="mask_u8", device="cpu")
-    t0 = time.time()
     ref_mask = plain(images[:n_ref])
     agree_ref = float((ref_mask == mask[:n_ref]).mean())
     log(f"[serve] bf16 checks: finite, |sum-1| max {sum_err:.3g}, vessel share "
         f"{(mask > 0).mean():.4f}; agreement mask_u8/prob_f32 {agree_mask:.6f}, "
         f"argmax predict_many/call {agree_many:.6f}, "
-        f"aag/fused {agree_aag:.6f}; mask_u8 vs plain fp32 path on CPU ({n_ref} images, "
-        f"{time.time() - t0:.1f} s): {agree_ref:.6f} (floor {MASK_AGREEMENT_FLOOR})")
+        f"aag/fused {agree_aag:.6f}; mask_u8 vs plain fp32 path on CPU ({n_ref} images): "
+        f"{agree_ref:.6f} (floor {MASK_AGREEMENT_FLOOR})")
     check(min(agree_mask, agree_many, agree_aag) >= PATH_AGREEMENT_FLOOR,
           "bf16 serving paths disagree")
     check(agree_ref >= MASK_AGREEMENT_FLOOR, f"mask agreement {agree_ref} < floor")
 
-    def wall(fn, reps):
-        fn()
-        fn()
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            times.append(time.perf_counter() - t0)
-        return statistics.median(times)
-
-    t_call = wall(lambda: serve(images), 10)
-    t_many = wall(lambda: serve.predict_many(stack), 5)
-    log(f"[serve] 304² bf16 trained weights, B={SERVE_B}, uint8 in, prob_f32 out, on {smi}: "
-        f"__call__ {SERVE_B / t_call:.1f} img/s ({t_call * 1e3:.1f} ms/batch); predict_many k=4 "
-        f"{4 * SERVE_B / t_many:.1f} img/s ({t_many * 1e3:.1f} ms/call)")
-
-    t_prof, groups, _ = profile_groups(torch, lambda: serve(images), kernel_group)
-    busy = sum(groups.values())
-    check(busy > 0, "the profiler saw no device time")
-    log(f"[serve] profile of one __call__ (B={SERVE_B}): wall {t_prof:.1f} ms, device busy "
-        f"{busy:.1f} ms, idle {1 - busy / t_prof:.1%}; "
-        + ", ".join(f"{g} {v:.2f} ms" for g, v in sorted(groups.items(), key=lambda x: -x[1])))
-
     # -- 5. training -------------------------------------------------------
-    phase_train(torch, smi, fused_aag, fused_aag_plain, fused_decoder_epilogue, kernel_tolerance)
+    phase_train(torch, fused_aag, fused_aag_plain, fused_decoder_epilogue, kernel_tolerance)
 
     # -- 6. deployment -----------------------------------------------------
     del serve_mask, serve_aag, plain, probs, many, mask, probs_aag, stack
-    release(torch, "before phase 6")
+    release(torch)
     by_path = {"aag": {"serve, use_fused_decoder=False": aag_launches["aag"]},
                "decoder_epilogue": {"serve, __call__": main_launches["decoder_epilogue"]},
                "int8_conv": {}, "bn_act": {"serve, __call__": main_launches["bn_act"]}}
     deploy_tmp = tempfile.mkdtemp(prefix="octave_deploy_")  # phase 9 reads it too
     try:
-        deploy, predict_args = phase_deploy(torch, smi, serve, weights,
-                                            f"__call__ {SERVE_B / t_call:.1f} img/s, "
-                                            f"predict_many k=4 {4 * SERVE_B / t_many:.1f} img/s",
-                                            deploy_tmp)
+        deploy, predict_args = phase_deploy(torch, serve, weights, deploy_tmp)
         for name, paths in deploy.items():
             by_path[name].update(paths)
 
         # -- 7. the rest of the model family ---------------------------------
-        release(torch, "before phase 7")
-        for name, paths in phase_family(torch, smi).items():
+        release(torch)
+        for name, paths in phase_family(torch).items():
             by_path[name].update(paths)
 
         # -- 8. the native loader and data parallelism ------------------------
-        release(torch, "before phase 8")
-        for name, paths in phase_parallel(torch, smi).items():
+        release(torch)
+        for name, paths in phase_parallel(torch).items():
             by_path[name].update(paths)
 
         # -- 9. int8 post-training quantised serving --------------------------
-        release(torch, "before phase 9")
+        release(torch)
         for name, paths in phase_int8(torch, smi, serve, weights, images,
                                       predict_args, deploy_tmp).items():
             by_path[name].update(paths)
@@ -799,33 +688,33 @@ def main() -> int:
         shutil.rmtree(deploy_tmp, ignore_errors=True)
 
     # -- 10. the memory and lowering switches -------------------------------
-    release(torch, "before phase 10")
+    release(torch)
     for name, paths in phase_switches(torch, smi, weights, images, serve).items():
         by_path[name].update(paths)
 
     # -- 11. the rest of the surface: float16, the fan-out, ConvTranspose ----
-    release(torch, "before phase 11")
+    release(torch)
     for name, paths in phase_surface(torch, smi, weights, images, serve).items():
         by_path[name].update(paths)
 
     # -- 12. cli bench: the JAX package's headline serving configuration ----
     del serve
-    release(torch, "before phase 12")
+    release(torch)
     for name, paths in phase_bench(torch, smi).items():
         by_path[name].update(paths)
 
     # -- 13. the train step as one CUDA-graph replay per call ----------------
-    release(torch, "before phase 13")
+    release(torch)
     for name, paths in phase_graph(torch, smi).items():
         by_path[name].update(paths)
 
     # -- 14. serving and evaluation as CUDA-graph replays ---------------------
-    release(torch, "before phase 14")
+    release(torch)
     for name, paths in phase_graphed(torch, smi, weights, images).items():
         by_path[name].update(paths)
 
     # -- 15. the int8 conv kernel at the int8 Predictor's sites ---------------
-    release(torch, "before phase 15")
+    release(torch)
     int8_kernel = phase_int8_kernel(torch, smi, weights, images)
 
     line = {"kernels": [
@@ -862,7 +751,7 @@ def main() -> int:
         "ms": bench_totals["ms"], "plain_ms": bench_totals["plain_ms"],
         "bound_ms": bench_totals["bound_ms"],
         "bound_by": "bytes" if bench_totals["by"] == {"bytes"} else "operations"}
-    release(torch, "after phase 15")
+    release(torch)
 
     # -- 16. the fused batch norm, residual join and ReLU at the model's sites
     bn = phase_bn_act(torch, smi)
@@ -879,7 +768,6 @@ def main() -> int:
         **row(bn["by_batch"][SERVE_B]), "library_ms": None,
         "at_bench_batch": {"batch": BENCH_B, "dtype": "bfloat16",
                            **row(bn["by_batch"][BENCH_B])}})
-    release(torch, "after phase 16")
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps(line))
     print(smi)
@@ -914,8 +802,7 @@ def aag_autocast_ref(x, w, b, cast):
     return x * yhat[..., 1:].sum(dim=-1, keepdim=True), yhat, logits
 
 
-def phase_train(torch, smi, fused_aag, fused_aag_plain, fused_decoder_epilogue,
-                kernel_tolerance):
+def phase_train(torch, fused_aag, fused_aag_plain, fused_decoder_epilogue, kernel_tolerance):
     from octave_tpu_torch.data import datasets as ds
     from octave_tpu_torch.train.trainer import Trainer, build_dataset
     from octave_tpu_torch.utils.config import Config
@@ -945,13 +832,12 @@ def phase_train(torch, smi, fused_aag, fused_aag_plain, fused_decoder_epilogue,
         return ", ".join(f"{k} {float(v):.6f}" for k, v in losses.items())
 
     # 5a. the main path: Trainer.fit, then evaluate, default Config
-    t0 = time.time()
     tr = trainer(**{"train.steps": "3"})
     zero()
     state = tr.fit()
     got = counts()
     log(f"[train] Trainer.fit, 3 steps, default Config (304², B=8, fp32, critic depth 4, "
-        f"64 filters, noise on): launches {got} ({time.time() - t0:.1f} s with init and data)")
+        f"64 filters, noise on): launches {got}")
     check(state.step == 3 and got == {"aag": 15, "decoder_epilogue": 0},
           f"fit: launches {got}, expected 5 AAG launches per train step")
     zero()
@@ -1038,9 +924,7 @@ def phase_train(torch, smi, fused_aag, fused_aag_plain, fused_decoder_epilogue,
     l_gpu = gpu.train_step(s_gpu, batch_of(gpu))
     got = counts()
     check(got["aag"] == 5, f"card fp32 step: launches {got}")
-    t0 = time.time()
     l_cpu = cpu.train_step(s_cpu, batch_of(cpu))
-    t_cpu = time.time() - t0
     loss_err = max(abs(float(l_gpu[k]) / float(l_cpu[k]) - 1) for k in l_cpu)
     def rel_l2(pairs):
         return float(torch.sqrt(sum(((a - b) ** 2).sum() for a, b in pairs))
@@ -1057,7 +941,7 @@ def phase_train(torch, smi, fused_aag, fused_aag_plain, fused_decoder_epilogue,
     log("[train] fp32 step gradient rel L2 err by module (card vs CPU): "
         + ", ".join(f"{k} {v:.1e}" for k, v in by_module.items()))
     log(f"[train] fp32 step, 304², B=8, TF32 off, noise off: card (AAG kernel) {fmt(l_gpu)}; "
-        f"CPU (plain AAG, {t_cpu:.1f} s) {fmt(l_cpu)}; max loss rel err {loss_err:.2e} "
+        f"CPU (plain AAG) {fmt(l_cpu)}; max loss rel err {loss_err:.2e} "
         f"(bound {TRAIN_LOSS_RTOL}); gradient rel L2 err segmentor "
         f"{grad_err['segmentor']:.2e} (bound {TRAIN_GRAD_L2['segmentor']}), critic "
         f"{grad_err['critic']:.2e} (bound {TRAIN_GRAD_L2['critic']})")
@@ -1099,43 +983,6 @@ def phase_train(torch, smi, fused_aag, fused_aag_plain, fused_decoder_epilogue,
     check(sup[-1] < sup[0], f"loss_sup did not fall: {sup[0]} -> {sup[-1]}")
     del tr, state, batch, history
 
-    # 5f. step time, throughput and memory; profile of one bf16 step
-    for label, over in (("fp32 (cuDNN TF32 on, torch's default)", {}),
-                        ("bf16 autocast", {"train.compute_dtype": "bfloat16"})):
-        tr = trainer(**over)
-        state = tr.init_state()
-        batch = batch_of(tr)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for _ in range(2):
-            tr.train_step(state, batch)
-        times = []
-        for _ in range(10):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            tr.train_step(state, batch)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        step = statistics.median(times)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        log(f"[train] {label} step, 304², B=8, critic on, on {smi}: median {step * 1e3:.1f} ms "
-            f"over 10 steps after 2 warm-up ({8 / step:.1f} img/s), peak memory {peak:.2f} GiB")
-        if "bf16" in label:
-            wall, groups, names = profile_groups(torch, lambda: tr.train_step(state, batch),
-                                                 train_group)
-            busy = sum(groups.values())
-            check(busy > 0, "the profiler saw no device time in the train step")
-            aag_ms = names.get("aag_fwd_kernel", 0.0)
-            log(f"[train] profile of one bf16 step (B=8): wall {wall:.1f} ms, device busy "
-                f"{busy:.1f} ms, idle {1 - busy / wall:.1%}; "
-                + ", ".join(f"{g} {v:.2f} ms" for g, v in sorted(groups.items(),
-                                                                  key=lambda x: -x[1]))
-                + f"; AAG kernel {aag_ms:.3f} ms in 5 launches")
-            top = sorted(names.items(), key=lambda x: -x[1])[:8]
-            log("[train] top kernels: " + "; ".join(f"{n[:60]} {v:.2f} ms" for n, v in top))
-        del tr, state, batch
-        torch.cuda.empty_cache()
-
 
 # deploy-phase bounds. Probabilities of one image through the server and
 # through Predictor.__call__ may differ by one bf16 rounding; the npz export
@@ -1145,16 +992,15 @@ SERVER_MASK_FLOOR = 0.9999
 EXPORT_PROB_MEAN_ATOL = 0.02
 
 
-def phase_deploy(torch, smi, serve, weights, direct_rates, tmp):
+def phase_deploy(torch, serve, weights, tmp):
     """Phase 6, in `tmp`, which phase 9 reads after it. Returns
     ({kernel: {path: launches}} of its main-path runs, the `cli predict`
     arguments of its PNG folder and checkpoint)."""
-    return _deploy(torch, smi, serve, weights, direct_rates, tmp)
+    return _deploy(torch, serve, weights, tmp)
 
 
-def _deploy(torch, smi, serve, weights, direct_rates, tmp):
+def _deploy(torch, serve, weights, tmp):
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from octave_tpu_torch.data import augment
     from octave_tpu_torch.data import datasets as ds
@@ -1186,7 +1032,6 @@ def _deploy(torch, smi, serve, weights, direct_rates, tmp):
         return result
 
     # 6.1 phantoms as PNGs in a ROSE tree, read back through rose()
-    t0 = time.time()
     n_train, n_test = 32, 16
     root = os.path.join(tmp, "data")
     phantoms_ds = ds.SyntheticOcta((304, 304), n=n_train + n_test, seed=21)
@@ -1210,7 +1055,7 @@ def _deploy(torch, smi, serve, weights, direct_rates, tmp):
                   and np.array_equal(got.scribble, np.where(want.scribble == 2, 2, 0)),
                   f"rose {split} sample {j} differs from the phantom written")
     log(f"[deploy] {n_train} + {n_test} phantoms (304²) written as PNGs into a ROSE tree and "
-        f"read back through rose(): pixels equal ({time.time() - t0:.1f} s)")
+        f"read back through rose(): pixels equal")
 
     # 6.2 cli train on the folder: augmentation, bf16, checkpoint, trace; resume
     ckpt_dir, prof_dir = os.path.join(tmp, "ckpt"), os.path.join(tmp, "prof")
@@ -1223,12 +1068,10 @@ def _deploy(torch, smi, serve, weights, direct_rates, tmp):
         return [cmd] + [f"{k}={v}" for k, v in {**over, **extra}.items()]
 
     eval_batches = n_test // 8
-    t0 = time.time()
     text, records = counted(
         "cli train, 4 steps + final evaluate",
         lambda: run_cli(argv("train", **{"train.steps": "4", "train.profile_dir": prof_dir})),
         {"aag": 5 * (4 + eval_batches), "decoder_epilogue": 0})
-    t_train = time.time() - t0
     check(CheckpointManager(ckpt_dir).all_steps() == [4], "no complete checkpoint at step 4")
     traces = [f for f in os.listdir(prof_dir) if f.endswith(".json")]
     check(len(traces) == 1 and os.path.getsize(os.path.join(prof_dir, traces[0])) > 10_000,
@@ -1239,8 +1082,8 @@ def _deploy(torch, smi, serve, weights, direct_rates, tmp):
     steps_logged = [r for r in records if r.startswith("step ")]
     check(len(steps_logged) == 4, f"expected 4 logged steps, got {steps_logged}")
     log(f"[deploy] cli train data.dataset=rose data.augment=true bf16 B=8, 4 steps "
-        f"({t_train:.1f} s with init, data, trace of {trace_mb:.1f} MB and eval): "
-        f"{steps_logged[-1]}; metrics {printed_metrics(text)}")
+        f"(trace of {trace_mb:.1f} MB): {len(steps_logged)} steps logged; metrics "
+        f"{printed_metrics(text)}")
 
     # the resumed run through the Trainer itself, to keep the live state
     cfg = Config().apply_overrides({**over, "train.steps": "6"})
@@ -1252,24 +1095,16 @@ def _deploy(torch, smi, serve, weights, direct_rates, tmp):
     check(live.step == 6 and CheckpointManager(ckpt_dir).all_steps() == [4, 6],
           f"resumed run ended at step {live.step}")
 
-    # checkpoint times on the live state, and the exact restore
-    timing_dir = os.path.join(tmp, "ckpt_timing")
-    mgr = CheckpointManager(timing_dir)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    # a checkpoint of the live state, and the exact restore
+    save_dir = os.path.join(tmp, "ckpt_live")
+    mgr = CheckpointManager(save_dir)
     check(mgr.save(live.step, live), "save refused")
-    t_snapshot = time.perf_counter() - t0
     mgr.wait()
-    t_write = time.perf_counter() - t0 - t_snapshot
-    ckpt_bytes = os.path.getsize(os.path.join(timing_dir, f"step_{live.step:08d}", "state.pt"))
+    ckpt_bytes = os.path.getsize(os.path.join(save_dir, f"step_{live.step:08d}", "state.pt"))
     fresh = tr.init_state()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     restored = mgr.restore_latest(fresh)
-    torch.cuda.synchronize()
-    t_restore = time.perf_counter() - t0
     mgr.close()
-    shutil.rmtree(timing_dir)
+    shutil.rmtree(save_dir)
     want, got = dict(leaves(state_to_dict(live))), dict(leaves(state_to_dict(restored)))
     check(want.keys() == got.keys(), "restored state has other entries than the live one")
     n_tensors = 0
@@ -1281,10 +1116,9 @@ def _deploy(torch, smi, serve, weights, direct_rates, tmp):
                   f"restored {k} differs from the live state")
         else:
             check(v == got[k], f"restored {k}: {got[k]} != {v}")
-    log(f"[deploy] resumed from step 4 to step 6; checkpoint of the 304² state on {smi}: "
-        f"{ckpt_bytes / 1e9:.3f} GB, save blocks {t_snapshot:.3f} s (snapshot to host), "
-        f"background write {t_write:.3f} s, restore into a fresh state {t_restore:.3f} s; "
-        f"restored == live in all {n_tensors} tensors, counters, generator and step")
+    log(f"[deploy] resumed from step 4 to step 6; checkpoint of the 304² state "
+        f"{ckpt_bytes / 1e9:.3f} GB, restored into a fresh state: restored == live in all "
+        f"{n_tensors} tensors, counters, generator and step")
 
     # 6.3 cli eval --checkpoint against the live state's metrics
     live_metrics = counted("Trainer.evaluate, live state", lambda: tr.evaluate(live),
@@ -1303,36 +1137,17 @@ def _deploy(torch, smi, serve, weights, direct_rates, tmp):
         + ", ".join(f"{k} {v:.6f}" for k, v in live_metrics.items())
         + "; restored state's evaluate within 1e-6")
 
-    # augmentation's share of a train step (host clock, synchronised)
+    # an augmented batch (D4 + jitter) on the card
     host = next(ds.batch_iterator(build_dataset(cfg), 8, seed=0))
     gen = torch.Generator(device="cuda").manual_seed(0)
-
-    def wall_ms(fn, reps=10):
-        fn()
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times)
-
-    t_plain = wall_ms(lambda: tr.device_batch(host))
-    t_aug = wall_ms(lambda: tr.device_batch(host, augment.draw(gen, 8, 0.1)))
     batch = tr.device_batch(host, augment.draw(gen, 8, 0.1))
     check(all(t.is_contiguous() for t in (batch["image"], batch["scribble_onehot"],
                                           batch["mask_onehot"])), "augmented batch not contiguous")
-    t_step = wall_ms(lambda: tr.train_step(live, batch), reps=5)
-    log(f"[deploy] prepare_batch B=8 304² on {smi}: {t_plain:.3f} ms plain, {t_aug:.3f} ms with "
-        f"D4 + jitter (draws included); bf16 train step {t_step:.1f} ms; augmentation is "
-        f"{(t_aug - t_plain) / (t_step + t_aug):.2%} of batch preparation + step")
     seg_sd = {k: v.detach().clone() for k, v in restored.segmentor.state_dict().items()}
     del tr, live, restored, fresh, batch, want, got
     torch.cuda.empty_cache()
 
     # 6.4 export to the compact npz, read back; cli predict over the test PNGs
-    t0 = time.time()
     npz = os.path.join(tmp, "weights.npz")
     export_weights_npz(npz, seg_sd, max_bytes=90 * 10**6)
     shards = sorted(f for f in os.listdir(tmp) if f.startswith("weights-shard"))
@@ -1344,7 +1159,7 @@ def _deploy(torch, smi, serve, weights, direct_rates, tmp):
               f"exported {k} is not the bf16 rounding of the state")
     npz_mb = sum(os.path.getsize(os.path.join(tmp, f)) for f in shards) / 1e6
     log(f"[deploy] export_weights_npz -> {len(shards)} shards, {npz_mb:.1f} MB; load_weights_npz "
-        f"gives every tensor's bf16 rounding ({time.time() - t0:.1f} s)")
+        f"gives every tensor's bf16 rounding")
 
     test_dir = os.path.join(root, "ROSE-1", "SVC", "test", "img")
     out_dir = os.path.join(tmp, "pred")
@@ -1425,15 +1240,10 @@ def _deploy(torch, smi, serve, weights, direct_rates, tmp):
 
         flood()  # warm: pinned download buffers of every k
         dispatched.clear()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         launch_counts(reset=True)
-        t0 = time.perf_counter()
         outs = flood()
-        t_flood = time.perf_counter() - t0
         torch.cuda.synchronize()
         got_counts = launch_counts()
-        peak = torch.cuda.max_memory_allocated() / 2**30
         want_counts = launches_of({"decoder_epilogue": 5 * sum(dispatched),
                                    "bn_act": BN_SITES * sum(dispatched)})
         log(f"[deploy] BatchServer flood of {n_flood}: dispatched k {dispatched}; launches "
@@ -1446,44 +1256,18 @@ def _deploy(torch, smi, serve, weights, direct_rates, tmp):
             paths[name]["BatchServer flood of 300"] = got_counts[name]
         err, agree = check_flood(outs, "flood")
 
-        times = [t_flood]
-        for _ in range(2):
-            t0 = time.perf_counter()
-            flood()
-            times.append(time.perf_counter() - t0)
-
-        n_long = 40 * SERVE_B  # a longer flood: start-up and the padded tail weigh less
-        t0 = time.perf_counter()
+        n_long = 40 * SERVE_B  # a longer flood, from a generator
         n_out = sum(1 for _ in srv.map(images[i % n_flood] for i in range(n_long)))
-        t_long = time.perf_counter() - t0
         check(n_out == n_long, f"long flood returned {n_out} of {n_long}")
 
         dispatched.clear()
-        lat = []
         for img in images[:10]:
-            t0 = time.perf_counter()
             srv.submit(img).result(timeout=120)
-            lat.append((time.perf_counter() - t0) * 1e3)
         check(dispatched == [1] * 10, f"lone requests took k {dispatched}")
-
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            flood()
-            torch.cuda.synchronize()
-            t_prof = (time.perf_counter() - t0) * 1e3
-        busy = device_busy_ms(torch, prof)
-        check(busy > 0, "the profiler saw no device time in the flood")
         log(f"[deploy] BatchServer 304² bf16 trained weights, B={SERVE_B}, ks (1,2,4), depth 2, "
-            f"uint8 in, prob_f32 out, on {smi}: flood of {n_flood} "
-            f"{n_flood / statistics.median(times):.1f} img/s (median of 3: "
-            + ", ".join(f"{n_flood / t:.1f}" for t in times)
-            + f"), flood of {n_long} {n_long / t_long:.1f} img/s, beside {direct_rates} "
-            f"(phase 4); results in order, max |prob diff| "
-            f"{err:.3g} vs __call__, mask agreement {agree:.6f}; lone request k=1 latency median "
-            f"{statistics.median(lat):.1f} ms (min {min(lat):.1f}, max {max(lat):.1f}); "
-            f"profiled flood: wall {t_prof:.1f} ms, device busy {busy:.1f} ms, idle "
-            f"{1 - busy / t_prof:.1%}; peak memory {peak:.2f} GiB")
+            f"uint8 in, prob_f32 out: flood of {n_flood} in order, max |prob diff| {err:.3g} vs "
+            f"__call__, mask agreement {agree:.6f}; flood of {n_long} all returned; 10 lone "
+            f"requests each k=1")
 
         # an out-of-memory at k = 4: the depth is dropped, every request resolves
         inject["oom_at_k"] = 4
@@ -1516,25 +1300,16 @@ FAMILY_HW = 304
 FAMILY_STEP_HW, FAMILY_STEP_B = 112, 2
 
 
-def family_bound(name, hw, b, itemsize):
-    """Byte bound (ms) of the seven gated depths of the gated dual decoders
-    at gating level 4: the five decoder depths of `DEPTHS` scaled to `hw`,
-    and the `_c` branch's depths 1 and 0, which have the shapes of depths 1
-    and 0."""
-    shapes = [(b, hw // 2**d, hw // 2**d, c) for d, (_, _, c) in enumerate(DEPTHS)]
-    return sum(bound(name, shape, itemsize)[0] for shape in shapes + shapes[:2])
-
-
-def phase_family(torch, smi, device="cuda"):
+def phase_family(torch, device="cuda"):
     """Phase 7. Returns {kernel: {path: launches}} of its runs."""
     tmp = tempfile.mkdtemp(prefix="octave_family_")
     try:
-        return _family(torch, smi, device, tmp)
+        return _family(torch, device, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _family(torch, smi, device, tmp):
+def _family(torch, device, tmp):
     import numpy as np
 
     from goldens import fill_state_dict, input_array, load_fixture
@@ -1608,7 +1383,6 @@ def _family(torch, smi, device, tmp):
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
 
     # 7.2 the main path: cli train parallel_head_gate on a dual ROSE tree
-    t0 = time.time()
     n_train, n_test = 16, 8
     root = os.path.join(tmp, "data")
     phantoms_ds = ds.SyntheticOcta((hw, hw), n=n_train + n_test, seed=31)
@@ -1632,8 +1406,7 @@ def _family(torch, smi, device, tmp):
               and np.array_equal(got.scribble_c, np.where(want.scribble == 2, 2, 0)),
               f"rose(dual=True) sample {j}: head targets differ from the files written")
     log(f"[family] {n_train} + {n_test} phantoms ({hw}²) in a ROSE tree with thick_gt and "
-        f"thin_gt; rose(dual=True) reads head 0 from thick_gt, head 1 from thin_gt "
-        f"({time.time() - t0:.1f} s)")
+        f"thin_gt; rose(dual=True) reads head 0 from thick_gt, head 1 from thin_gt")
 
     ckpt_dir = os.path.join(tmp, "ckpt")
     over = {"model.architecture": "parallel_head_gate", "data.dataset": "rose",
@@ -1644,11 +1417,9 @@ def _family(torch, smi, device, tmp):
             "train.steps": "4"}
     argv = [f"{k}={v}" for k, v in over.items()]
     eval_batches = n_test // 8
-    t0 = time.time()
     text, records = counted("cli train parallel_head_gate, 4 steps + final evaluate",
                             lambda: run_cli(["train"] + argv),
                             {"aag": 7 * (4 + eval_batches), "decoder_epilogue": 0})
-    t_train = time.time() - t0
     train_metrics = printed_metrics(text)
     steps_logged = [r for r in records if r.startswith("step ")]
     check(len(steps_logged) == 4 and all("loss_disc=" in r for r in steps_logged),
@@ -1658,8 +1429,7 @@ def _family(torch, smi, device, tmp):
     check(CheckpointManager(ckpt_dir).all_steps() == [4], "no complete checkpoint at step 4")
     log(f"[family] cli train model.architecture=parallel_head_gate data.dataset=rose "
         f"data.augment=true bf16 {hw}² B=8, critics main depth 4 and c depth 1, noise on, 4 "
-        f"steps ({t_train:.1f} s with init, data and eval): {steps_logged[-1]}; metrics "
-        f"{train_metrics}")
+        f"steps: {len(steps_logged)} logged with a critic loss; metrics {train_metrics}")
 
     cfg = Config().apply_overrides(over)
     tr = Trainer(cfg, device=device)
@@ -1726,9 +1496,7 @@ def _family(torch, smi, device, tmp):
     l_gpu = counted(f"one fp32 dual-critic step, {FAMILY_STEP_HW}², B={FAMILY_STEP_B}",
                     lambda: gpu.train_step(s_gpu, gpu.device_batch(host)),
                     {"aag": 7, "decoder_epilogue": 0})
-    t0 = time.time()
     l_cpu = cpu.train_step(s_cpu, cpu.device_batch(host))
-    t_cpu = time.time() - t0
     loss_err = max(abs(float(l_gpu[k]) / float(l_cpu[k]) - 1) for k in l_cpu)
 
     def rel_l2(a_mod, b_mod):
@@ -1753,7 +1521,7 @@ def _family(torch, smi, device, tmp):
     seg_bound = max(TRAIN_GRAD_L2["segmentor"], 2**0.5 * witness)
     log(f"[family] fp32 dual-critic step {FAMILY_STEP_HW}², B={FAMILY_STEP_B}, TF32 off, noise "
         f"off: card (AAG kernel) " + ", ".join(f"{k} {float(v):.6f}" for k, v in l_gpu.items())
-        + f"; CPU (plain AAG, {t_cpu:.1f} s) max loss rel err {loss_err:.2e} (bound "
+        + f"; CPU (plain AAG) max loss rel err {loss_err:.2e} (bound "
         f"{TRAIN_LOSS_RTOL}); gradient rel L2 err " + ", ".join(
             f"{k} {v:.2e}" for k, v in grad_err.items())
         + f" (bounds segmentor max({TRAIN_GRAD_L2['segmentor']}, sqrt(2) x the witness "
@@ -1787,29 +1555,9 @@ def _family(torch, smi, device, tmp):
     agree = [float((agg_f[h].argmax(-1) == agg_u[h].argmax(-1)).float().mean()) for h in (0, 1)]
     prob_err = float((torch.softmax(agg_f.float(), -1) - torch.softmax(agg_u.float(), -1))
                      .abs().max())
-
-    def wall_ms(fn, reps=5):
-        fn()
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times)
-
-    with torch.inference_mode():
-        t_fused = wall_ms(lambda: models[True](x))
-        t_unfused = wall_ms(lambda: models[False](x))
-        _, groups, names = profile_groups(torch, lambda: models[True](x), kernel_group)
-    epi_ms = names.get("decoder_epilogue_kernel", 0.0)
-    epi_bound = family_bound("decoder_epilogue", hw, 8, 2)
-    log(f"[family] fused vs unfused dual decoders, bf16 {hw}² B=8, on {smi}: argmax agreement "
+    log(f"[family] fused vs unfused dual decoders, bf16 {hw}² B=8: argmax agreement "
         f"head 0 {agree[0]:.6f}, head 1 {agree[1]:.6f} (floor {PATH_AGREEMENT_FLOOR}), max |prob "
-        f"diff| {prob_err:.3g}; forward {t_fused:.2f} ms fused, {t_unfused:.2f} ms unfused (host "
-        f"clock, median of 5); epilogue kernels {epi_ms:.4f} ms in 7 launches, bound "
-        f"{epi_bound:.4f} ms (bytes)")
+        f"diff| {prob_err:.3g}")
     check(bool(torch.isfinite(agg_f.float()).all()), "non-finite fused dual-decoder output")
     check(min(agree) >= PATH_AGREEMENT_FLOOR, f"fused and unfused dual decoders disagree {agree}")
     del models, x, images, agg_f, agg_u, atts_f, atts_u, atts_cf, atts_cu, folded, seg_sd
@@ -1838,39 +1586,6 @@ def _family(torch, smi, device, tmp):
         f"{out['y_fake'].flatten().tolist()}, y_real {out['y_real'].flatten().tolist()}")
     del facade, out, x, mask, pyr
     torch.cuda.empty_cache()
-
-    # 7.6 step time, throughput and memory beside unet; profile of one bf16 step
-    for arch in ("unet", "parallel_head_gate"):
-        for label, dt in (("fp32 (cuDNN TF32 on, torch's default)", None),
-                          ("bf16 autocast", "bfloat16")):
-            cfg = Config().apply_overrides({"model.architecture": arch, "data.synthetic_n": "8",
-                                            "data.image_size": f"[{hw},{hw}]",
-                                            **({"train.compute_dtype": dt} if dt else {})})
-            tr = Trainer(cfg, device=device)
-            state = tr.init_state()
-            batch = tr.device_batch(next(ds.batch_iterator(build_dataset(cfg), 8, seed=0)))
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            step = wall_ms(lambda: tr.train_step(state, batch), reps=10) / 1e3
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            log(f"[family] {arch} {label} step, {hw}², B=8, critics on, on {smi}: median "
-                f"{step * 1e3:.1f} ms over 10 steps after 1 warm-up ({8 / step:.1f} img/s), "
-                f"peak memory {peak:.2f} GiB")
-            if arch == "parallel_head_gate" and dt:
-                wall, groups, names = profile_groups(torch, lambda: tr.train_step(state, batch),
-                                                     train_group)
-                busy = sum(groups.values())
-                check(busy > 0, "the profiler saw no device time in the dual-critic step")
-                log(f"[family] profile of one bf16 parallel_head_gate step (B=8): wall "
-                    f"{wall:.1f} ms, device busy {busy:.1f} ms, idle {1 - busy / wall:.1%}; "
-                    + ", ".join(f"{g} {v:.2f} ms" for g, v in sorted(groups.items(),
-                                                                      key=lambda x: -x[1]))
-                    + f"; AAG kernel {names.get('aag_fwd_kernel', 0.0):.4f} ms in 7 launches, "
-                    f"bound {family_bound('aag', hw, 8, 2):.4f} ms (bytes)")
-                top = sorted(names.items(), key=lambda x: -x[1])[:8]
-                log("[family] top kernels: " + "; ".join(f"{n[:60]} {v:.2f} ms" for n, v in top))
-            del tr, state, batch
-            torch.cuda.empty_cache()
     return paths
 
 
@@ -2005,20 +1720,6 @@ def tiff_bytes(arr, lzw=False):
     return out + bytes(4)
 
 
-def host_cpu():
-    """The host CPU's model name as /proc/cpuinfo gives it, for host times."""
-    import platform
-
-    name = None
-    try:
-        with open("/proc/cpuinfo") as f:
-            name = next((line.split(":", 1)[1].strip() for line in f
-                         if line.startswith("model name")), None)
-    except OSError:
-        pass
-    return f"{name or 'CPU of unknown model'} ({platform.machine()}), {os.cpu_count()} cores"
-
-
 def write_rose_tiffs(root, n_train, n_test):
     """A ROSE-1/SVC tree of uncompressed TIFFs (img, gt, thin_gt) of
     SyntheticOcta phantoms at DP_HW², read back through `rose()` and the
@@ -2090,18 +1791,19 @@ def _two_rank_worker(device, overrides, out_dir):
             "metrics": metrics, "eval_launches": eval_launches, "step_launches": step_launches}
 
 
-def phase_parallel(torch, smi):
+def phase_parallel(torch):
     """Phase 8. Returns {kernel: {path: launches}} of its runs."""
     tmp = tempfile.mkdtemp(prefix="octave_parallel_")
     try:
-        return _parallel(torch, smi, tmp)
+        return _parallel(torch, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _parallel(torch, smi, tmp):
+def _parallel(torch, tmp):
     import ctypes
     import json as _json
+    import math
 
     import numpy as np
 
@@ -2114,17 +1816,14 @@ def _parallel(torch, smi, tmp):
     from octave_tpu_torch.utils.imageio import read_image
 
     paths = {"aag": {}, "bn_act": {}, "decoder_epilogue": {}}
-    cpu = host_cpu()
 
     # 8.1 the loader, built from this checkout's source
     shutil.rmtree(native.BUILD_DIR, ignore_errors=True)
-    t0 = time.time()
     lib_path = native.build()  # raises with the compiler's output
-    t_build = time.time() - t0
     ctypes.CDLL(str(lib_path))
     check(native.available(), f"native loader unavailable: {native.build_error()}")
     log(f"[parallel] native loader built from {native.SOURCE.relative_to(HERE)} into "
-        f"{lib_path.relative_to(HERE)} in {t_build:.1f} s")
+        f"{lib_path.relative_to(HERE)}")
 
     # 8.2 decoding: the committed TIFF fixtures; PNG filters, BMP, PGM
     fixtures = os.path.join(HERE, "tests", "torch_fixtures")
@@ -2148,12 +1847,10 @@ def _parallel(torch, smi, tmp):
     files["pgm"] = ("pgm", f"P5 {DP_HW} {DP_HW} 255\n".encode() + natural.tobytes())
     files["tiff"] = ("tif", tiff_bytes(natural))
     files["tiff lzw"] = ("tif", tiff_bytes(natural, lzw=True))
-    written = {}
     for label, (ext, data) in files.items():
         p = os.path.join(tmp, label.replace(" ", "_") + "." + ext)
         with open(p, "wb") as f:
             f.write(data)
-        written[label] = p
         got = native.decode_image(p)
         check(np.array_equal(got, natural), f"native {label}: other pixels")
         if ext != "tif":
@@ -2163,36 +1860,11 @@ def _parallel(torch, smi, tmp):
         f"BMP, PGM: native == numpy reader, byte for byte; as TIFF, uncompressed and LZW: "
         f"native exact")
 
-    def host_ms(fn, reps=5):
-        fn()
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            times.append(time.perf_counter() - t0)
-        return statistics.median(times) * 1e3
-
-    paeth, lzw = written["png filter 4"], written["tiff lzw"]
-    rates = {
-        "Paeth PNG native": host_ms(lambda: native.decode_image(paeth)),
-        "Paeth PNG numpy": host_ms(lambda: read_image(paeth), reps=3),
-        "Paeth PNG load_batch of 32": host_ms(lambda: native.load_batch([paeth] * 32,
-                                                                        (DP_HW, DP_HW))) / 32,
-        "LZW TIFF native": host_ms(lambda: native.decode_image(lzw)),
-        "LZW TIFF load_batch of 32": host_ms(lambda: native.load_batch([lzw] * 32,
-                                                                       (DP_HW, DP_HW))) / 32,
-    }
-    log(f"[parallel] host ms per {DP_HW}² image on {cpu} (host times, not the card's): "
-        + ", ".join(f"{k} {v:.3f}" for k, v in rates.items())
-        + f"; numpy/native on Paeth {rates['Paeth PNG numpy'] / rates['Paeth PNG native']:.0f}x")
-
     # 8.3 the slice's path: cli train on a ROSE tree of TIFFs, data-parallel
-    t0 = time.time()
     root = os.path.join(tmp, "data")
     write_rose_tiffs(root, N_TRAIN_TIFF, N_TEST_TIFF)
     log(f"[parallel] {N_TRAIN_TIFF} + {N_TEST_TIFF} phantoms ({DP_HW}²) written as TIFFs into "
-        f"a ROSE tree and read back through rose() and the native loader: pixels equal "
-        f"({time.time() - t0:.1f} s)")
+        f"a ROSE tree and read back through rose() and the native loader: pixels equal")
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2209,7 +1881,6 @@ def _parallel(torch, smi, tmp):
         os.environ.update(env)
         try:
             launch_counts(reset=True)
-            t0 = time.time()
             text, _ = run_cli(["train"] + [f"{k}={v}" for k, v in over.items()])
             torch.cuda.synchronize()
             got = launch_counts()
@@ -2218,8 +1889,8 @@ def _parallel(torch, smi, tmp):
                 del os.environ[k]
         want = launches_of({"aag": 5 * (3 + eval_batches)})
         log(f"[parallel] cli train data.dataset=rose (TIFF) {label}, {DP_HW}², B={DP_B}, fp32 "
-            f"TF32 off, noise off, 3 steps + evaluate: launches {got} (expected {want}), "
-            f"{time.time() - t0:.1f} s; metrics {printed_metrics(text)}")
+            f"TF32 off, noise off, 3 steps + evaluate: launches {got} (expected {want}); "
+            f"metrics {printed_metrics(text)}")
         check(got == want, f"cli train {label}: launch counts {got}, expected {want}")
         check(not torch.distributed.is_initialized(), "the cli left its process group")
         if dp:
@@ -2301,51 +1972,21 @@ def _parallel(torch, smi, tmp):
         torch.cuda.empty_cache()
         torch.backends.cudnn.allow_tf32 = True
 
-        # the same in bf16: the cost of the all-reduces and the synchronised BN
-        timed = {}
-        b16 = {"train.compute_dtype": "bfloat16"}
-        trainers = {"one device": Trainer(Config().apply_overrides({**quiet, **b16}), "cuda"),
-                    "data_parallel, 1 rank": Trainer(Config().apply_overrides(
-                        {**quiet, **b16, "train.data_parallel": "true"}), "cuda")}
-        for label in ("one device", "data_parallel, 1 rank", "data_parallel, 1 rank",
-                      "one device"):
-            tr = trainers[label]
-            state = tr.init_state()
-            batch = tr.device_batch(host)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            for _ in range(2):
-                tr.train_step(state, batch)
-            times = []
-            for _ in range(10):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                tr.train_step(state, batch)
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            timed.setdefault(label, []).append((statistics.median(times), peak))
-            if label == "data_parallel, 1 rank" and len(timed[label]) == 1:
-                wall, groups, names = profile_groups(torch, lambda: tr.train_step(state, batch),
-                                                     train_group)
-                busy = sum(groups.values())
-                nccl = sum(v for n, v in names.items() if "nccl" in n.lower())
-                log(f"[parallel] profile of one bf16 data-parallel step (1 rank, B={DP_B}): wall "
-                    f"{wall:.1f} ms, device busy {busy:.1f} ms, idle {1 - busy / wall:.1%}; "
-                    f"NCCL all-reduce kernels {nccl:.3f} ms; "
-                    + ", ".join(f"{g} {v:.2f} ms" for g, v in sorted(groups.items(),
-                                                                      key=lambda x: -x[1])))
-            del state, batch
-            torch.cuda.empty_cache()
-        (t_1a, m_1), (t_1b, _) = timed["one device"]
-        (t_da, m_d), (t_db, _) = timed["data_parallel, 1 rank"]
-        t_1, t_d = (t_1a + t_1b) / 2, (t_da + t_db) / 2
-        log(f"[parallel] bf16 step, {DP_HW}², B={DP_B}, critic on, noise off, on {smi}, in turns "
-            f"(one, dp, dp, one): one device {t_1a * 1e3:.1f} / {t_1b * 1e3:.1f} ms "
-            f"({DP_B / t_1:.1f} img/s), peak {m_1:.2f} GiB; data_parallel 1 rank "
-            f"{t_da * 1e3:.1f} / {t_db * 1e3:.1f} ms ({DP_B / t_d:.1f} img/s), peak {m_d:.2f} GiB; "
-            f"cost {(t_d / t_1 - 1):+.1%} time, {(m_d / m_1 - 1):+.1%} memory")
-        del trainers
+        # the same step in bf16: the synchronised BN's backward under autocast
+        b16 = {**quiet, "train.compute_dtype": "bfloat16"}
+        tr_dp = Trainer(Config().apply_overrides({**b16, "train.data_parallel": "true"}), "cuda")
+        tr_1 = Trainer(Config().apply_overrides(b16), "cuda")
+        l_dp = tr_dp.train_step(tr_dp.init_state(), tr_dp.device_batch(*tr_dp.shard(host)))
+        l_1 = tr_1.train_step(tr_1.init_state(), tr_1.device_batch(host))
+        loss_rel = {k: abs(float(l_dp[k]) / float(l_1[k]) - 1) for k in l_1}
+        finite = all(math.isfinite(float(v)) for v in (*l_dp.values(), *l_1.values()))
+        log(f"[parallel] one bf16 step, 1 rank vs one device, same batch and state: losses "
+            f"finite {finite}, relative differences "
+            + ", ".join(f"{k} {v:.2e}" for k, v in loss_rel.items())
+            + f" (bound {BF16_LOSS_RTOL})")
+        check(finite, "bf16 1-rank or one-device step losses not finite")
+        check(max(loss_rel.values()) <= BF16_LOSS_RTOL, f"bf16 1-rank step losses: {loss_rel}")
+        del tr_dp, tr_1, l_dp, l_1
     finally:
         torch.distributed.destroy_process_group()
     torch.cuda.empty_cache()
@@ -2353,10 +1994,8 @@ def _parallel(torch, smi, tmp):
     # 8.4 two ranks on the one card over gloo, CUDA tensors
     torch.backends.cudnn.allow_tf32 = False
     over = _dp_overrides(root, **{"train.data_parallel": "true"})
-    t0 = time.time()
     ranks = ddp.launch(_two_rank_worker, 2, "gloo", ["cuda:0", "cuda:0"],
                        args=(over, tmp), timeout=600)
-    t_two = time.time() - t0
     one = Trainer(Config().apply_overrides(_dp_overrides(root)), device="cuda")
     state = one.init_state()
     met_1 = one.evaluate(state)
@@ -2373,7 +2012,7 @@ def _parallel(torch, smi, tmp):
     eval_diff = max(abs(ranks[r]["metrics"][k] - met_1[k]) for r in range(2) for k in met_1)
     counts = [(r["step_launches"], r["eval_launches"]) for r in ranks]
     log(f"[parallel] 2 ranks on one card over gloo (CUDA tensors), fp32 TF32 off, global "
-        f"B={DP_B} (4 per rank), {DP_HW}², {t_two:.1f} s with spawn: losses "
+        f"B={DP_B} (4 per rank), {DP_HW}²: losses "
         + ", ".join(f"{k} {v:.6f}" for k, v in losses.items())
         + f"; vs the full batch on one device: losses max rel diff {loss_rel:.2e} (bound "
         f"{DP_LOSS_RTOL}), loss_sup abs diff {abs(losses['loss_sup'] - float(l_1['loss_sup'])):.2e}"
@@ -2406,16 +2045,6 @@ INT8_AGREEMENT_FLOOR = 0.99
 INT8_ALL_AGREEMENT_FLOOR = 0.98
 
 
-def int8_group(name):
-    """Coarse layer of a device kernel in the int8 serving profile."""
-    n = name.lower()
-    if "int8_conv_kernel" in n or "int8_conv_halo_kernel" in n:
-        return "int8 conv kernel (CUDA C++)"
-    if any(s in n for s in ("s8", "i8", "int8", "imma")) and "gemm" in n:
-        return "int8 GEMMs (cuBLASLt)"
-    return kernel_group(name)
-
-
 def int8_sites(pred):
     """The int8 convs of a Predictor's model: one kernel launch each per
     forward (a decoder's pair in one launch)."""
@@ -2429,9 +2058,9 @@ def phase_int8(torch, smi, serve, weights, images, predict_args, deploy_tmp):
     bf16, calibrated on a phantom batch: masks against the bf16 Predictor's
     on other phantoms (decoder scope through the fused epilogue, scope all,
     the unfused AAG configuration, B = 1, 8 and 32), launch counts (the int8
-    conv kernel's too; no library int8 GEMM), `cli predict --int8` on phase 6's PNG folder against a direct
-    int8 Predictor, img/s beside bf16, a profile of the int8 passes, the
-    calibration time and peak memory. Returns {kernel: {path: launches}}."""
+    conv kernel's too; no library int8 GEMM) and `cli predict --int8` on
+    phase 6's PNG folder against a direct int8 Predictor. Returns {kernel:
+    {path: launches}}."""
     import numpy as np
 
     from octave_tpu_torch.data.datasets import load_image_batch
@@ -2473,35 +2102,15 @@ def phase_int8(torch, smi, serve, weights, images, predict_args, deploy_tmp):
         return agree
 
     # 9.1 calibrate and quantise: decoder scope, fused epilogue (the main path)
-    timed = {}
-    calibrate = quant.calibrate
-
-    def timed_calibrate(*args):
-        t0 = time.perf_counter()
-        out = calibrate(*args)
-        torch.cuda.synchronize()
-        timed["s"] = time.perf_counter() - t0
-        return out
-
-    quant.calibrate = timed_calibrate
-    try:
-        t0 = time.perf_counter()
-        int8 = Predictor(weights, int8_decoder=True, calibration_batches=[calib])
-        build_s = time.perf_counter() - t0
-        calib_s = timed["s"]
-        t0 = time.perf_counter()
-        int8_all = Predictor(weights, int8_decoder=True, calibration_batches=[calib],
-                             int8_scope="all")
-        int8_aag = Predictor(weights, int8_decoder=True, calibration_batches=[calib],
-                             use_fused_decoder=False)
-        torch.cuda.synchronize()
-    finally:
-        quant.calibrate = calibrate
+    int8 = Predictor(weights, int8_decoder=True, calibration_batches=[calib])
+    int8_all = Predictor(weights, int8_decoder=True, calibration_batches=[calib],
+                         int8_scope="all")
+    int8_aag = Predictor(weights, int8_decoder=True, calibration_batches=[calib],
+                         use_fused_decoder=False)
     n_sites = {k: len(p.int8_scales) for k, p in
                (("decoder", int8), ("all", int8_all), ("aag", int8_aag))}
-    log(f"[int8] calibration on {SERVE_B} phantoms: {calib_s:.2f} s; whole int8 build "
-        f"{build_s:.2f} s; scales: decoder {n_sites['decoder']}, all {n_sites['all']}, "
-        f"unfused decoder {n_sites['aag']}; two more builds {time.perf_counter() - t0:.2f} s")
+    log(f"[int8] calibration on {SERVE_B} phantoms; scales: decoder {n_sites['decoder']}, all "
+        f"{n_sites['all']}, unfused decoder {n_sites['aag']}")
     check(n_sites["decoder"] == n_sites["aag"] == 33 and n_sites["all"] > 100,
           f"scale counts {n_sites}")
     # one kernel launch per int8 conv: five convs a decoder, a pair's two
@@ -2563,98 +2172,8 @@ def phase_int8(torch, smi, serve, weights, images, predict_args, deploy_tmp):
     check(prob_err <= SERVER_PROB_ATOL and mask_agree >= SERVER_MASK_FLOOR,
           "cli predict --int8 differs from the int8 Predictor called directly")
     del direct
-
-    # 9.4 throughput beside bf16 (in turns), peak memory, the int8 passes' device time
-    def wall(fn, reps=10):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            times.append(time.perf_counter() - t0)
-        return statistics.median(times)
-
-    order = [("bf16", serve), ("int8", int8), ("int8", int8), ("bf16", serve)]
-    rates = {"bf16": [], "int8": []}
-    for label, pred in order:
-        rates[label].append(SERVE_B / wall(lambda: pred(images)))
-    peaks = {}
-    for label, pred in (("bf16", serve), ("int8", int8)):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        pred(images)
-        torch.cuda.synchronize()
-        peaks[label] = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[int8] 304² trained weights, B={SERVE_B}, uint8 in, prob_f32 out, on {smi}: "
-        f"bf16 __call__ {', '.join(f'{r:.1f}' for r in rates['bf16'])} img/s, int8 (scope "
-        f"decoder, prepacked) {', '.join(f'{r:.1f}' for r in rates['int8'])} img/s (graph "
-        f"replays); peak memory of one replayed call (the graphs' pools hold the activations "
-        f"outside it) bf16 {peaks['bf16']:.2f} GiB, int8 {peaks['int8']:.2f} GiB")
-
-    from torch.profiler import record_function
-
-    # the int8 conv sites (quant.conv_packed: the layout of their input and
-    # the kernel call) and the kernel call alone (int8_conv_nhwc); what the
-    # sites launch beside the kernel is layout
-    stages = {"int8 conv sites": "conv_packed", "kernel calls": "int8_conv_nhwc"}
-    originals = {fn: getattr(quant, fn) for fn in stages.values()}
-
-    def labelled(label, fn):
-        @functools.wraps(fn)
-        def run(*a, **k):
-            with record_function(f"int8:{label}"):
-                return fn(*a, **k)
-        return run
-
-    # the labels are host annotations of eager calls (a graph replay carries
-    # none): an eager twin of `int8`, calibrated alike, is profiled
-    int8_eager = Predictor(weights, int8_decoder=True, calibration_batches=[calib],
-                           graphed=False)
-    int8_eager(images)
-    for label, fn in stages.items():
-        setattr(quant, fn, labelled(label, originals[fn]))
-    try:
-        from torch.profiler import ProfilerActivity, profile
-
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            int8_eager(images)
-            torch.cuda.synchronize()
-            t_prof = (time.perf_counter() - t0) * 1e3
-    finally:
-        for fn, orig in originals.items():
-            setattr(quant, fn, orig)
-    stage_ms = {}
-    for ev in prof.key_averages():
-        if ev.key.startswith("int8:"):
-            stage_ms[ev.key[5:]] = getattr(ev, "device_time_total", 0.0) / 1e3
-    groups, busy = {}, 0.0
-    for ev in prof.events():
-        if (ev.device_type == torch.autograd.DeviceType.CUDA
-                and not ev.name.startswith("Activity")
-                and not getattr(ev, "is_user_annotation", False)):
-            ms = ev.time_range.elapsed_us() / 1e3
-            groups[int8_group(ev.name)] = groups.get(int8_group(ev.name), 0.0) + ms
-            busy += ms
-    check(busy > 0, "the profiler saw no device time")
-    del int8_eager
-    log(f"[int8] profile of one eager int8 __call__ (B={SERVE_B}): wall {t_prof:.1f} ms, device "
-        f"kernels {busy:.1f} ms; by group: "
-        + ", ".join(f"{g} {v:.2f} ms" for g, v in sorted(groups.items(), key=lambda x: -x[1]))
-        + "; the int8 convs' device ms by stage: "
-        + ", ".join(f"{k} {v:.2f}" for k, v in stage_ms.items()))
-    check(groups.get("int8 conv kernel (CUDA C++)", 0.0) > 0
-          and groups.get("int8 GEMMs (cuBLASLt)", 0.0) == 0,
-          f"the profile shows no int8 conv kernel, or a library int8 GEMM: {groups}")
-    log(json.dumps({"int8": {
-        "device": smi, "batch": SERVE_B, "agreement": agreements,
-        "img_s": {k: v for k, v in rates.items()}, "peak_gib": peaks,
-        "calibration_s": calib_s, "int8_build_s": build_s, "scales": n_sites,
-        "int8_convs": convs,
-        "profile_ms": {"wall": t_prof, "device_kernels": busy, "groups": groups,
-                       "stages": stage_ms}}}))
+    log(json.dumps({"int8": {"device": smi, "batch": SERVE_B, "agreement": agreements,
+                             "scales": n_sites, "int8_convs": convs}}))
     return paths
 
 
@@ -2717,7 +2236,6 @@ def _switches(torch, smi, weights, images, serve, tmp):
 
     # 10.1 every grouped conv shape of the 304² UNet's train forward at B = 8:
     # the lowerings against cuDNN's grouped conv, forward and both backwards
-    t_phase = time.time()
     shapes = {}
     model = ResnestUNet(2).cuda().to(memory_format=torch.channels_last).train()
 
@@ -2809,33 +2327,16 @@ def _switches(torch, smi, weights, images, serve, tmp):
         agree[label] = float((probs.argmax(-1) == base_probs.argmax(-1)).mean())
         check(agree[label] >= PATH_AGREEMENT_FLOOR, f"{label}: argmax agreement "
               f"{agree[label]} with the default Predictor")
-
-    def wall(fn, reps=5):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            times.append(time.perf_counter() - t0)
-        return statistics.median(times)
-
-    rates = {"default": [], **{label: [] for label in lowered}}
-    order = ["default", *lowered, *reversed(list(lowered)), "default"]
-    for label in order:
-        pred = serve if label == "default" else lowered[label]
-        rates[label].append(SERVE_B / wall(lambda: pred(images)))
-    log(f"[switches] lowered Predictors, 304² bf16 trained weights, B={SERVE_B}, on {smi}: "
-        f"argmax agreement with the default {agree}; img/s in turns "
-        + "; ".join(f"{k} {', '.join(f'{r:.1f}' for r in v)}" for k, v in rates.items()))
-    summary["serving"] = {"agreement": agree, "img_s": rates}
+    log(f"[switches] lowered Predictors, 304² bf16 trained weights, B={SERVE_B}: "
+        f"argmax agreement with the default {agree}")
+    summary["serving"] = {"agreement": agree}
     del lowered
     torch.cuda.empty_cache()
 
     # 10.3 remat: one unet step at 304², B = 8, per mode from the same state
-    # and batch, in bf16 and float32; step ms and peak memory at B = 8, 64
-    def trainer(mode, b=8, dtype="bfloat16", **extra):
-        over = {"data.synthetic_n": str(b), "data.batch_size": str(b),
+    # and batch, in bf16 and float32
+    def trainer(mode, dtype="bfloat16", **extra):
+        over = {"data.synthetic_n": "8", "data.batch_size": "8",
                 "train.remat": str(mode).lower(), "model.instance_noise": "false",
                 "model.label_noise": "false", "train.eval_every": "0", "train.log_every": "0",
                 **extra}
@@ -2854,19 +2355,8 @@ def _switches(torch, smi, weights, images, serve, tmp):
     def grads(seg):
         return [p.grad.detach().clone() for p in seg.parameters()]
 
-    def step_ms(tr, state, batch, reps):
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            tr.train_step(state, batch)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times)
-
     remat_rows = {}
     b8 = batch_of(trainer(False))
-    b64 = batch_of(trainer(False, b=64))
     first = {}
     for mode, want_aag in REMAT_MODES.items():
         tr = trainer(mode)
@@ -2890,24 +2380,11 @@ def _switches(torch, smi, weights, images, serve, tmp):
                   f"{bn_err:.3g} from remat=False's (bound {REMAT_BN_REL})")
             check(loss_err <= 1e-6, f"remat={mode!r}: step-1 losses {loss_err:.3g} from "
                   "remat=False's (the forward is the same)")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        row["b8_ms"] = step_ms(tr, state, b8, 3)
-        row["b8_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-        tr.train_step(state, b64)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        row["b64_ms"] = step_ms(tr, state, b64, 3)
-        row["b64_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            log(f"[switches] remat={mode!r}, bf16: step-1 losses {loss_err:.2e}, BN stats "
+                f"{bn_err:.2e} from remat=False")
         remat_rows[str(mode)] = row
-        log(f"[switches] remat={mode!r}, bf16, on {smi}: B=8 {row['b8_ms']:.1f} ms/step, peak "
-            f"{row['b8_peak_gib']:.2f} GiB; B=64 {row['b64_ms']:.1f} ms/step, peak "
-            f"{row['b64_peak_gib']:.2f} GiB"
-            + (f"; step-1 losses {row['loss_rel']:.2e}, BN stats {row['bn_rel']:.2e} from "
-               "remat=False" if mode is not False else ""))
         del tr, state, losses
         torch.cuda.empty_cache()
-    del b64
 
     # float32 (TF32 off): step-2 losses and the step-1 gradient against
     # remat=False, beside a witness: remat=False from weights one float32
@@ -2953,31 +2430,29 @@ def _switches(torch, smi, weights, images, serve, tmp):
     summary["remat"] = remat_rows
     torch.cuda.empty_cache()
 
-    # 10.4 the bf16 moment: optimizer ms and bytes against fused Adam
+    # 10.4 the bf16 moment: the first moment's bytes against fused Adam's
     tr = trainer(False)
     state = tr.init_state()
     tr.train_step(state, b8)
-    opt_rows = {}
+    moment_bytes = {}
     for label, make in (("fused Adam", lambda ps: torch.optim.Adam(ps, lr=1e-4, fused=True)),
                         ("bf16 moment", lambda ps: schedule.MomentAdam(ps, 1e-4))):
-        ms, nbytes = [], 0
+        nbytes = 0
         for module in (state.segmentor, state.critic):
             opt = make([p for p in module.parameters()])
-            ms.append(wall(opt.step, reps=10) * 1e3)
+            opt.step()
             nbytes += sum(s["exp_avg"].nbytes for s in opt.state.values())
             del opt
-        opt_rows[label] = {"ms_per_step": sum(ms), "exp_avg_bytes": nbytes}
-    saved = opt_rows["fused Adam"]["exp_avg_bytes"] - opt_rows["bf16 moment"]["exp_avg_bytes"]
+        moment_bytes[label] = nbytes
+    saved = moment_bytes["fused Adam"] - moment_bytes["bf16 moment"]
     n_params = sum(p.numel() for m in (state.segmentor, state.critic) for p in m.parameters()
                    if p.grad is not None)
     check(saved == 2 * n_params, f"bf16 moment saves {saved} bytes for {n_params} parameters")
-    log(f"[switches] optimizer step of both players on {smi} (host clock, synchronised): "
-        f"fused Adam {opt_rows['fused Adam']['ms_per_step']:.3f} ms, bf16 moment "
-        f"{opt_rows['bf16 moment']['ms_per_step']:.3f} ms; first moment "
-        f"{opt_rows['fused Adam']['exp_avg_bytes'] / 1e6:.1f} MB -> "
-        f"{opt_rows['bf16 moment']['exp_avg_bytes'] / 1e6:.1f} MB ({saved / 1e6:.1f} MB saved, "
+    log(f"[switches] optimizer step of both players: first moment "
+        f"{moment_bytes['fused Adam'] / 1e6:.1f} MB (fused Adam) -> "
+        f"{moment_bytes['bf16 moment'] / 1e6:.1f} MB (bf16 moment; {saved / 1e6:.1f} MB saved, "
         f"{n_params / 1e6:.2f}M parameters)")
-    summary["moment"] = opt_rows
+    summary["moment_exp_avg_bytes"] = moment_bytes
     del tr, state
     torch.cuda.empty_cache()
 
@@ -3000,11 +2475,9 @@ def _switches(torch, smi, weights, images, serve, tmp):
 
     CheckpointManager.save = recorded
     try:
-        t0 = time.time()
         text, records = counted("cli train with the switches, 4 steps + final evaluate",
                                 lambda: run_cli(["train"] + [f"{k}={v}" for k, v in over.items()]),
                                 {"aag": 5 * 4 + 5, "decoder_epilogue": 0})
-        t_train = time.time() - t0
     finally:
         CheckpointManager.save = save
     logged = [r.split()[1] for r in records if r.startswith("step ")]
@@ -3040,33 +2513,23 @@ def _switches(torch, smi, weights, images, serve, tmp):
         abs(eval_metrics[k] - v) <= 1e-4 + 1e-9 for k, v in train_metrics.items()),
           f"cli eval printed {eval_metrics}, cli train {train_metrics}")
     log(f"[switches] cli train steps_per_call=2 remat=block:012 dense_groups=decoder:01 "
-        f"moment bf16, 304² B=8 bf16, 4 steps ({t_train:.1f} s with init and eval): logged steps "
+        f"moment bf16, 304² B=8 bf16, 4 steps: logged steps "
         f"{logged}, saves {saves}; restore equal to the checkpoint in {n_tensors} tensors, "
         f"exp_avg bf16; cli eval --checkpoint prints train's metrics {train_metrics}")
 
-    # img/s of Trainer.fit at steps_per_call 1, 2, 4 (12 steps each; phase
-    # 13 times eager and graphed fits in turns)
+    # Trainer.fit at steps_per_call 1, 2 and 4, 12 steps each, on one state
     base_over = {"data.synthetic_n": "8", "data.batch_size": "8",
                  "train.compute_dtype": "bfloat16", "train.eval_every": "0",
                  "train.log_every": "0"}
     state = Trainer(Config().apply_overrides(base_over), device="cuda").init_state()
-    spc = {1: [], 2: [], 4: []}
     for k in (1, 2, 4):
         tr = Trainer(Config().apply_overrides({**base_over, "train.steps_per_call": str(k),
                                                "train.steps": str(state.step + 12)}),
                      device="cuda")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         state = tr.fit(state)
-        torch.cuda.synchronize()
-        spc[k].append(12 * 8 / (time.perf_counter() - t0))
-    log(f"[switches] Trainer.fit, 12 steps, 304² B=8 bf16, on {smi}: img/s by steps_per_call "
-        + "; ".join(f"{k}: {', '.join(f'{r:.1f}' for r in v)}" for k, v in spc.items()))
-    summary["steps_per_call_img_s"] = spc
     check(state.step == 36, f"the three fits ended at step {state.step}")
     del state, tr, b8
     torch.cuda.empty_cache()
-    log(f"[switches] phase 10 took {time.time() - t_phase:.1f} s")
     log(json.dumps({"switches": summary}))
     return paths
 
@@ -3102,7 +2565,6 @@ def _surface(torch, smi, weights, images, serve, tmp):
 
     paths = {"aag": {}, "bn_act": {}, "decoder_epilogue": {}}
     summary = {"device": smi, "device_count": torch.cuda.device_count()}
-    t_phase = time.time()
 
     def counted(label, fn, want):
         """fn() with the launch counts zeroed just before it and read just after."""
@@ -3116,17 +2578,6 @@ def _surface(torch, smi, weights, images, serve, tmp):
             if n:
                 paths[name][label] = n
         return result
-
-    def wall(fn, reps=5):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        return statistics.median(times)
 
     # 11.1 float16 training: one unet step from the default Config (304²,
     # B = 8, noise off) in float16 against float32 (TF32 off) from the same
@@ -3202,23 +2653,6 @@ def _surface(torch, smi, weights, images, serve, tmp):
     del f16, state16, batch16, history
     torch.cuda.empty_cache()
 
-    rows = {"float16": [], "bfloat16": []}
-    for dtype in ("float16", "bfloat16", "bfloat16", "float16"):
-        tr = trainer(dtype)
-        st = tr.init_state()
-        b = batch_of(tr)
-        tr.train_step(st, b)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ms = wall(lambda: tr.train_step(st, b)) * 1e3
-        rows[dtype].append((ms, torch.cuda.max_memory_allocated() / 2**30))
-        del tr, st, b
-        torch.cuda.empty_cache()
-    log(f"[surface] unet step 304², B=8, noise off, on {smi}: ms / peak GiB in turns "
-        + "; ".join(f"{k} " + ", ".join(f"{ms:.1f} / {g:.2f}" for ms, g in v)
-                    for k, v in rows.items()))
-    summary["step_ms_peak_gib"] = rows
-
     # cli train train.compute_dtype=float16 on a ROSE tree of PNGs: 2 steps
     # and the final evaluate
     root = os.path.join(tmp, "data")
@@ -3242,7 +2676,7 @@ def _surface(torch, smi, weights, images, serve, tmp):
           and all(0.0 <= v <= 1.0 for v in metrics.values()),
           f"cli train float16: logged {logged}, metrics {metrics}")
     log(f"[surface] cli train train.compute_dtype=float16 on a ROSE tree of 8 + 8 PNGs: "
-        f"{logged[-1]}; metrics {metrics}")
+        f"{len(logged)} steps logged, no nan; metrics {metrics}")
 
     # 11.2 the fan-out: Predictor(mesh=...) over every visible card and as
     # two replicas on cuda:0, bf16, uint8 in, B = 32, trained weights
@@ -3278,8 +2712,8 @@ def _surface(torch, smi, weights, images, serve, tmp):
     direct = np.concatenate([fan(np.stack(flood[i:i + SERVE_B]))
                              for i in range(0, SURFACE_FLOOD, SERVE_B)])
     def flood_through(pred):
-        """(results, seconds, launch counts, k per dispatch) of the flood
-        through a BatchServer over `pred`."""
+        """(results, launch counts, k per dispatch) of the flood through a
+        BatchServer over `pred`."""
         dispatched = []
         dispatch = pred.predict_many_device
 
@@ -3292,15 +2726,13 @@ def _surface(torch, smi, weights, images, serve, tmp):
             with BatchServer(pred, batch=SERVE_B, image_hw=(304, 304), ks=(1, 2, 4)) as srv:
                 del dispatched[:]  # the warm-up's
                 launch_counts(reset=True)
-                t0 = time.perf_counter()
                 outs = list(srv.map(iter(flood)))
-                seconds = time.perf_counter() - t0
                 torch.cuda.synchronize()
-                return outs, seconds, launch_counts(), dispatched
+                return outs, launch_counts(), dispatched
         finally:
             del pred.predict_many_device
 
-    outs, t_flood, got_launches, dispatched = flood_through(fan)
+    outs, got_launches, dispatched = flood_through(fan)
     label = f"BatchServer flood of {SURFACE_FLOOD} over Predictor(mesh=(cuda:0, cuda:0))"
     want = launches_of({"decoder_epilogue": 5 * 2 * sum(dispatched),
                         "bn_act": BN_SITES * 2 * sum(dispatched)})
@@ -3314,22 +2746,11 @@ def _surface(torch, smi, weights, images, serve, tmp):
     agree = float(((got[..., 1] >= 0.5) == (direct[..., 1] >= 0.5)).mean())
     check(len(outs) == SURFACE_FLOOD and err <= SERVER_PROB_ATOL and agree >= SERVER_MASK_FLOOR,
           f"fanned-out flood: {len(outs)} results, max |prob diff| {err}, agreement {agree}")
-    flood_rates = {"single": [], "(cuda:0, cuda:0)": [SURFACE_FLOOD / t_flood]}
-    for name, pred in (("single", serve), ("single", serve), ("(cuda:0, cuda:0)", fan)):
-        flood_rates[name].append(SURFACE_FLOOD / flood_through(pred)[1])
     log(f"[surface] BatchServer flood of {SURFACE_FLOOD} over Predictor(mesh=(cuda:0, cuda:0)): "
         f"in order, max |prob diff| {err:.3g} and mask agreement {agree:.6f} against the "
-        f"direct path; img/s in turns (fan-out, single, single, fan-out): "
-        + "; ".join(f"{k} {', '.join(f'{r:.1f}' for r in v)}" for k, v in flood_rates.items()))
-
-    preds = {"single": serve, **fans}
-    rates = {k: [] for k in preds}
-    for label in ["single", *fans, *reversed(list(fans)), "single"]:
-        rates[label].append(SERVE_B / wall(lambda: preds[label](images)))
-    log(f"[surface] __call__ img/s in turns (304² bf16, B={SERVE_B}, on {smi}): "
-        + "; ".join(f"{k} {', '.join(f'{r:.1f}' for r in v)}" for k, v in rates.items()))
-    summary["fan_out"] = {"rows": fan_rows, "img_s": rates, "flood_img_s": flood_rates}
-    del fans, fan, preds
+        f"direct path")
+    summary["fan_out"] = {"rows": fan_rows}
+    del fans, fan
     torch.cuda.empty_cache()
 
     # 11.3 the ConvTranspose lowering: the Predictor under "einsum" against
@@ -3356,10 +2777,6 @@ def _surface(torch, smi, weights, images, serve, tmp):
         agree = float((probs.argmax(-1) == single.argmax(-1)).mean())
         check(bool(np.isfinite(probs).all()) and agree >= PATH_AGREEMENT_FLOOR,
               f"einsum ConvTranspose Predictor: argmax agreement {agree} with native")
-        ct_rates = {"native": [], "einsum": []}
-        for impl in ("native", "einsum", "einsum", "native"):
-            common.set_conv_transpose_impl(impl)
-            ct_rates[impl].append(SERVE_B / wall(lambda: serve(images)))
         for xs, ws in shapes:
             x = torch.randn(xs, generator=gen, device="cuda").to(torch.bfloat16).contiguous(
                 memory_format=torch.channels_last)
@@ -3379,8 +2796,7 @@ def _surface(torch, smi, weights, images, serve, tmp):
     finally:
         common.set_conv_transpose_impl("native")
     log(f"[surface] Predictor under einsum ConvTranspose vs native (304² bf16, B={SERVE_B}): "
-        f"argmax agreement {agree:.6f}; img/s in turns "
-        + "; ".join(f"{k} {', '.join(f'{r:.1f}' for r in v)}" for k, v in ct_rates.items()))
+        f"argmax agreement {agree:.6f}")
     log(f"[surface] the 5 Upsampling ConvTransposes of a 304² B=8 bf16 forward, ms (L2 flushed) "
         f"native / einsum, on {smi}: "
         + "; ".join(f"{r['x']} -> {r['w'][1]}: {r['native_ms']:.4f} / {r['einsum_ms']:.4f} "
@@ -3388,7 +2804,7 @@ def _surface(torch, smi, weights, images, serve, tmp):
                     for r in up_rows)
         + f"; summed {sum(r['native_ms'] for r in up_rows):.4f} / "
           f"{sum(r['einsum_ms'] for r in up_rows):.4f}")
-    summary["conv_transpose"] = {"agreement": agree, "img_s": ct_rates, "upsampling": up_rows}
+    summary["conv_transpose"] = {"agreement": agree, "upsampling": up_rows}
     # 11.4 float16 serving: the decoder epilogue kernel in float16 on the
     # Predictor's path (the committed weights cast to float16)
     f16_pred = Predictor(weights, dtype=torch.float16)
@@ -3398,11 +2814,9 @@ def _surface(torch, smi, weights, images, serve, tmp):
     check(bool(np.isfinite(probs16).all()) and agree16 >= MASK_AGREEMENT_FLOOR,
           f"float16 Predictor: argmax agreement {agree16} with bf16")
     log(f"[surface] Predictor(dtype=float16) (304², B={SERVE_B}): argmax agreement with bf16 "
-        f"{agree16:.6f} (floor {MASK_AGREEMENT_FLOOR}), "
-        f"{SERVE_B / wall(lambda: f16_pred(images)):.1f} img/s")
+        f"{agree16:.6f} (floor {MASK_AGREEMENT_FLOOR})")
     summary["f16_serving_agreement"] = agree16
     del f16_pred
-    log(f"[surface] phase 11 took {time.time() - t_phase:.1f} s")
     log(json.dumps({"surface": summary}))
     return paths
 
@@ -3417,19 +2831,12 @@ BENCH_KEYS = {"metric", "value", "unit", "per_call_img_s", "int8_mask_agreement"
 def phase_bench(torch, smi):
     """Phase 12: `octave_tpu_torch.bench.main()` in process at its defaults
     (B = 256, 304², k = 4, the committed weights, CUDA), with the launch
-    counts zeroed just before it; then, on the Predictors it built, the
-    k = 4 dispatch against one call, each Predictor's peak memory at B = 256
-    and the two Predictors' img/s in turns. Returns the launches by path."""
+    counts zeroed just before it; then, on the Predictor it served, the
+    k = 4 dispatch against one call. Returns the launches by path."""
     from octave_tpu_torch import bench
     from octave_tpu_torch.ops import quant
     from octave_tpu_torch.ops.kernels import launch_counts
-    from octave_tpu_torch.serve import Predictor
 
-    t_phase = time.time()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    base_reserved = torch.cuda.memory_reserved() / 2**30
-    torch.cuda.reset_peak_memory_stats()
     out = io.StringIO()
     launch_counts(reset=True)
     quant.int8_mm.launches = 0
@@ -3437,12 +2844,12 @@ def phase_bench(torch, smi):
         run = bench.main()
     torch.cuda.synchronize()
     counts, gemms = launch_counts(), quant.int8_mm.launches
-    t_bench = time.time() - t_phase
-    bench_peak = torch.cuda.max_memory_allocated() / 2**30
     printed = out.getvalue().splitlines()
     check(len(printed) == 1, f"bench printed {len(printed)} lines, expected one JSON line")
-    log(f"[bench] record: {printed[0]}")
     record = json.loads(printed[0])
+    # the record's rates are the benchmark's to read (h100bench/)
+    log("[bench] record: " + json.dumps({k: v for k, v in record.items()
+                                         if k not in ("value", "per_call_img_s")}))
     # one calibration forward, two gate forwards, 8 per-call forwards and 7
     # dispatches of k forwards, 5 epilogues each; the int8 conv kernel 25
     # times in each int8 forward: the gate's one and, if the int8 Predictor
@@ -3454,8 +2861,7 @@ def phase_bench(torch, smi):
     want = launches_of({"decoder_epilogue": 5 * (1 + 2 + 8 + 7 * BENCH_K),
                         "bn_act": BN_SITES * (1 + 2 + 8 + 7 * BENCH_K),
                         "int8_conv": 25 * (1 + (8 + 7 * BENCH_K) * int8_served)})
-    log(f"[bench] launches {counts} (expected {want}), library int8 GEMMs {gemms}; "
-        f"bench.main() took {t_bench:.1f} s, peak device memory {bench_peak:.2f} GiB")
+    log(f"[bench] launches {counts} (expected {want}), library int8 GEMMs {gemms}")
     check(counts == want and gemms == 0, f"bench launches {counts} and {gemms} library int8 "
           f"GEMMs, expected {want} and 0")
     check(set(record) == BENCH_KEYS, f"bench record keys {sorted(record)}")
@@ -3480,47 +2886,7 @@ def phase_bench(torch, smi):
         f"B={BENCH_B}): argmax agreement {agree:.6f} (floor {BENCH_DISPATCH_AGREEMENT}), "
         f"max |prob diff| {diff:.3g}")
     check(agree >= BENCH_DISPATCH_AGREEMENT, f"k={BENCH_K} dispatch disagrees with one call")
-    del one, first
-
-    rates = {"int8": [], "bf16": []}
-    for name in ("int8", "bf16", "bf16", "int8"):
-        dt = bench.median_dispatch_s(getattr(run, name), xk, calls=4, warmup=1)
-        rates[name].append(BENCH_B * BENCH_K / dt)
-    log(f"[bench] k={BENCH_K} x B={BENCH_B} dispatch in turns on {smi}: int8 "
-        f"{' / '.join(f'{r:.1f}' for r in rates['int8'])} img/s, bf16 "
-        f"{' / '.join(f'{r:.1f}' for r in rates['bf16'])} img/s")
-
-    # what the process reserves with the bench's two Predictors serving
-    # side by side, graphed (each replica's graphs keep a memory pool of
-    # their own for as long as it lives) and eager (one general cache,
-    # shared): the cache emptied, then each Predictor's k = 1 and k = BENCH_K
-    # dispatches, and what stays reserved after them
-    def serving_gib(preds):
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        for p in preds:
-            bench.median_dispatch_s(p, xs[None], calls=1, warmup=0)
-            bench.median_dispatch_s(p, xk, calls=1, warmup=0)
-        torch.cuda.synchronize()
-        return (torch.cuda.memory_reserved() / 2**30 - base_reserved,
-                torch.cuda.memory_allocated() / 2**30)
-
-    held = {"graphed": serving_gib((run.int8, run.bf16))}
-    del run, pred
-    calibration = bench.phantom_batch(BENCH_B, 304)[:bench.CALIBRATION_IMAGES]
-    weights = bench.load_trained_variables()
-    eager = [Predictor(weights, graphed=False, int8_decoder=True,
-                       calibration_batches=[calibration], dense_groups="decoder"),
-             Predictor(weights, graphed=False)]
-    held["eager"] = serving_gib(eager)
-    log(f"[bench] memory reserved over the phase's start ({base_reserved:.2f} GiB) by the int8 "
-        f"and the bf16 Predictor of the bench side by side after their B={BENCH_B} k=1 and "
-        f"k={BENCH_K} dispatches, the cache emptied before them: "
-        + "; ".join(f"{m} {r:.2f} GiB ({a:.2f} GiB allocated)" for m, (r, a) in held.items())
-        + f" on {smi}")
-    del eager, xs, xk
-    log(f"[bench] phase 12 took {time.time() - t_phase:.1f} s")
+    del one, first, run, pred, xs, xk
     label = f"cli bench (B={BENCH_B}, k={BENCH_K})"
     return {name: {label: want[name]} for name in ("bn_act", "decoder_epilogue", "int8_conv")}
 
@@ -3536,7 +2902,8 @@ GRAPH_DECAY = 8
 # remat region holds them (the recompute runs them again)
 GRAPH_AAG = {"unet": 5, "parallel_head_gate": 7}
 GRAPH_REMAT = (True, "conv", "block", "block-enc", "block:012", "block:01e34", "block:012+conv")
-# timed calls of each Trainer.fit in the speed part
+# calls of the second graphed Trainer.fit of 13.4: replays inside the window
+# its peak memory is read over
 FIT_CALLS = 6
 # C.8: a conv's sample std against sqrt(2/(kh kw out)), in standard errors
 # (1/sqrt(2n) relative for n draws), as tests/test_torch_init.py holds it
@@ -3558,8 +2925,8 @@ def phase_graph(torch, smi):
 def cached_datasets():
     """Every `Trainer.fit` inside reads one dataset object per (config,
     split): the synthetic phantoms are generated once, not in each fit's
-    first epoch (~0.2 s per 304² phantom on the host), so a fit's time is
-    its training. The phantoms are the same either way."""
+    first epoch (~0.2 s per 304² phantom on the host). The phantoms are the
+    same either way."""
     from octave_tpu_torch.train import trainer
 
     build, made = trainer.build_dataset, {}
@@ -3590,7 +2957,6 @@ def _graph(torch, smi, tmp):
     from octave_tpu_torch.utils.checkpoint import state_to_dict
     from octave_tpu_torch.utils.config import Config
 
-    t_phase = time.time()
     paths = {"aag": {}, "bn_act": {}, "decoder_epilogue": {}}
     summary = {"device": smi}
 
@@ -3736,115 +3102,75 @@ def _graph(torch, smi, tmp):
     finally:
         torch.use_deterministic_algorithms(False)
         torch.backends.cudnn.allow_tf32 = True
-    log(f"[graph] ops without a deterministic variant in these runs: {nondeterministic or 'none'}"
-        f" (13.1-13.3 took {time.time() - t_phase:.1f} s)")
+    log(f"[graph] ops without a deterministic variant in these runs: "
+        f"{nondeterministic or 'none'}")
     summary["bit_for_bit"] = bits
     summary["nondeterministic_ops"] = nondeterministic
     torch.cuda.empty_cache()
 
-    # 13.4 speed at 304², B = 8, bf16, default Config: eager and graphed in
-    # turns, peak memory, a profile of one call; Trainer.fit img/s at k = 1, 2, 4
-    speed = {}
+    # 13.4 at 304², B = 8, bf16, default Config: eager and graphed calls'
+    # launches; the graphed Trainer.fit's peak memory at k = 1, 2, 4
+    fit_peak_gib = {}
     for arch in ("unet", "parallel_head_gate"):
         over = {"data.synthetic_n": "8", "train.compute_dtype": "bfloat16",
                 "train.eval_every": "0", "train.log_every": "0", "model.architecture": arch}
         host = next(ds.batch_iterator(build_dataset(Config().apply_overrides(over)), 8, seed=0))
-        row, states, runs, batches = {}, {}, {}, {}
+        states, runs, batches = {}, {}, {}
         for mode in ("eager", "graphed"):
             tr = Trainer(Config().apply_overrides(over), device="cuda",
                          graphed=mode == "graphed")
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            before = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
             states[mode] = state = tr.init_state()
             runs[mode] = run_call = tr.step_call(state)
             batches[mode] = tr.call_batch([host], 0)
             for _ in range(3):  # the graphed: warm-up, capture, replay
                 run_call(state, batches[mode])
-            torch.cuda.synchronize()
-            row[f"{mode}_peak_gib"] = (torch.cuda.max_memory_allocated() - before) / 2**30
-            row[f"{mode}_reserved_gib"] = torch.cuda.memory_reserved() / 2**30
         check(isinstance(runs["graphed"], GraphedStep) and runs["graphed"].graph is not None,
               f"{arch}: the graphed step was not captured")
-        times = {"eager": [], "graphed": []}
-        for mode in ("eager", "graphed", "graphed", "eager"):
-            for _ in range(5):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                runs[mode](states[mode], batches[mode])
-                torch.cuda.synchronize()
-                times[mode].append(time.perf_counter() - t0)
         for mode in ("eager", "graphed"):
-            ms = statistics.median(times[mode]) * 1e3
             launch_counts(reset=True)
-            wall, prof = profiled(torch, lambda: runs[mode](states[mode], batches[mode]))
-            _, groups, _ = profile_groups(torch, None, train_group, prof)
+            runs[mode](states[mode], batches[mode])
+            torch.cuda.synchronize()
             counts = launch_counts()
             check(counts["bn_act"] == 0, f"{arch} {mode}: {counts['bn_act']} fused batch norms")
             launched = counts["aag"]
-            # kernels of a graph's independent branches overlap: the union of
-            # their intervals, not their sum
-            busy = device_busy_ms(torch, prof)
-            check(busy > 0, f"{arch} {mode}: the profiler saw no device time")
             check(launched == GRAPH_AAG[arch], f"{arch} {mode}: {launched} AAG launches in "
                   f"one call, expected {GRAPH_AAG[arch]}")
-            row.update({f"{mode}_ms": ms, f"{mode}_img_s": 8e3 / ms,
-                        f"{mode}_profile_wall_ms": wall, f"{mode}_busy_ms": busy,
-                        f"{mode}_idle": 1 - busy / wall})
-            log(f"[graph] {arch} bf16 step, 304², B=8, {mode}, on {smi}: median {ms:.1f} ms over "
-                f"10 calls in turns ({8e3 / ms:.1f} img/s); peak "
-                f"{row[f'{mode}_peak_gib']:.2f} GiB above what was allocated before its state "
-                f"(reserved {row[f'{mode}_reserved_gib']:.2f} GiB after); one profiled call: "
-                f"wall {wall:.1f} ms, device busy {busy:.1f} ms (union of kernel intervals), "
-                f"idle {1 - busy / wall:.1%}; kernel time by group "
-                + ", ".join(f"{g} {v:.2f} ms" for g, v in sorted(groups.items(),
-                                                                  key=lambda x: -x[1])))
-        log(f"[graph] {arch}: graphed step {row['eager_ms'] / row['graphed_ms']:.2f}x eager's "
-            f"img/s on {smi}")
+            log(f"[graph] {arch} bf16 step, 304², B=8, {mode}: {launched} AAG launches in one "
+                f"call")
 
-        # Trainer.fit at steps_per_call 1, 2, 4: a fit of 2 calls (the
-        # graphed: warm-up, capture), then a timed fit of FIT_CALLS more on
-        # the state, the host's data path included (the phantoms cached)
-        fit_rates, fit_peaks = {}, {}
+        # the graphed Trainer.fit at steps_per_call 1, 2, 4: a fit of 2 calls
+        # (warm-up, capture), then a fit of FIT_CALLS more on the state
+        fit_peaks = {}
         for k in (1, 2, 4):
-            for mode in (("eager", "graphed") if k != 2 else ("graphed", "eager")):
-                state = states[mode]
-                tr = Trainer(Config().apply_overrides(
-                    {**over, "train.steps_per_call": str(k), "train.steps": str(state.step + 2 * k)}),
-                    device="cuda", graphed=mode == "graphed")
-                torch.cuda.synchronize()
-                before = torch.cuda.memory_allocated()
-                torch.cuda.reset_peak_memory_stats()
-                tr.fit(state)
-                tr.cfg.train.steps = state.step + FIT_CALLS * k
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                tr.fit(state)
-                torch.cuda.synchronize()
-                fit_rates[f"{mode} k={k}"] = FIT_CALLS * k * 8 / (time.perf_counter() - t0)
-                fit_peaks[f"{mode} k={k}"] = (torch.cuda.max_memory_allocated() - before) / 2**30
-        row["fit_img_s"], row["fit_peak_gib"] = fit_rates, fit_peaks
-        log(f"[graph] {arch} Trainer.fit (304², B=8, bf16, {FIT_CALLS} calls after a fit of 2, "
-            f"the host's data path included) on {smi}: img/s "
-            + "; ".join(f"{key} {v:.1f}" for key, v in fit_rates.items())
-            + "; peak above the state's resident memory (GiB) "
+            state = states["graphed"]
+            tr = Trainer(Config().apply_overrides(
+                {**over, "train.steps_per_call": str(k), "train.steps": str(state.step + 2 * k)}),
+                device="cuda", graphed=True)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            tr.fit(state)
+            tr.cfg.train.steps = state.step + FIT_CALLS * k
+            tr.fit(state)
+            torch.cuda.synchronize()
+            fit_peaks[f"graphed k={k}"] = (torch.cuda.max_memory_allocated() - before) / 2**30
+        log(f"[graph] {arch} graphed Trainer.fit (304², B=8, bf16, {FIT_CALLS} calls after a fit "
+            f"of 2): peak above the state's resident memory (GiB) "
             + "; ".join(f"{key} {v:.2f}" for key, v in fit_peaks.items()))
         for k in (2, 4):
             check(fit_peaks[f"graphed k={k}"] <= 1.25 * fit_peaks["graphed k=1"],
                   f"{arch}: {k} steps in one graph peak at {fit_peaks[f'graphed k={k}']:.2f} GiB, "
                   f"one step's graph at {fit_peaks['graphed k=1']:.2f}")
-        speed[arch] = row
+        fit_peak_gib[arch] = fit_peaks
         del states, runs, batches, state, tr
         torch.cuda.empty_cache()
-    summary["speed"] = speed
-    log(f"[graph] phase 13 took {time.time() - t_phase:.1f} s")
+    summary["fit_peak_gib"] = fit_peak_gib
     log(json.dumps({"graph": summary}))
     return paths
 
 
 # graphed-serving settings (phase 14). The float32 bit-for-bit cases run at
-# 304², B = GRAPHED_B; the dtypes, the server and the speeds at SERVE_B.
+# 304², B = GRAPHED_B; the dtypes and the server at SERVE_B.
 GRAPHED_B = 8
 GRAPHED_FLOOD = 1280
 # graphed against eager in bf16, float16 and int8: the same kernels on the
@@ -3871,7 +3197,6 @@ def _graphed(torch, smi, weights, images, tmp):
 
     import numpy as np
 
-    from octave_tpu_torch import bench
     from octave_tpu_torch.ops import quant
     from octave_tpu_torch.ops.kernels import launch_counts
     from octave_tpu_torch.serve import BatchServer, Predictor
@@ -3880,7 +3205,6 @@ def _graphed(torch, smi, weights, images, tmp):
     from octave_tpu_torch.utils.checkpoint import CheckpointManager
     from octave_tpu_torch.utils.config import Config
 
-    t_phase = time.time()
     paths = {"aag": {}, "bn_act": {}, "decoder_epilogue": {}, "int8_conv": {}}
     summary = {"device": smi}
     dev0 = torch.device("cuda", 0)
@@ -4081,8 +3405,7 @@ def _graphed(torch, smi, weights, images, tmp):
     summary["bit_for_bit"] = bits
     summary["evaluate"] = eval_rows
     summary["nondeterministic_ops"] = nondeterministic
-    log(f"[graphed] ops without a deterministic variant: {nondeterministic or 'none'} "
-        f"(14.1-14.6 float32 took {time.time() - t_phase:.1f} s)")
+    log(f"[graphed] ops without a deterministic variant: {nondeterministic or 'none'}")
     torch.cuda.empty_cache()
 
     # 14.2 bf16 (the default), float16 and int8 (decoder, prepacked): graphed
@@ -4115,7 +3438,7 @@ def _graphed(torch, smi, weights, images, tmp):
         variants[name] = {"agreement": min(low, low2), "max_abs_diff": max(worst, worst2),
                           "int8_convs_per_call": convs, "probs": probs}
         if name == "bf16":
-            serving = (eager, graphed)  # kept for the speeds below
+            serving = (eager, graphed)  # kept for the server below
         del eager, graphed
     mask32 = ref32[..., 1] >= 0.5
     floors = {
@@ -4137,46 +3460,8 @@ def _graphed(torch, smi, weights, images, tmp):
     summary["variants"], summary["floors"] = variants, floors
     del ref32
 
-    # 14.7 speed, bf16, B = 32: __call__ and predict_many k = 4 in turns, and
-    # one profiled call of each
     eager, graphed = serving
-    stack4 = np.broadcast_to(images[None], (4, *images.shape)).copy()
-    graphed.predict_many(stack4)  # warm-up; the timing's first call captures
-    eager.predict_many(stack4)
-
-    def median_s(fn, reps):
-        fn()
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            times.append(time.perf_counter() - t0)
-        return statistics.median(times)
-
-    rates = {"eager": {"call": [], "many": []}, "graphed": {"call": [], "many": []}}
     preds = {"eager": eager, "graphed": graphed}
-    for mode in ("eager", "graphed", "graphed", "eager"):
-        p = preds[mode]
-        rates[mode]["call"].append(SERVE_B / median_s(lambda: p(images), 10))
-        rates[mode]["many"].append(4 * SERVE_B / median_s(lambda: p.predict_many(stack4), 5))
-    profile_rows = {}
-    for mode, p in preds.items():
-        wall_ms, prof = profiled(torch, lambda: p(images))
-        _, groups, _ = profile_groups(torch, None, kernel_group, prof)
-        busy = device_busy_ms(torch, prof)
-        check(busy > 0, f"{mode}: the profiler saw no device time")
-        profile_rows[mode] = {"wall_ms": wall_ms, "busy_ms": busy, "idle": 1 - busy / wall_ms,
-                              "groups": groups}
-        log(f"[graphed] profile of one {mode} __call__ (304² bf16 B={SERVE_B}) on {smi}: wall "
-            f"{wall_ms:.1f} ms, device busy {busy:.1f} ms (union of kernel intervals), idle "
-            f"{1 - busy / wall_ms:.1%}; " + ", ".join(
-                f"{g} {v:.2f} ms" for g, v in sorted(groups.items(), key=lambda x: -x[1])))
-    log(f"[graphed] 304² bf16 trained weights, B={SERVE_B}, uint8 in, prob_f32 out, on {smi}, "
-        f"in turns (eager, graphed, graphed, eager; medians of 10 / 5 calls): __call__ img/s "
-        + "; ".join(f"{m} {', '.join(f'{r:.1f}' for r in v['call'])}" for m, v in rates.items())
-        + "; predict_many k=4 img/s "
-        + "; ".join(f"{m} {', '.join(f'{r:.1f}' for r in v['many'])}" for m, v in rates.items()))
-    summary["serving"] = {"img_s": rates, "profile": profile_rows}
 
     # 14.5 BatchServer over the graphed Predictor: a flood of GRAPHED_FLOOD
     # against the eager server's, no capture after warmup; a server without
@@ -4210,20 +3495,12 @@ def _graphed(torch, smi, weights, images, tmp):
         check(graphed.captures == after_warmup, f"the flood captured "
               f"{graphed.captures - after_warmup} graphs after warmup")
         del outs
-        flood_rates = {"eager": [], "graphed": []}
-        for mode in ("eager", "graphed", "graphed", "eager"):
-            t0 = time.perf_counter()
-            n = sum(1 for _ in servers[mode].map(iter(flood)))
-            flood_rates[mode].append(n / (time.perf_counter() - t0))
-        latency = {}
-        for mode, srv in servers.items():
-            lat = []
-            for img in flood[:10]:
-                t0 = time.perf_counter()
-                srv.submit(img).result(timeout=120)
-                lat.append((time.perf_counter() - t0) * 1e3)
-            latency[mode] = statistics.median(lat)
-        check(graphed.captures == after_warmup, "the timed floods captured")
+        # two more floods and ten lone requests (k = 1) through the graphed server
+        for _ in range(2):
+            sum(1 for _ in servers["graphed"].map(iter(flood)))
+        for img in flood[:10]:
+            servers["graphed"].submit(img).result(timeout=120)
+        check(graphed.captures == after_warmup, "the later floods captured")
     finally:
         for srv in servers.values():
             srv.close()
@@ -4231,12 +3508,8 @@ def _graphed(torch, smi, weights, images, tmp):
     log(f"[graphed] BatchServer flood of {GRAPHED_FLOOD} (304² bf16, B={SERVE_B}, ks (1,2,4)) "
         f"over the graphed Predictor: every result equal to the eager server's (max |diff| "
         f"{diff:.3g}); {flood_launches} epilogue launches through the replays (5 x the sum of "
-        f"the dispatched k); {after_warmup} graphs captured by warmup, none after; on {smi}, "
-        f"in turns: "
-        + "; ".join(f"{m} {', '.join(f'{r:.1f}' for r in v)} img/s"
-                    for m, v in flood_rates.items())
-        + "; a lone request's latency (median of 10) "
-        + ", ".join(f"{m} {v:.1f} ms" for m, v in latency.items()))
+        f"the dispatched k); {after_warmup} graphs captured by warmup, none after it in three "
+        f"floods and 10 lone requests")
     paths["decoder_epilogue"][f"graphed BatchServer flood of {GRAPHED_FLOOD}"] = flood_launches
     fresh = Predictor(weights)
     n_worker = 8 * SERVE_B
@@ -4251,63 +3524,13 @@ def _graphed(torch, smi, weights, images, tmp):
     log(f"[graphed] BatchServer without warm-up: its worker captured {fresh.captures} graphs "
         f"(thread_local captures beside the resolver's downloads); three floods of {n_worker} "
         f"equal the eager Predictor bit for bit")
-    summary["server"] = {"img_s": flood_rates, "lone_latency_ms": latency,
-                         "captures_after_warmup": graphed.captures - after_warmup,
+    summary["server"] = {"captures_after_warmup": graphed.captures - after_warmup,
                          "captured_in_worker": fresh.captures}
     del fresh, eager, graphed, serving, preds, servers
     torch.cuda.empty_cache()
 
-    # 14.7 the bench's Predictors (B = 256, k = 4, inputs on the card): graphed
-    # and eager in turns, and each one's peak memory from its build through
-    # its first k = 1 and k = 4 calls. The eager int8 Predictor's cache at
-    # B = 256 (~38 GiB reserved for 26 GiB allocated) and the int8 graphs'
-    # pool (~40 GiB) do not fit the card together: int8 builds each mode
-    # anew at its turn, the other one deleted
-    xs = torch.from_numpy(bench.phantom_batch(BENCH_B, 304)).to("cuda", torch.bfloat16)
-    xk = xs.unsqueeze(0).expand(BENCH_K, *xs.shape).contiguous()
-    calib = bench.phantom_batch(BENCH_B, 304)[:bench.CALIBRATION_IMAGES]
-    bench_rows = {}
-    for name, kw in (("int8", {"int8_decoder": True, "calibration_batches": [calib],
-                               "dense_groups": "decoder"}), ("bf16", {})):
-        row, live = {}, {}
-        rates_ = {"eager": [], "graphed": []}
-        for mode in ("eager", "graphed", "graphed", "eager"):
-            if mode not in live:
-                if name == "int8":
-                    live.clear()
-                torch.cuda.synchronize()
-                torch.cuda.empty_cache()
-                before = torch.cuda.memory_allocated()
-                torch.cuda.reset_peak_memory_stats()
-                p = live[mode] = Predictor(weights, graphed=mode == "graphed", **kw)
-                for _ in range(3 if mode == "graphed" else 1):  # warm-up, capture, replay
-                    bench.median_dispatch_s(p, xs[None], calls=1, warmup=0)
-                    bench.median_dispatch_s(p, xk, calls=1, warmup=0)
-                torch.cuda.synchronize()
-                del p
-                row.setdefault(f"{mode}_peak_gib",
-                               (torch.cuda.max_memory_allocated() - before) / 2**30)
-                row.setdefault(f"{mode}_reserved_gib", torch.cuda.memory_reserved() / 2**30)
-            rates_[mode].append(BENCH_B * BENCH_K / bench.median_dispatch_s(
-                live[mode], xk, calls=4, warmup=1))
-        del live
-        row["img_s"] = rates_
-        row["peak_ratio"] = row["graphed_peak_gib"] / row["eager_peak_gib"]
-        bench_rows[name] = row
-        log(f"[graphed] bench {name} Predictor, B={BENCH_B}, k={BENCH_K} dispatch of inputs on "
-            f"the card, on {smi}, in turns (eager, graphed, graphed, eager"
-            + ("; int8 rebuilt at each switch" if name == "int8" else "") + "): "
-            + "; ".join(f"{m} {', '.join(f'{r:.1f}' for r in v)} img/s" for m, v in rates_.items())
-            + f"; peak allocated from its build through k=1 and k=4 calls: eager "
-            f"{row['eager_peak_gib']:.2f} GiB, graphed {row['graphed_peak_gib']:.2f} GiB "
-            f"({row['peak_ratio'] - 1:+.1%}; reserved then {row['eager_reserved_gib']:.2f} / "
-            f"{row['graphed_reserved_gib']:.2f} GiB)")
-        torch.cuda.empty_cache()
-    summary["bench"] = bench_rows
-    del xs, xk
-
     # 14.7 Trainer.evaluate over the default Config's synthetic test split
-    # (304², B = 8, 64 phantoms, float32), eager and graphed in turns
+    # (304², B = 8, 64 phantoms, float32), graphed against eager
     over = {"train.eval_every": "0", "train.log_every": "0"}
     trainers = {"eager": Trainer(Config().apply_overrides(over), device="cuda", graphed=False),
                 "graphed": Trainer(Config().apply_overrides(over), device="cuda")}
@@ -4315,23 +3538,13 @@ def _graphed(torch, smi, weights, images, tmp):
     for tr in trainers.values():  # the phantoms generated; the graphed: warm-up, capture
         tr.evaluate(state)
     trainers["graphed"].evaluate(state)
-    eval_s = {"eager": [], "graphed": []}
-    results = {}
-    for mode in ("eager", "graphed", "graphed", "eager"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        results[mode] = trainers[mode].evaluate(state)
-        eval_s[mode].append(time.perf_counter() - t0)
+    results = {mode: tr.evaluate(state) for mode, tr in trainers.items()}
     check(results["graphed"] == results["eager"], f"evaluate at 304²: graphed {results}")
     log(f"[graphed] Trainer.evaluate over the synthetic test split "
         f"({trainers['eager'].cfg.data.synthetic_n} phantoms, 304², B=8, float32, unet, the "
-        f"phantoms cached) on {smi}, in turns: "
-        + "; ".join(f"{m} {', '.join(f'{s:.3f}' for s in v)} s" for m, v in eval_s.items())
-        + "; the metrics equal")
-    summary["evaluate_s"] = eval_s
+        f"phantoms cached): the graphed replay's metrics equal eager's")
     del trainers, state
     torch.cuda.empty_cache()
-    log(f"[graphed] phase 14 took {time.time() - t_phase:.1f} s")
     log(json.dumps({"graphed": summary}))
     return paths
 
@@ -4401,7 +3614,6 @@ def phase_int8_kernel(torch, smi, weights, images):
     )
     from octave_tpu_torch.serve import Predictor
 
-    t_phase = time.time()
     timer = Timer(torch)
     kernel = quant.int8_conv_nhwc
     signature = inspect.signature(kernel)
@@ -4563,7 +3775,7 @@ def phase_int8_kernel(torch, smi, weights, images):
             f"replay, B={SERVE_B}) equal a twin's whose int8 convs run the plain version "
             f"(quantise, im2col, torch._int_mm, float32 dequantisation) bit for bit")
         del pred, twin, got, want
-    release(torch, "phase 15 before B=256")
+    release(torch)
     # 15.3 the bench's configuration at B = BENCH_B: its decoder's sites
     xs = bench.phantom_batch(BENCH_B, 304)
     pred = Predictor(weights, int8_decoder=True, graphed=False, dense_groups="decoder",
@@ -4571,26 +3783,12 @@ def phase_int8_kernel(torch, smi, weights, images):
     rows = run_sites(pred, xs, timed=True)
     results["bench"] = by_depth(rows, f"B={BENCH_B} bf16 (the bench's Predictor)")
     del rows
-    # 15.4 where the time of one eager int8 forward at B = BENCH_B goes
-    pred(xs)
-    t_prof, groups, _ = profile_groups(torch, lambda: pred(xs), int8_group)
-    busy = sum(groups.values())
-    check(groups.get("int8 conv kernel (CUDA C++)", 0.0) > 0
-          and groups.get("int8 GEMMs (cuBLASLt)", 0.0) == 0,
-          f"B={BENCH_B} profile: no int8 conv kernel, or a library int8 GEMM: {groups}")
-    log(f"[int8 kernel] profile of one eager int8 forward of the bench's Predictor "
-        f"(B={BENCH_B}, bf16, scope decoder): wall {t_prof:.1f} ms, device kernels {busy:.1f} "
-        f"ms; " + ", ".join(f"{g} {v:.2f} ms" for g, v in sorted(groups.items(),
-                                                            key=lambda x: -x[1]))
-        + f" on {smi}")
-    results["profile_bench"] = {"wall_ms": t_prof, "device_ms": busy, "groups": groups}
     check(results["bench"][0]["paths"]["wgmma"] >= 6,
           f"B={BENCH_B}: {results['bench'][0]['paths']} sites per path, not the six of "
           "depths 2-4 on the wide halo path")
     del pred
-    release(torch, "phase 15 before the crossover table")
+    release(torch)
     results["crossover"] = int8_crossover(torch, smi, timer)
-    log(f"[int8 kernel] phase 15 took {time.time() - t_phase:.1f} s")
     return results
 
 
@@ -4660,7 +3858,6 @@ def phase_bn_act(torch, smi, batches=(SERVE_B, BENCH_B)):
     JSON line's bn_act row."""
     from octave_tpu_torch.ops.kernels.bn_act import fused_bn_act, fused_bn_act_plain
 
-    t_phase = time.time()
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(16)
     sites = bn_act_sites(torch)
@@ -4692,7 +3889,6 @@ def phase_bn_act(torch, smi, batches=(SERVE_B, BENCH_B)):
             f"plain chain {tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
             f"({tot['gbytes']:.2f} GB): {100 * tot['bound_ms'] / tot['ms']:.1f}% of the bound, "
             f"{tot['plain_ms'] / tot['ms']:.2f}x the plain chain, on {smi}")
-    log(f"[bn_act] phase 16 took {time.time() - t_phase:.1f} s")
     return {"sites": len(sites), "by_batch": totals}
 
 
@@ -4749,18 +3945,12 @@ def int8_crossover(torch, smi, timer, batches=(1, 8, 32, 256)):
     return rows
 
 
-def release(torch, label):
-    """Collect Python's garbage, empty the caching allocator and log what
-    the process still reserves on the card, and how much of it lies in
-    CUDA-graph memory pools (what a graph or a tensor still alive holds)."""
+def release(torch):
+    """Collect Python's garbage and empty the caching allocator between
+    phases."""
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    pools = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-                if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
-    log(f"[memory] {label}: reserved {torch.cuda.memory_reserved() / 2**30:.2f} GiB, of which "
-        f"{pools / 2**30:.2f} GiB in graph pools; allocated "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
 
 
 def nudge_(torch, module, seed=0):
